@@ -1,0 +1,705 @@
+"""Host-side batch pipeline of the PyTorch port: the main path.
+
+The twin of the main-path subset of `pywfa_tpu.batch`: encode and 2-bit
+pack on the host (native C++), push one input array, run the whole device
+pipeline (decode, eq-bits, the fused loop, the walk, the packing) on one
+device, pull one packed output array, then assemble CIGARs with the native
+match-fill and escalate the pairs that overflowed the rung.
+
+Covered: gap-affine, end-to-end span, full-CIGAR scope, exact matching, no
+heuristic, high memory mode. Every other configuration raises
+NotImplementedError naming its ROADMAP item.
+
+Transport: pinned host buffers and non_blocking copies on the current
+CUDA stream, with one CUDA event per in-flight batch, so dispatching batch
+N+1 overlaps the device work of batch N. `device="cpu"` runs the same
+pipeline through the kernels' plain torch versions.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import sys
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from pywfa_tpu.attributes import (
+    INT_MAX,
+    AlignerAttributes,
+    AlignmentForm,
+    HeuristicParams,
+    SystemParams,
+    classic_score_batch,
+    penalties_affine,
+    validate_alignment,
+)
+from pywfa_tpu.cigar import Cigar, cigar_maxtrim
+from pywfa_tpu.constants import (
+    AlignmentScope,
+    AlignmentSpan,
+    DistanceMetric,
+    HeuristicStrategy,
+    MemoryMode,
+    OFFSET_NULL,
+    STATUS_ALG_COMPLETED,
+    STATUS_ALG_PARTIAL,
+    STATUS_MAX_STEPS_REACHED,
+)
+from pywfa_tpu.oracle import OracleAligner
+
+from .ops import config as C
+from .ops import engine as E
+from .ops import fused_loop
+
+PATTERN_SENTINEL = C.PATTERN_PAD
+TEXT_SENTINEL = C.TEXT_PAD
+
+# device-memory budget for the choices tensor (S_cap * B * W bytes); above
+# it the reference segments the traceback, which is not ported yet
+CHOICES_BYTES_CAP = 4 * 2**30
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run the plain torch versions on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def encode_batch(seqs: Sequence[bytes], L: int, chunk: int, sentinel: int,
+                 lens: Optional[np.ndarray] = None) -> np.ndarray:
+    """[B, L + chunk] int8 tokens, sentinel-padded past each sequence's end."""
+    B = len(seqs)
+    out = np.full((B, L + chunk), sentinel, dtype=np.int8)
+    if B == 0:
+        return out
+    if lens is None:
+        lens = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=B)
+    flat = np.frombuffer(b"".join(seqs), dtype=np.uint8)
+    starts = np.cumsum(lens) - lens
+    rows = np.repeat(np.arange(B), lens)
+    cols = np.arange(flat.size) - np.repeat(starts, lens)
+    out[rows, cols] = flat.view(np.int8)
+    return out
+
+
+_STRICT_ACGT = np.full(256, 255, dtype=np.uint8)
+_STRICT_ACGT[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4)
+
+
+def pack_tokens(mat: np.ndarray, lens: np.ndarray,
+                width: Optional[int] = None) -> Optional[np.ndarray]:
+    """Token matrix [B, W] int8 -> 2-bit rows [B, ceil(width/4)] uint8 over
+    the leading `width` columns, or None when any in-length byte is not
+    uppercase ACGT (or a sequence is longer than `width`)."""
+    if width is None or width > mat.shape[1]:
+        width = mat.shape[1]
+    lens = np.asarray(lens)
+    if lens.size and int(lens.max()) > width:
+        return None
+    from pywfa_tpu import native
+    if native.lib() is not None:
+        return native.pack2_batch(mat, lens, width)
+    codes = _STRICT_ACGT[mat.view(np.uint8)[:, :width]]
+    valid = np.arange(width)[None, :] < lens[:, None]
+    codes = np.where(valid, codes, np.uint8(0))
+    if codes.max() == 255:
+        return None
+    padw = (-width) % 4
+    if padw:
+        codes = np.pad(codes, ((0, 0), (0, padw)))
+    c = codes.reshape(mat.shape[0], -1, 4)
+    return (c[..., 0] | (c[..., 1] << 2)
+            | (c[..., 2] << 4) | (c[..., 3] << 6))
+
+
+def _encode_side(seqs, L, chunk, sentinel, lens):
+    """One side of a batch: the sentinel-padded token matrix plus its 2-bit
+    rows (None when any in-length byte is not ACGT), in one native pass
+    when the native library is available."""
+    from pywfa_tpu import native
+    if native.lib() is not None:
+        r = native.encode_pack_batch(b"".join(seqs), lens, L + chunk,
+                                     sentinel, pack_width=L)
+        if r is not None:
+            return r
+    mat = encode_batch(seqs, L, chunk, sentinel, lens=lens)
+    return mat, pack_tokens(mat, np.asarray(lens), width=L)
+
+
+def _match_fill(pattern: bytes, text: bytes, ops_fwd: np.ndarray,
+                k_start: int, plen: int, tlen: int) -> str:
+    """Expand a (sparse, forward-order) walk-op stream into per-base ops,
+    re-deriving each match run by greedy forward extension (exact, since
+    stored offsets are maximally extended). The pure-Python twin of the
+    native match-fill, used when the native library is unavailable."""
+    pa = np.frombuffer(pattern, dtype=np.uint8)
+    ta = np.frombuffer(text, dtype=np.uint8)
+    v, h = (0, int(k_start)) if k_start >= 0 else (-int(k_start), 0)
+    parts: List[str] = ["I" * h, "D" * v]
+
+    def extend() -> None:
+        nonlocal v, h
+        n = min(plen - v, tlen - h)
+        if n <= 0:
+            return
+        eq = pa[v: v + n] == ta[h: h + n]
+        run = n if eq.all() else int(np.argmin(eq))
+        parts.append("M" * run)
+        v += run
+        h += run
+
+    extend()  # start-cell extension
+    for tok in ops_fwd[ops_fwd != 0].tolist():
+        op = tok & 3
+        if op == C.WOP_X:
+            parts.append("X")
+            v += 1
+            h += 1
+        elif op == C.WOP_I:
+            parts.append("I")
+            h += 1
+        else:
+            parts.append("D")
+            v += 1
+        if tok & C.WOP_MFLAG:
+            extend()
+    return "".join(parts)
+
+
+def _native_fill(clean_idx, pat_np, txt_np, plens, tlens, end_k, end_off,
+                 ops_fwd, k_start) -> dict:
+    """Batched C++ match-fill for the clean pairs; {} if the native library
+    is unavailable."""
+    from pywfa_tpu import native
+    if native.lib() is None:
+        return {}
+    idx = np.asarray(clean_idx)
+    if len(idx) == pat_np.shape[0]:
+        def sel(a):
+            return np.ascontiguousarray(a)
+    else:
+        def sel(a):
+            return np.ascontiguousarray(a[idx])
+    ev = (sel(end_off) - sel(end_k)).astype(np.int64)
+    eh = sel(end_off).astype(np.int64)
+    res = native.match_fill_batch(
+        sel(ops_fwd).view(np.uint8),
+        np.full(len(idx), ops_fwd.shape[1], dtype=np.int64),
+        sel(k_start).astype(np.int64),
+        sel(pat_np).view(np.uint8), sel(plens).astype(np.int64),
+        sel(txt_np).view(np.uint8), sel(tlens).astype(np.int64),
+        (sel(tlens) - eh).astype(np.int64),
+        (sel(plens) - ev).astype(np.int64), -1)
+    if res is None:
+        return {}
+    out, out_lens = res
+    flat = out.tobytes().decode("latin-1")
+    cap = out.shape[1]
+    lens = out_lens.tolist()
+    return {int(b): flat[i * cap: i * cap + lens[i]]
+            for i, b in enumerate(idx) if lens[i] >= 0}
+
+
+@dataclasses.dataclass(slots=True)
+class BatchResult:
+    """Per-pair outcome of a batched alignment."""
+
+    status: int
+    score: int
+    ops: str
+    end_v: int
+    end_h: int
+    wf_score: int
+    dropped: bool
+
+    @property
+    def cigartuples(self):
+        from pywfa_tpu.cigar import ops_to_cigartuples
+        return ops_to_cigartuples(self.ops)
+
+    @property
+    def cigarstring(self) -> str:
+        from pywfa_tpu.cigar import ops_to_cigarstring
+        return ops_to_cigarstring(self.ops)
+
+    @property
+    def sam_cigar(self) -> str:
+        from pywfa_tpu.cigar import cigar_sprint_sam
+        return cigar_sprint_sam(self.ops, show_mismatches=False)
+
+
+def _oracle_one(attr: AlignerAttributes, pattern: bytes, text: bytes
+                ) -> BatchResult:
+    """Exact oracle fallback for one pair."""
+    r = OracleAligner(attr).align(pattern, text)
+    return BatchResult(r.status, r.score, r.ops, r.end_v, r.end_h,
+                       r.wf_score, r.dropped)
+
+
+def _unreachable_result(pen, wf_s: int) -> BatchResult:
+    """Result of an infeasible pair: no end position was recorded, so no
+    walk ran; the reference reports an empty, max-trimmed partial."""
+    cig = Cigar(ops="")
+    cigar_maxtrim(cig, pen)
+    return BatchResult(STATUS_ALG_PARTIAL, cig.score, cig.ops, cig.end_v,
+                       cig.end_h, wf_s, True)
+
+
+def _build_frees(attr0, B: int, plens: np.ndarray, tlens: np.ndarray
+                 ) -> np.ndarray:
+    """Per-pair ends-free slack [B, 4] (pattern_begin, pattern_end,
+    text_begin, text_end), clamped to each pair's lengths."""
+    form = attr0.form
+    if form.span != AlignmentSpan.ENDS_FREE:
+        return np.zeros((B, 4), dtype=np.int32)
+    if form.extension:
+        frees_np = np.zeros((B, 4), dtype=np.int32)
+        frees_np[:, 1] = plens
+        frees_np[:, 3] = tlens
+        return frees_np
+    frees_np = np.tile(np.array([[form.pattern_begin_free,
+                                  form.pattern_end_free,
+                                  form.text_begin_free,
+                                  form.text_end_free]], dtype=np.int32),
+                       (B, 1))
+    frees_np[:, 0] = np.minimum(frees_np[:, 0], plens)
+    frees_np[:, 1] = np.minimum(frees_np[:, 1], plens)
+    frees_np[:, 2] = np.minimum(frees_np[:, 2], tlens)
+    frees_np[:, 3] = np.minimum(frees_np[:, 3], tlens)
+    return frees_np
+
+
+def _band_for_score(attr, S: int, maxLp: int, maxLt: int) -> int:
+    """Band width sufficient for any alignment of score <= S: the band
+    grows at most one diagonal per side per gap-extension step, plus the
+    target-diagonal offset, padded like full_config. Undersized bands are
+    safe: overflow reports ST_OVERFLOW_W and the pair escalates."""
+    pen = attr.penalties
+    pad = pen.max_score_scope + 4
+    m = pen.distance_metric
+    if m == DistanceMetric.GAP_AFFINE:
+        den = max(1, pen.gap_extension1)
+    elif m == DistanceMetric.GAP_AFFINE_2P:
+        den = max(1, min(pen.gap_extension1, pen.gap_extension2))
+    elif m == DistanceMetric.GAP_LINEAR:
+        den = max(1, pen.gap_opening1)
+    else:
+        den = 1
+    reach = min(S, S // den + 1)
+    band = 2 * (reach + abs(maxLp - maxLt)) + 2 * pad + 8
+    h = attr.heuristic
+    strat = int(h.strategy)
+    diff2 = 2 * abs(maxLp - maxLt)
+    if strat & int(HeuristicStrategy.WFADAPTIVE | HeuristicStrategy.WFMASH):
+        band = min(band, 2 * h.max_distance_threshold
+                   + h.min_wavefront_length + diff2 + 2 * pad + 72)
+    if strat & int(HeuristicStrategy.XDROP):
+        ge = max(1, attr.penalties.internal_gap_e)
+        band = min(band, 4 * (h.xdrop // ge + 1) + diff2 + 2 * pad + 128)
+    if strat & int(HeuristicStrategy.BANDED_STATIC
+                   | HeuristicStrategy.BANDED_ADAPTIVE):
+        band = min(band, (h.max_k - h.min_k) + diff2 + 2 * pad + 8)
+    f = attr.form
+    if f.span == AlignmentSpan.ENDS_FREE and not f.extension:
+        seed = (min(f.pattern_begin_free, maxLp)
+                + min(f.text_begin_free, maxLt))
+        band = max(band, 2 * seed + 2 * pad + 8)
+    return band
+
+
+def _bucket_len(n: int) -> int:
+    """Round a padded sequence length up to a ~6%-granular bucket."""
+    if n <= 64:
+        return 64
+    q = 1 << max(4, n.bit_length() - 4)
+    return -(-n // q) * q
+
+
+def _bucket_B(n: int) -> int:
+    """Round a batch size up to the next power of two (>= 16); pad pairs
+    are trivial ("A" vs "A")."""
+    if n <= 16:
+        return 16
+    return 1 << (n - 1).bit_length()
+
+
+def _check_slice(attr0: AlignerAttributes, wildcard) -> None:
+    """Raise NotImplementedError for configurations off the ported slice."""
+    pen = attr0.penalties
+    if pen.distance_metric != DistanceMetric.GAP_AFFINE:
+        raise NotImplementedError(
+            f"{pen.distance_metric.name} is not ported yet (ROADMAP queue 1 "
+            "item 5, queue 2 items 4-5); only gap-affine is")
+    if attr0.form.span != AlignmentSpan.END_TO_END:
+        raise NotImplementedError(
+            "the ends-free span is not ported yet (ROADMAP queue 1 item 5, "
+            "queue 2 item 3)")
+    if attr0.scope != AlignmentScope.COMPUTE_ALIGNMENT:
+        raise NotImplementedError(
+            "score-only scope is not ported yet (ROADMAP queue 1 item 5, "
+            "queue 2 item 2)")
+    if int(attr0.heuristic.strategy) != 0:
+        raise NotImplementedError(
+            "heuristics are not ported yet (ROADMAP queue 1 item 5, "
+            "queue 2 item 6)")
+    if wildcard is not None or attr0.match_classes:
+        raise NotImplementedError(
+            "wildcards and match classes are not ported yet (ROADMAP "
+            "queue 1 item 5)")
+    if attr0.memory_mode != MemoryMode.HIGH:
+        raise NotImplementedError(
+            "memory modes other than high are not ported yet (ROADMAP "
+            "queue 1 item 6)")
+
+
+@functools.lru_cache(maxsize=512)
+def _derive_config(attr0, Lp: int, Lt: int, min_len: int, W, S_cap,
+                   escalated: bool):
+    """(full_probe, cfg, at_full_caps) of one rung: the optimistic first
+    rung scaled to the read length, or the caps the escalation asked for,
+    with the compacted op output below the terminal rung."""
+    full_probe = C.full_config(attr0, Lp, Lt)
+    S0 = max(96, C._round_up(min_len // 6 + 1, 32))
+    if (W is None and S_cap is None and full_probe.S_cap > S0
+            and not escalated):
+        S_cap = min(S0, full_probe.S_cap)
+        W = min(full_probe.W,
+                C._round_up(_band_for_score(attr0, S_cap, Lp, Lt), 128))
+    cfg = C.full_config(attr0, Lp, Lt, W=W, S_cap=S_cap)
+    at_full_caps = cfg.S_cap >= full_probe.S_cap and cfg.W >= full_probe.W
+    if not at_full_caps:
+        # pairs with more ops than ops_out re-run at the next rung, where
+        # they always fit (next ops_out >= 4*S_cap//3 >= S_cap >= n_ops)
+        oc = min(cfg.S_cap, max(32, C._round_up(cfg.S_cap // 3, 2)))
+        if oc < cfg.S_cap:
+            cfg = dataclasses.replace(cfg, ops_out=oc)
+    return full_probe, cfg, at_full_caps
+
+
+class _Inflight:
+    """A dispatched batch: device work enqueued, host assembly pending."""
+
+    __slots__ = ("results", "attr", "attr0", "cfg", "full_probe",
+                 "patterns", "texts", "plens", "tlens", "pat_np", "txt_np",
+                 "max_steps_i", "at_full_caps", "Lp", "Lt", "maxLp",
+                 "maxLt", "B", "B0", "device", "out_host", "event",
+                 "packed_np")
+
+    def __init__(self, results=None):
+        self.results = results
+        self.packed_np = None
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    if dev.type == "cpu":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def align_pairs(attr: AlignerAttributes, patterns: Sequence[bytes],
+                texts: Sequence[bytes], wildcard: Optional[int] = None,
+                W: Optional[int] = None, S_cap: Optional[int] = None,
+                Lp: Optional[int] = None, Lt: Optional[int] = None,
+                device="cuda", _escalated: bool = False
+                ) -> List[BatchResult]:
+    """Align B pairs on `device`; returns one BatchResult per pair."""
+    return align_pairs_finish(align_pairs_dispatch(
+        attr, patterns, texts, wildcard, W=W, S_cap=S_cap, Lp=Lp, Lt=Lt,
+        device=device, _escalated=_escalated))
+
+
+def align_pairs_stream(attr: AlignerAttributes, batches, wildcard=None,
+                       depth: int = 3, device="cuda", **kw):
+    """Pipelined batch alignment: yields one List[BatchResult] per input
+    batch, in order, with up to `depth` batches in flight, so the host
+    assembly of batch N overlaps the device work of the batches after it.
+    Each input item is (patterns, texts) or (patterns, texts, kwargs); the
+    per-batch kwargs override the stream-level **kw for that dispatch."""
+    pending = collections.deque()
+    for item in batches:
+        patterns, texts = item[0], item[1]
+        bkw = dict(kw, **item[2]) if len(item) > 2 else kw
+        pending.append(align_pairs_dispatch(attr, patterns, texts, wildcard,
+                                            device=device, **bkw))
+        if len(pending) > depth:
+            yield align_pairs_finish(pending.popleft())
+    while pending:
+        yield align_pairs_finish(pending.popleft())
+
+
+def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
+                         texts: Sequence[bytes],
+                         wildcard: Optional[int] = None,
+                         W: Optional[int] = None, S_cap: Optional[int] = None,
+                         Lp: Optional[int] = None, Lt: Optional[int] = None,
+                         device="cuda", _escalated: bool = False
+                         ) -> _Inflight:
+    """Phase 1: encode, push, enqueue the device pipeline and the copy of
+    its one packed output into pinned host memory. Does not wait for the
+    device."""
+    dev = _resolve_device(device)
+    B0 = len(patterns)
+    if B0 != len(texts):
+        raise ValueError(f"{B0} patterns but {len(texts)} texts")
+    if B0 == 0:
+        return _Inflight(results=[])
+    B = _bucket_B(B0)
+    if B != B0:
+        patterns = list(patterns) + [b"A"] * (B - B0)
+        texts = list(texts) + [b"A"] * (B - B0)
+    plens = np.fromiter(map(len, patterns), dtype=np.int32, count=B)
+    tlens = np.fromiter(map(len, texts), dtype=np.int32, count=B)
+    maxLp = int(plens.max())
+    maxLt = int(tlens.max())
+    attr0 = validate_alignment(attr, maxLp, maxLt)
+    _check_slice(attr0, wildcard)
+    Lp = max(Lp or 0, _bucket_len(maxLp))
+    Lt = max(Lt or 0, _bucket_len(maxLt))
+    full_probe, cfg, at_full_caps = _derive_config(
+        attr0, Lp, Lt, min(maxLp, maxLt), W, S_cap, _escalated)
+    if cfg.S_cap * B * cfg.W > CHOICES_BYTES_CAP:
+        raise NotImplementedError(
+            f"the choices record ({cfg.S_cap}x{B}x{cfg.W} bytes) exceeds "
+            "the device budget; the segmented traceback is not ported yet "
+            "(ROADMAP queue 1 item 6)")
+    if not fused_loop.supported(cfg):
+        raise NotImplementedError(
+            f"band W={cfg.W} exceeds the fused loop's one-thread-per-"
+            "diagonal block; long reads are not ported yet (ROADMAP queue 1 "
+            "item 6)")
+
+    pat_np, pp = _encode_side(patterns, cfg.Lp, cfg.extend_chunk,
+                              PATTERN_SENTINEL, plens)
+    txt_np, pt = _encode_side(texts, cfg.Lt, cfg.extend_chunk,
+                              TEXT_SENTINEL, tlens)
+    if pp is not None and pt is not None:
+        rows, run = np.concatenate([pp, pt], axis=1), E.align_batch_packed_full
+    else:
+        # a non-ACGT byte: push the int8 token rows instead
+        rows = np.concatenate([pat_np, txt_np], axis=1)
+        run = E.align_batch_fused_full
+    rows_d = _to_device(rows, dev)
+    lens_d = _to_device(np.stack([plens, tlens]), dev)
+    frees_np = _build_frees(attr0, B, plens, tlens)
+    frees = (torch.zeros((B, 4), dtype=torch.int32, device=dev)
+             if not frees_np.any() else _to_device(frees_np, dev))
+    max_steps_i = min(attr0.system.max_alignment_steps, 2**31 - 1)
+    out_d = run(cfg, rows_d, lens_d[0], lens_d[1], frees, max_steps_i)
+
+    h = _Inflight()
+    h.event = None
+    if dev.type == "cuda":
+        h.out_host = torch.empty(out_d.shape, dtype=out_d.dtype,
+                                 pin_memory=True)
+        h.out_host.copy_(out_d, non_blocking=True)
+        h.event = torch.cuda.Event()
+        h.event.record(torch.cuda.current_stream(dev))
+    else:
+        h.out_host = out_d
+    h.attr, h.attr0, h.cfg, h.full_probe = attr, attr0, cfg, full_probe
+    h.patterns, h.texts = patterns, texts
+    h.plens, h.tlens, h.pat_np, h.txt_np = plens, tlens, pat_np, txt_np
+    h.max_steps_i = max_steps_i
+    h.at_full_caps = at_full_caps
+    h.Lp, h.Lt, h.maxLp, h.maxLt, h.B, h.B0 = Lp, Lt, maxLp, maxLt, B, B0
+    h.device = dev
+    return h
+
+
+def align_pairs_pull(h: _Inflight) -> _Inflight:
+    """Wait for a dispatched batch's output to reach host memory.
+    Idempotent; align_pairs_finish calls it itself."""
+    if h.results is None and h.packed_np is None:
+        if h.event is not None:
+            h.event.synchronize()
+        h.packed_np = h.out_host.numpy()
+        h.out_host = h.event = None
+    return h
+
+
+def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
+    """Phase 2: decode the packed output, assemble CIGARs (native
+    match-fill), escalate the pairs that overflowed the rung and send
+    inconsistent walks to the oracle."""
+    if h.results is not None:
+        return h.results
+    packed = align_pairs_pull(h).packed_np
+    cfg, B = h.cfg, h.B
+    plens, tlens = h.plens, h.tlens
+    pen = h.attr0.penalties
+    results: List[Optional[BatchResult]] = [None] * B
+
+    if C.packed_layout(cfg) == "compact":
+        # 14-byte meta + 4-bit op stream (see config.packed_layout)
+        status = packed[:B].astype(np.int32)
+        fb = packed[B: 2 * B] != 0
+        m16 = packed[2 * B: 10 * B].view(np.int16).reshape(4, B)
+        final_s, end_k, n_ops, k_start = m16.astype(np.int32)
+        end_off = packed[10 * B: 14 * B].view(np.int32)
+        ops4 = packed[14 * B:].reshape(B, cfg.ops_out // 2)
+        ops_fwd = np.empty((B, cfg.ops_out), dtype=np.uint8)
+        ops_fwd[:, 0::2] = ops4 & 0xF
+        ops_fwd[:, 1::2] = ops4 >> 4
+    else:
+        meta = packed[: 7 * B * 4].view(np.int32).reshape(7, B)
+        ops_fwd = packed[7 * B * 4:].reshape(B, cfg.S_cap)
+        status, final_s, end_k, end_off, n_ops, k_start = meta[:6]
+        fb = meta[6] != 0
+
+    clean_np = (status == C.ST_END_REACHED) & ~fb
+    clean_idx = np.flatnonzero(clean_np).tolist()
+    native_ops = (_native_fill(clean_idx, h.pat_np, h.txt_np, plens, tlens,
+                               end_k, end_off, ops_fwd, k_start)
+                  if clean_idx else {})
+    ev_a = end_off - end_k
+    eh_a = end_off
+    sc_a = classic_score_batch(pen, ev_a, eh_a, final_s).tolist()
+    final_s_l = final_s.tolist()
+    ev_l = ev_a.tolist()
+    eh_l = eh_a.tolist()
+
+    if len(native_ops) == B and bool(clean_np.all()):
+        # the common batch: every pair completed and was filled natively
+        return [BatchResult(STATUS_ALG_COMPLETED, sc, native_ops[b], ev, eh,
+                            s, False)
+                for b, sc, ev, eh, s in
+                zip(range(B), sc_a, ev_l, eh_l, final_s_l)][:h.B0]
+
+    escalate_idx: List[int] = []
+    oracle_idx: List[int] = []
+    status_l = status.tolist()
+    fb_l = fb.tolist()
+    for b in range(B):
+        st = status_l[b]
+        if st == C.ST_END_REACHED and not fb_l[b]:
+            ops = native_ops.get(b)
+            if ops is None:
+                ops = _match_fill(h.patterns[b], h.texts[b], ops_fwd[b],
+                                  int(k_start[b]), int(plens[b]),
+                                  int(tlens[b]))
+            results[b] = BatchResult(STATUS_ALG_COMPLETED, sc_a[b], ops,
+                                     ev_l[b], eh_l[b], final_s_l[b], False)
+        elif st == C.ST_MAX_STEPS:
+            results[b] = BatchResult(STATUS_MAX_STEPS_REACHED,
+                                     -h.max_steps_i, "", 0, 0,
+                                     final_s_l[b], False)
+        elif (st in (C.ST_OVERFLOW_W, C.ST_OVERFLOW_S)
+              and not h.at_full_caps):
+            escalate_idx.append(b)
+        elif (st == C.ST_END_UNREACHABLE and not fb_l[b]
+              and int(end_off[b]) <= OFFSET_NULL // 2):
+            results[b] = _unreachable_result(pen, final_s_l[b])
+        else:
+            # inconsistent walk (rare) -> exact oracle
+            oracle_idx.append(b)
+
+    if escalate_idx:
+        # geometric escalation: 4x the score cap, band sized to match
+        if h.attr0.system.verbose >= 3:
+            print(f"[pywfa_tpu_torch::align] escalating "
+                  f"{len(escalate_idx)}/{B} pairs past bucket "
+                  f"(W={cfg.W}, S_cap={cfg.S_cap})", file=sys.stderr,
+                  flush=True)
+        next_S = min(cfg.S_cap * 4, h.full_probe.S_cap)
+        if next_S >= h.full_probe.S_cap:
+            next_W, next_S = None, None  # terminal rung: worst-case caps
+        else:
+            # at least 2x band growth per rung, so W-overflow pairs never
+            # re-run at an unchanged width
+            next_W = min(h.full_probe.W, C._round_up(
+                max(_band_for_score(h.attr0, next_S, h.maxLp, h.maxLt),
+                    cfg.W * 2), 128))
+        sub = align_pairs(h.attr, [h.patterns[b] for b in escalate_idx],
+                          [h.texts[b] for b in escalate_idx],
+                          W=next_W, S_cap=next_S, Lp=h.Lp, Lt=h.Lt,
+                          device=h.device, _escalated=True)
+        for b, r in zip(escalate_idx, sub):
+            results[b] = r
+    for b in oracle_idx:
+        results[b] = _oracle_one(h.attr, h.patterns[b], h.texts[b])
+    return results[:h.B0]  # type: ignore[return-value]
+
+
+class BatchWavefrontAligner:
+    """Batched aligner on one device: many pattern/text pairs per call.
+
+    Configuration kwargs mean what they mean for the reference package's
+    `WavefrontAligner` (including its pywfa defaults, so `span` defaults
+    to "ends-free", which this port does not cover yet: pass
+    span="end-to-end"). `device` defaults to "cuda" and raises when CUDA
+    is absent; "cpu" runs the plain torch versions of the kernels.
+    """
+
+    def __init__(self, W: Optional[int] = None, S_cap: Optional[int] = None,
+                 device="cuda", distance="affine", memory_mode="high",
+                 match=0, mismatch=4, gap_opening=6, gap_extension=2,
+                 scope="full", span="ends-free", heuristic=None,
+                 wildcard=None, match_classes=None, max_steps=0,
+                 verbose=0):
+        if distance != "affine":
+            raise NotImplementedError(
+                f"{distance} distance is not ported yet (ROADMAP queue 1 "
+                "item 5)")
+        spans = {"end-to-end": AlignmentSpan.END_TO_END,
+                 "ends-free": AlignmentSpan.ENDS_FREE}
+        scopes = {"full": AlignmentScope.COMPUTE_ALIGNMENT,
+                  "score": AlignmentScope.COMPUTE_SCORE}
+        modes = {"high": MemoryMode.HIGH, "medium": MemoryMode.MED,
+                 "low": MemoryMode.LOW, "biwfa": MemoryMode.ULTRALOW}
+        strategies = {None: HeuristicStrategy.NONE,
+                      "adaptive": HeuristicStrategy.WFADAPTIVE,
+                      "X-drop": HeuristicStrategy.XDROP}
+        for name, value, table in (("span", span, spans),
+                                   ("scope", scope, scopes),
+                                   ("memory_mode", memory_mode, modes),
+                                   ("heuristic", heuristic, strategies)):
+            if value not in table:
+                raise ValueError(f"{name} {value!r} not understood")
+        self._attr = AlignerAttributes(
+            penalties=penalties_affine(match, mismatch, gap_opening,
+                                       gap_extension),
+            scope=scopes[scope],
+            form=AlignmentForm(span=spans[span]),
+            heuristic=HeuristicParams(strategy=strategies[heuristic]),
+            memory_mode=modes[memory_mode],
+            system=SystemParams(max_alignment_steps=(
+                max_steps if max_steps > 0 else INT_MAX), verbose=verbose),
+            match_classes=match_classes or "")
+        self._wildcard = (wildcard.encode("ascii")[0]
+                          if isinstance(wildcard, str) else wildcard)
+        self._W = W
+        self._S_cap = S_cap
+        self._device = _resolve_device(device)
+
+    @staticmethod
+    def _to_bytes(seqs):
+        return [s.upper().encode("ascii") if isinstance(s, str) else s
+                for s in seqs]
+
+    def align(self, patterns: Sequence[str], texts: Sequence[str]
+              ) -> List[BatchResult]:
+        return align_pairs(self._attr, self._to_bytes(patterns),
+                           self._to_bytes(texts), wildcard=self._wildcard,
+                           W=self._W, S_cap=self._S_cap,
+                           device=self._device)
+
+    def align_stream(self, batches, depth: int = 3):
+        """Pipelined align over an iterable of (patterns, texts[, kwargs])
+        batches; yields one List[BatchResult] per input batch."""
+        def gen():
+            for item in batches:
+                yield ((self._to_bytes(item[0]), self._to_bytes(item[1]))
+                       + tuple(item[2:]))
+
+        return align_pairs_stream(self._attr, gen(),
+                                  wildcard=self._wildcard, depth=depth,
+                                  W=self._W, S_cap=self._S_cap,
+                                  device=self._device)

@@ -1,0 +1,311 @@
+"""Device stages of the batch path around the fused score loop, in torch.
+
+The twin of the XLA-op stages of `pywfa_tpu.ops.engine` that the main path
+runs: the 2-bit decode, the packed equality bits, the traceback walk and
+the output packing, plus the pipelines that chain them with the fused
+loop (`align_batch_packed_full`, `align_batch_fused_full`). Every function
+is device-agnostic: it runs where its input tensors live, CPU or CUDA.
+Only the walk synchronises with the device, to end early.
+
+Where the reference's formulation existed only because the TPU lacks an
+indexed load (one-hot selects, a one-hot matmul compaction), this module
+uses the direct gather or scatter instead; the outputs are byte-identical.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from pywfa_tpu.constants import DistanceMetric
+
+from . import fused_loop
+from .config import (
+    D1, I1, M, MSRC_D1, MSRC_I1, MSRC_NONE, MSRC_SEED, MSRC_X,
+    NULL_THRESHOLD, PATTERN_PAD, ST_END_REACHED, ST_END_UNREACHABLE,
+    ST_OVERFLOW_S, TEXT_PAD, WOP_D, WOP_I, WOP_MFLAG, WOP_X,
+    EngineConfig, fused_widths, packed_layout, packed_widths,
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _acgt(device: torch.device) -> torch.Tensor:
+    return torch.tensor(list(b"ACGT"), dtype=torch.int8, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_weights(device: torch.device) -> torch.Tensor:
+    return torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
+                        device=device)
+
+
+def decode_fused(cfg: EngineConfig, fused: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split one [B, Wp+Wt] fused token array into (pat, txt) rows."""
+    wp, _ = fused_widths(cfg)
+    return fused[:, :wp], fused[:, wp:]
+
+
+def decode_packed(cfg: EngineConfig, packed: torch.Tensor,
+                  plen: torch.Tensor, tlen: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, Pp+Pt] uint8 2-bit DNA -> the int8 token rows the host encoder
+    would produce (ACGT bytes up to each length, sentinel past it)."""
+    pp, _ = packed_widths(cfg)
+    wp, wt = fused_widths(cfg)
+    lut = _acgt(packed.device)
+    shifts = 2 * torch.arange(4, dtype=torch.int32, device=packed.device)
+
+    def dec(block, width, length, pad):
+        B = block.shape[0]
+        codes = (block.to(torch.int32)[:, :, None] >> shifts) & 3
+        codes = codes.reshape(B, -1)
+        if codes.shape[1] < width:
+            # only the base region is sent; the tail is past every length
+            # and gets the sentinel below
+            codes = torch.nn.functional.pad(codes,
+                                            (0, width - codes.shape[1]))
+        else:
+            codes = codes[:, :width]
+        tok = lut[codes.long()]
+        iota = torch.arange(width, dtype=torch.int32, device=packed.device)
+        return torch.where(iota[None, :] < length[:, None], tok, pad)
+
+    pat = dec(packed[:, :pp], wp, plen, PATTERN_PAD)
+    txt = dec(packed[:, pp:], wt, tlen, TEXT_PAD)
+    return pat, txt
+
+
+def build_eq_bits(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor
+                  ) -> torch.Tensor:
+    """Packed per-diagonal equality bits Q[q, b, w] as int32 bit patterns.
+
+    Bit (h & 31) of Q[h >> 5, b, w] is pattern[h - k_w] == text[h] for
+    k_w = kmin + w, with the pattern sentinel wherever h - k_w leaves the
+    pattern row; bits at h >= Ltp are 0. Gather-free: the pattern row of
+    diagonal W-1-w is a sliding window (`unfold`, a view) of the padded
+    pattern, so one compare builds the equality bytes of all diagonals in
+    reversed order. They are packed 8 to a byte, 4 bytes are read as one
+    little-endian int32 word, and the diagonal order is flipped back.
+    Words are built in groups that bound the temporaries to about 2^28
+    elements.
+    """
+    if cfg.wildcard >= 0 or cfg.match_classes:
+        raise NotImplementedError(
+            "wildcard and match-class equality bits are not ported yet "
+            "(ROADMAP queue 1 item 5)")
+    dev = pat.device
+    B, Lpp = pat.shape
+    Ltp = txt.shape[1]
+    W, kmin = cfg.W, cfg.kmin
+    NQ = -(-Ltp // 32)
+    H = NQ * 32
+    # window w' = W-1-w starts at pattern index -k_w = -(kmin + W-1) + w'
+    lead = max(0, kmin + W - 1)
+    first = lead - (kmin + W - 1)
+    tail = max(0, first + W - 1 + H - lead - Lpp)
+    patpad = torch.nn.functional.pad(pat, (lead, tail), value=PATTERN_PAD)
+    wins = patpad.unfold(1, H, 1)[:, first:first + W]          # [B, W, H]
+    txtp = torch.nn.functional.pad(txt, (0, H - Ltp))
+    in_text = torch.arange(H, device=dev) < Ltp
+    weights = _byte_weights(dev)
+    G = max(1, (1 << 28) // max(1, B * W * 32))
+    words = torch.empty((NQ, B, W), dtype=torch.int32, device=dev)
+    for q0 in range(0, NQ, G):
+        hs = slice(q0 * 32, min(NQ, q0 + G) * 32)
+        eq = (wins[:, :, hs] == txtp[:, None, hs]) & in_text[hs]
+        byte = (eq.view(torch.uint8).reshape(B, W, -1, 8) * weights
+                ).sum(-1, dtype=torch.uint8)                    # [B, W, 4g]
+        words[q0:q0 + G] = byte.view(torch.int32).flip(1).permute(2, 0, 1)
+    return words
+
+
+@functools.lru_cache(maxsize=64)
+def _walk_tables(cfg: EngineConfig, device: torch.device) -> dict:
+    """Per-(component, choice byte) transition tables of the gap-affine
+    walk step.
+
+    Entry comp * 256 + ch (comp in M, I1, D1) holds what the reference's
+    walk step derives from (comp, ch): the emitted token, the score and
+    diagonal deltas, the next component, and the kind of the step at M
+    (0 move, 1 stop at a seed, 2 inconsistent chain). At M every source
+    but X and I1 takes the deletion branch, as the reference's where-chain
+    does; a gap-affine choice byte holds no other source.
+    """
+    x = cfg.mismatch
+    o1e1 = cfg.gap_opening1 + cfg.gap_extension1
+    e1 = cfg.gap_extension1
+    ch = np.arange(256, dtype=np.int64)
+    msrc = ch & 7
+    ext = {I1: (ch >> 3) & 1, D1: (ch >> 4) & 1}
+
+    is_x = msrc == MSRC_X
+    is_i = msrc == MSRC_I1
+    m_ext = np.where(is_i, ext[I1], ext[D1])
+    m_op = np.where(is_x, WOP_X, np.where(is_i, WOP_I, WOP_D))
+    m_ds = np.where(is_x, x, np.where(m_ext == 1, e1, o1e1))
+    m_dk = np.where(is_i, -1, np.where(msrc == MSRC_D1, 1, 0))
+    m_next = np.where(is_x | (m_ext == 0), M, np.where(is_i, I1, D1))
+    m_kind = np.where(msrc == MSRC_SEED, 1, np.where(msrc == MSRC_NONE, 2, 0))
+
+    rows = [(m_op | WOP_MFLAG, m_ds, m_dk, m_next, m_kind)]
+    for comp, op, dk in ((I1, WOP_I, -1), (D1, WOP_D, 1)):
+        e = ext[comp] == 1
+        rows.append((np.full(256, op), np.where(e, e1, o1e1),
+                     np.full(256, dk), np.where(e, comp, M),
+                     np.zeros(256, np.int64)))
+    cols = list(zip(*rows))
+
+    def t(i, dtype):
+        return torch.tensor(np.concatenate(cols[i]), dtype=dtype,
+                            device=device)
+
+    return dict(emit=t(0, torch.uint8), ds=t(1, torch.int32),
+                dk=t(2, torch.int32), next=t(3, torch.int32),
+                kind=t(4, torch.int32))
+
+
+def traceback_walk(cfg: EngineConfig, choices: torch.Tensor,
+                   final_s: torch.Tensor, end_k: torch.Tensor,
+                   ok: torch.Tensor):
+    """Walk the choice tensor backwards from each pair's end cell.
+
+    Each iteration every walking pair reads its own cell
+    choices[s, b, k] with one gather and takes one step; the op it emits
+    lands at its score level, so the stream is zero-sparse over levels
+    in FORWARD cigar order, as the reference's level scan writes it.
+    Every step lowers s by at least min(mismatch, gap_extension1), which
+    bounds the iteration count; every 4 steps one host sync ends the walk
+    early once no pair is still walking.
+    Returns (ops_fwd [B, S_cap] uint8, n_ops [B], k_start [B], fallback [B]).
+    """
+    if cfg.metric != DistanceMetric.GAP_AFFINE:
+        raise NotImplementedError(
+            "the traceback walk of metrics other than gap-affine is not "
+            "ported yet (ROADMAP queue 1 item 5)")
+    S_cap, B, W = choices.shape
+    dev = choices.device
+    tb = _walk_tables(cfg, dev)
+    n_iter = (S_cap - 1) // min(cfg.mismatch, cfg.gap_extension1) + 2
+    flat = choices.reshape(-1)
+    row = torch.arange(B, dtype=torch.int64, device=dev)
+    s = final_s.to(torch.int32).clone()
+    k = end_k.to(torch.int32).clone()
+    comp = torch.zeros(B, dtype=torch.int32, device=dev)
+    act = ok.clone()
+    fallback = torch.zeros(B, dtype=torch.bool, device=dev)
+    ops = torch.zeros((B, S_cap + 1), dtype=torch.uint8, device=dev)
+    for it in range(n_iter):
+        # every 4 steps, stop once no pair walks (one host sync); the
+        # remaining steps would change nothing
+        if it and it % 4 == 0 and not bool(act.any()):
+            break
+        kk = (k - cfg.kmin).long()
+        lvl = s.long().clamp(0, S_cap - 1)
+        cell = flat[(lvl * B + row) * W + kk.clamp(0, W - 1)]
+        ch = torch.where((kk >= 0) & (kk < W), cell, 0).long()
+        t = comp.long() * 256 + ch
+        at_m = comp == M
+        kind = tb["kind"][t]
+        stop = act & at_m & ((s <= 0) | (kind == 1))
+        bad = act & at_m & (s > 0) & (kind == 2)
+        move = act & ~stop & ~bad
+        pos = torch.where(move, s.long(), S_cap)
+        ops.scatter_(1, pos[:, None], torch.where(move, tb["emit"][t], 0)
+                     .to(torch.uint8)[:, None])
+        s = torch.where(move, s - tb["ds"][t], s)
+        k = torch.where(move, k + tb["dk"][t], k)
+        comp = torch.where(move, tb["next"][t], comp)
+        # a chain pointing before score 0 is inconsistent
+        bad2 = move & (s < 0)
+        fallback = fallback | bad | bad2
+        act = move & ~bad2
+    fallback = fallback | act
+    ops_fwd = ops[:, :S_cap]
+    n_ops = (ops_fwd != 0).sum(1, dtype=torch.int32)
+    return ops_fwd, n_ops, k, fallback
+
+
+def walkable(out: dict) -> torch.Tensor:
+    """The pairs whose traceback is walked: those that reached the end, and
+    dropped pairs that recorded an end cell."""
+    status = out["status"]
+    return (status == ST_END_REACHED) | (
+        (status == ST_END_UNREACHABLE) & (out["end_off"] > NULL_THRESHOLD))
+
+
+def pack_full(cfg: EngineConfig, out: dict) -> torch.Tensor:
+    """Walk + pack all full-scope outputs into ONE uint8 vector (the wire
+    format of config.packed_layout, decoded by batch.align_pairs_finish)."""
+    ok = walkable(out)
+    walk = traceback_walk(cfg, out["choices"], out["final_s"], out["end_k"],
+                          ok)
+    return pack_walked(cfg, out, ok, walk)
+
+
+def pack_walked(cfg: EngineConfig, out: dict, ok: torch.Tensor,
+                walk: tuple) -> torch.Tensor:
+    """Pack the loop's outputs and their walk (traceback_walk's tuple) into
+    the wire format.
+
+    The compact layout compacts each pair's zero-sparse op stream with a
+    cumsum plus a scatter: token i goes to position cumsum(nonzero)-1, and
+    tokens past ops_out fall into a spill column that is dropped.
+    """
+    ops_fwd, n_ops, k_start, fb = walk
+    status = out["status"].to(torch.int32)
+    end_off = out["end_off"].to(torch.int32).contiguous()
+    B = status.shape[0]
+    if packed_layout(cfg) == "compact":
+        OC = cfg.ops_out
+        assert OC % 2 == 0
+        nz = ops_fwd != 0
+        pos = torch.where(nz, nz.long().cumsum(1) - 1, OC).clamp(max=OC)
+        comp = torch.zeros((B, OC + 1), dtype=torch.uint8,
+                           device=ops_fwd.device)
+        comp.scatter_(1, pos, ops_fwd)
+        comp = comp[:, :OC]
+        ops_stream = comp[:, 0::2] | (comp[:, 1::2] << 4)
+        # overflowing walks re-run at the next rung
+        status = torch.where(ok & (n_ops > OC), ST_OVERFLOW_S, status)
+        m16 = torch.stack([out["final_s"].to(torch.int32),
+                           out["end_k"].to(torch.int32), n_ops,
+                           k_start]).to(torch.int16)
+        return torch.cat([
+            status.to(torch.uint8), fb.to(torch.uint8),
+            m16.view(torch.uint8).reshape(-1),
+            end_off.view(torch.uint8).reshape(-1),
+            ops_stream.reshape(-1)])
+    meta = torch.stack([status, out["final_s"].to(torch.int32),
+                        out["end_k"].to(torch.int32), end_off, n_ops,
+                        k_start, fb.to(torch.int32)])
+    return torch.cat([meta.view(torch.uint8).reshape(-1),
+                      ops_fwd.reshape(-1)])
+
+
+def align_batch_packed_full(cfg: EngineConfig, packed, plen, tlen, frees,
+                            max_steps: int) -> torch.Tensor:
+    """2-bit input -> packed output: decode, eq-bits, the fused loop, the
+    walk and the packing, all on `packed`'s device."""
+    plen = plen.to(torch.int32)
+    tlen = tlen.to(torch.int32)
+    pat, txt = decode_packed(cfg, packed, plen, tlen)
+    bits = build_eq_bits(cfg, pat, txt)
+    out = fused_loop.align_batch_fused_loop(cfg, bits, plen, tlen, frees,
+                                            max_steps)
+    return pack_full(cfg, out)
+
+
+def align_batch_fused_full(cfg: EngineConfig, fused, plen, tlen, frees,
+                           max_steps: int) -> torch.Tensor:
+    """As align_batch_packed_full, from fused int8 token rows (the push
+    format of batches that hold a non-ACGT byte)."""
+    plen = plen.to(torch.int32)
+    tlen = tlen.to(torch.int32)
+    pat, txt = decode_fused(cfg, fused)
+    bits = build_eq_bits(cfg, pat, txt)
+    out = fused_loop.align_batch_fused_loop(cfg, bits, plen, tlen, frees,
+                                            max_steps)
+    return pack_full(cfg, out)

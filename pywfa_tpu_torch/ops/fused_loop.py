@@ -1,0 +1,327 @@
+"""The fused whole-alignment score loop: gap-affine, end-to-end, full CIGAR.
+
+The twin of `pywfa_tpu/ops/pallas/fused_loop.py`. For every pair it runs
+the whole WFA score loop -- extend, terminate, compute s+1, trim, record
+one choice byte per cell -- and returns the same dict as the reference's
+`align_batch_pallas`.
+
+`align_batch_fused_loop` is the entry point. On CUDA tensors it launches
+the hand-written kernel in `csrc/fused_loop.cu`; on CPU tensors it runs
+`align_batch_fused_loop_ref`, the plain torch version, which is the Pallas
+kernel's own array program over [B, W] with a Python loop over scores.
+
+One deliberate difference from the Pallas kernel: a band that outgrows W
+reports ST_OVERFLOW_W, as the XLA engine does, instead of being clamped
+silently. The escalation ladder re-runs such pairs at a wider band.
+"""
+from __future__ import annotations
+
+import torch
+
+from pywfa_tpu.constants import AlignmentSpan, DistanceMetric
+
+from .config import (
+    D1, I1, M, MSRC_D1, MSRC_I1, MSRC_NONE, MSRC_X, NULL,
+    ST_END_REACHED, ST_END_UNREACHABLE, ST_MAX_STEPS, ST_OVERFLOW_S,
+    ST_OVERFLOW_W, EngineConfig,
+)
+
+# kernel launches made by align_batch_fused_loop (plain version excluded)
+launches = 0
+
+# shared memory one block may use on sm_90 (bytes)
+SMEM_LIMIT = 232448
+MAX_THREADS = 1024
+NC = 3  # components of the gap-affine ring: M, I1, D1
+
+
+def smem_bytes(cfg: EngineConfig) -> int:
+    """Dynamic shared memory of one block: the offsets ring, its lo/hi
+    pairs and the per-warp partials of the six trim reductions."""
+    return (NC * cfg.scope * cfg.W + NC * cfg.scope * 2 + 6 * 32) * 4
+
+
+def supported(cfg: EngineConfig) -> bool:
+    """The slice this module covers: gap-affine, end-to-end, full-CIGAR
+    recording, exact matching, no heuristic, one thread per diagonal."""
+    return (cfg.metric == DistanceMetric.GAP_AFFINE
+            and cfg.span == AlignmentSpan.END_TO_END
+            and cfg.strategy == 0
+            and cfg.record_choices
+            and cfg.wildcard < 0
+            and not cfg.match_classes
+            and cfg.W % 32 == 0 and cfg.W <= MAX_THREADS
+            and smem_bytes(cfg) <= SMEM_LIMIT)
+
+
+def _check(cfg: EngineConfig, bits, plen, tlen, frees):
+    if not supported(cfg):
+        raise NotImplementedError(
+            "the fused loop covers gap-affine end-to-end full-CIGAR "
+            "alignment without heuristics, wildcards or match classes, "
+            f"with W <= {MAX_THREADS} (got {cfg}); the rest waits in "
+            "ROADMAP queue 2")
+    if bits.dim() != 3 or bits.shape[2] != cfg.W:
+        raise ValueError(f"bits must be [NQ, B, {cfg.W}], got "
+                         f"{tuple(bits.shape)}")
+    NQ, B, _ = bits.shape
+    if NQ * 32 <= cfg.Lt:
+        raise ValueError(f"bits hold {NQ * 32} text positions, need more "
+                         f"than Lt={cfg.Lt} for the sentinel mismatch")
+    for name, t, shape in (("plen", plen, (B,)), ("tlen", tlen, (B,)),
+                           ("frees", frees, (B, 4))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != bits.device:
+            raise ValueError(f"{name} is on {t.device}, bits on "
+                             f"{bits.device}")
+    for name, t in (("bits", bits), ("plen", plen), ("tlen", tlen),
+                    ("frees", frees)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+
+
+def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
+                           max_steps: int) -> dict:
+    """Run the fused score loop over B pairs.
+
+    bits: [NQ, B, W] int32 bit patterns (engine.build_eq_bits); plen/tlen:
+    [B] int32; frees: [B, 4] int32 (all zero on this span); max_steps: the
+    user step cap. Returns dict(status, final_s, end_k, end_off, choices,
+    steps) with choices [S_cap, B, W] uint8; levels a pair never reaches
+    read 0.
+    """
+    global launches
+    _check(cfg, bits, plen, tlen, frees)
+    max_steps = min(int(max_steps), 2**31 - 1)
+    if bits.device.type == "cpu":
+        return align_batch_fused_loop_ref(cfg, bits, plen, tlen, frees,
+                                          max_steps)
+    if bits.device.type != "cuda":
+        raise ValueError(f"no fused loop for device {bits.device}")
+    for name, t in (("bits", bits), ("plen", plen), ("tlen", tlen)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    from . import cuda_build
+    lib = cuda_build.load()
+    NQ, B, W = bits.shape
+    dev = bits.device
+    choices = torch.zeros((cfg.S_cap, B, W), dtype=torch.uint8, device=dev)
+    res = torch.empty((4, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wfa_fused_loop_affine_e2e(
+            bits.data_ptr(), plen.data_ptr(), tlen.data_ptr(),
+            choices.data_ptr(), res.data_ptr(), B, W, NQ, cfg.S_cap,
+            cfg.scope, cfg.mismatch,
+            cfg.gap_opening1 + cfg.gap_extension1, cfg.gap_extension1,
+            max_steps, stream)
+    if rc != 0:
+        raise RuntimeError("fused loop kernel launch failed: "
+                           + cuda_build.error_string(rc))
+    launches += 1
+    return dict(status=res[0], final_s=res[1], end_k=res[2],
+                end_off=res[3], choices=choices, steps=res[1].max())
+
+
+def _ctz32(m):
+    """Count trailing zeros of int32 bit patterns (garbage where m == 0):
+    isolate the lowest set bit, convert to float32 (exact for one bit) and
+    read the exponent -- bit 31 included, whose sign the mask drops."""
+    lsb = m & -m
+    e = (lsb.float().view(torch.int32) >> 23) & 0xFF
+    return e - 127
+
+
+def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
+                               max_steps: int) -> dict:
+    """The plain torch version: the Pallas kernel's array program (its
+    affine end-to-end branch) over [B, W], all pairs as one tile, with the
+    band-overflow flag of the XLA engine. Runs on any device."""
+    NQ, B, W = bits.shape
+    dev = bits.device
+    i32 = torch.int32
+    scope, S_cap, kmin = cfg.scope, cfg.S_cap, cfg.kmin
+    x = cfg.mismatch
+    o1e1 = cfg.gap_opening1 + cfg.gap_extension1
+    e1 = cfg.gap_extension1
+    NQ32 = NQ * 32
+    iota = torch.arange(W, dtype=i32, device=dev)[None, :]
+    karr = iota + kmin
+    plen = plen.to(i32)[:, None]
+    tlen = tlen.to(i32)[:, None]
+
+    off = torch.full((NC * scope, B, W), NULL, dtype=i32, device=dev)
+    lo = torch.ones((NC * scope, B, 1), dtype=i32, device=dev)
+    hi = -torch.ones((NC * scope, B, 1), dtype=i32, device=dev)
+    off[M * scope] = torch.where(karr == 0, 0, NULL)
+    lo[M * scope] = 0
+    hi[M * scope] = 0
+    choices = torch.zeros((S_cap, B, W), dtype=torch.uint8, device=dev)
+    null_row = torch.full((B, W), NULL, dtype=i32, device=dev)
+    one = torch.ones((B, 1), dtype=i32, device=dev)
+    true = torch.ones((B, 1), dtype=torch.bool, device=dev)
+
+    def read_wf(comp, score):
+        """(off [B,W], lo [B,1], hi [B,1], null [B,1]) for a score."""
+        if score < 0:
+            return null_row, one, -one, true
+        i = comp * scope + score % scope
+        return off[i], lo[i], hi[i], lo[i] > hi[i]
+
+    def band_mask(lo_, hi_):
+        return (karr >= lo_) & (karr <= hi_)
+
+    def shift(a, dk):
+        # a[:, i+dk] at i, NULL-padded; dk in {-1, +1}
+        pad = null_row[:, :1]
+        if dk > 0:
+            return torch.cat([a[:, 1:], pad], dim=1)
+        return torch.cat([pad, a[:, :-1]], dim=1)
+
+    def pack(value, prio):
+        return torch.where(value >= 0, (value << 3) | prio, -2**30)
+
+    def lim(lo_, hi_, nul, widen):
+        return (torch.where(nul, 2**30, lo_ - widen),
+                torch.where(nul, -2**30, hi_ + widen))
+
+    def col():
+        return torch.zeros((B, 1), dtype=i32, device=dev)
+
+    s = 0
+    done = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    status, final_s, end_k, nnull = col(), col(), col(), col()
+    end_off = col() + NULL
+    while bool((~done).any()) and s < S_cap - 1:
+        active = ~done
+        slot = s % scope
+        m_off, m_lo, m_hi, m_null = read_wf(M, s)
+        # feasibility probe: a run of null steps longer than the scope
+        dead = active & m_null & (nnull > scope)
+        status = torch.where(dead, ST_END_UNREACHABLE, status)
+        final_s = torch.where(dead, s, final_s)
+        done = done | dead
+        active = active & ~dead
+
+        # --- extension: find-first-mismatch over the equality words ---
+        band = band_mask(m_lo, m_hi) & active & ~m_null
+        valid = band & (m_off >= 0) & (m_off <= tlen)
+        idx = m_off.clamp(0, NQ32 - 1)
+        q0 = idx >> 5
+        ones = torch.full_like(idx, -1)
+        head = ones << (idx & 31)
+        fm = torch.full_like(idx, NQ32)
+        for q in range(NQ):
+            sel = torch.where(q0 == q, head, torch.where(q0 < q, ones, 0))
+            mq = ~bits[q] & sel
+            cand = q * 32 + _ctz32(mq)
+            fm = torch.minimum(fm, torch.where(mq != 0, cand, NQ32))
+        m_off = torch.where(valid, m_off + (fm - idx), m_off)
+        off[M * scope + slot] = m_off
+
+        # --- termination at k = tlen - plen, offset tlen ---
+        ak = tlen - plen
+        cell = torch.where(karr == ak, m_off, 0).sum(1, keepdim=True,
+                                                      dtype=i32)
+        on_band = (m_lo <= ak) & (ak <= m_hi)
+        hit = active & ~m_null & on_band & (cell >= tlen)
+        status = torch.where(hit, ST_END_REACHED, status)
+        final_s = torch.where(hit, s, final_s)
+        end_k = torch.where(hit, ak, end_k)
+        end_off = torch.where(hit, tlen, end_off)
+        done = done | hit
+        active = active & ~hit
+
+        # --- compute s+1 ---
+        s1 = s + 1
+        slot1 = s1 % scope
+        mm_off, mm_lo, mm_hi, mm_null = read_wf(M, s1 - x)
+        op_off, op_lo, op_hi, op_null = read_wf(M, s1 - o1e1)
+        i1_off, i1_lo, i1_hi, i1_null = read_wf(I1, s1 - e1)
+        d1_off, d1_lo, d1_hi, d1_null = read_wf(D1, s1 - e1)
+        l1, h1 = lim(mm_lo, mm_hi, mm_null, 0)
+        l2, h2 = lim(op_lo, op_hi, op_null, 1)
+        l3, h3 = lim(i1_lo, i1_hi, i1_null, 1)
+        l4, h4 = lim(d1_lo, d1_hi, d1_null, 1)
+        lo_n = torch.minimum(torch.minimum(l1, l2), torch.minimum(l3, l4))
+        hi_n = torch.maximum(torch.maximum(h1, h2), torch.maximum(h3, h4))
+        all_null = mm_null & op_null & i1_null & d1_null
+
+        # I1/D1 open vs extend (extend wins ties); an all-invalid cell
+        # keeps the raw shifted value, which only the bounds check nulls
+        i1p = torch.maximum(pack(shift(op_off, -1) + 1, 0),
+                            pack(shift(i1_off, -1) + 1, 1))
+        ins1 = torch.where(i1p < 0,
+                           shift(torch.maximum(op_off, i1_off), -1) + 1,
+                           i1p >> 3)
+        i1_ext = (i1p >= 0) & ((i1p & 7) == 1)
+        d1p = torch.maximum(pack(shift(op_off, +1), 0),
+                            pack(shift(d1_off, +1), 1))
+        del1 = torch.where(d1p < 0,
+                           shift(torch.maximum(op_off, d1_off), +1),
+                           d1p >> 3)
+        d1_ext = (d1p >= 0) & ((d1p & 7) == 1)
+        mis = mm_off + 1
+        # M by the packed (value << 3) | prio max: X(5) > D1(3) > I1(1)
+        pm = torch.maximum(pack(mis, 5), torch.maximum(pack(del1, 3),
+                                                       pack(ins1, 1)))
+        raw = torch.maximum(mis, torch.maximum(del1, ins1))
+        pr = pm & 7
+        msrc = torch.where(pm < 0, MSRC_NONE,
+                           torch.where(pr == 5, MSRC_X,
+                                       torch.where(pr == 3, MSRC_D1,
+                                                   MSRC_I1)))
+        choice = (msrc | (i1_ext.to(i32) << 3) | (d1_ext.to(i32) << 4))
+        nnull = torch.where(active & all_null, nnull + 1,
+                            torch.where(active, 0, nnull))
+        mvals = torch.where(pm < 0, raw, pm >> 3)
+        v_ = mvals - karr
+        bad = (mvals < 0) | (mvals > tlen) | (v_ < 0) | (v_ > plen)
+        mvals = torch.where(bad, NULL, mvals)
+
+        null_step = all_null
+        overflow = active & ~null_step & (
+            (lo_n < kmin + 2) | (hi_n > kmin + W - 3))
+        lo_n = lo_n.clamp(kmin + 2, kmin + W - 3)
+        hi_n = hi_n.clamp(kmin + 2, kmin + W - 3)
+        write = active & ~null_step
+        bandn = band_mask(lo_n, hi_n)
+        band_n = bandn & write
+
+        vals = (mvals, ins1, del1)
+        prods = (write, write & ~(op_null & i1_null),
+                 write & ~(op_null & d1_null))
+        for c in range(NC):
+            arr = torch.where(band_n & prods[c], vals[c], NULL)
+            v3 = arr - karr
+            inb = bandn & (arr >= 0) & (arr <= tlen) & (v3 >= 0) & (v3 <= plen)
+            first = torch.where(inb, iota, W).amin(1, keepdim=True) + kmin
+            last = torch.where(inb, iota, -1).amax(1, keepdim=True) + kmin
+            keep = prods[c] & inb.any(1, keepdim=True)
+            tlo = torch.where(keep, first, 1)
+            thi = torch.where(keep, last, -1)
+            off[c * scope + slot1] = torch.where(
+                (karr >= tlo) & (karr <= thi), arr, NULL)
+            lo[c * scope + slot1] = tlo
+            hi[c * scope + slot1] = thi
+        choices[s1] = torch.where(band_n, choice, 0).to(torch.uint8)
+
+        # band overflow: the pair escalates to a wider band
+        status = torch.where(overflow, ST_OVERFLOW_W, status)
+        done = done | overflow
+        active = active & ~overflow
+
+        hit_max = active & (s1 >= max_steps)
+        status = torch.where(hit_max, ST_MAX_STEPS, status)
+        final_s = torch.where(hit_max, s1, final_s)
+        done = done | hit_max
+        s = s1
+
+    running = ~done
+    status = torch.where(running, ST_OVERFLOW_S, status)
+    final_s = torch.where(running, s, final_s)
+    return dict(status=status[:, 0], final_s=final_s[:, 0],
+                end_k=end_k[:, 0], end_off=end_off[:, 0], choices=choices,
+                steps=final_s.max())

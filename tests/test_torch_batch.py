@@ -1,0 +1,162 @@
+"""The port's batch and stream API against the JAX package and the oracle.
+
+`pywfa_tpu_torch.batch.align_pairs(..., device="cpu")` runs the port's
+whole main path (host encode, the torch device pipeline with the fused
+loop's plain version, host finish, escalation) and must equal
+`pywfa_tpu.batch.align_pairs` and the scalar oracle on every BatchResult
+field. Tolerance: zero.
+"""
+import pytest
+import torch
+
+from pywfa_tpu import batch as BT
+from pywfa_tpu.align import WavefrontAligner
+from pywfa_tpu.oracle import OracleAligner
+from pywfa_tpu_torch import BatchWavefrontAligner
+from pywfa_tpu_torch import batch as PB
+from tests.corpus import random_pairs
+from tests.test_torch_engine import README_PAIRS
+
+torch.set_num_threads(1)
+
+FIELDS = ("status", "score", "ops", "end_v", "end_h", "wf_score", "dropped")
+
+
+def _attr(**kw):
+    return WavefrontAligner(backend="numpy", span="end-to-end",
+                            **kw)._attributes()
+
+
+def _fields(results):
+    return [tuple(getattr(r, f) for f in FIELDS) for r in results]
+
+
+CASES = {
+    "readme": README_PAIRS,
+    "div2": random_pairs(31, 16, 100, 120, 0.02, 0.0, as_bytes=True),
+    # escalate past the first rung; the pairs over disjoint alphabets
+    # (every base a mismatch) score past the second rung's cap and reach
+    # the terminal rung
+    "div25": random_pairs(32, 12, 60, 120, 0.2, 0.05, unrelated=0.3,
+                          as_bytes=True)
+    + [(b"AC" * 55, b"GT" * 55), (b"CAAC" * 30, b"TTGG" * 29)],
+    "mixed": random_pairs(33, 14, 5, 120, 0.05, 0.05, as_bytes=True),
+    # a non-ACGT byte: the token-row push instead of the 2-bit one
+    "with_n": [(b"ACGTNACGTACGTTTGCA", b"ACGTAACGTACCTTTGCA")]
+    + random_pairs(34, 5, 20, 60, 0.05, 0.05, as_bytes=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_align_pairs_matches_reference_and_oracle(case):
+    pairs = CASES[case]
+    attr = _attr()
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    port = PB.align_pairs(attr, pats, txts, device="cpu")
+    ref = BT.align_pairs(attr, pats, txts)
+    assert _fields(port) == _fields(ref)
+    oracle = [OracleAligner(attr).align(p, t) for p, t in pairs]
+    assert _fields(port) == _fields(oracle)
+    assert [r.cigarstring for r in port] == [r.cigarstring for r in ref]
+
+
+def test_escalation_reaches_wider_rungs(monkeypatch):
+    """div25 holds pairs past the first rung: the port escalates them (a
+    batch at rung-1 caps alone reports overflow for them) through the
+    second rung to the terminal one."""
+    pairs = CASES["div25"]
+    attr = _attr()
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    h = PB.align_pairs_dispatch(attr, pats, txts, device="cpu")
+    assert h.cfg.ops_out > 0 and not h.at_full_caps
+    packed = PB.align_pairs_pull(h).packed_np
+    status = packed[:h.B]
+    assert ((status == 4) | (status == 5)).any()
+    rungs = []
+    dispatch = PB.align_pairs_dispatch
+
+    def record(*args, **kw):
+        sub = dispatch(*args, **kw)
+        rungs.append((sub.cfg.W, sub.cfg.S_cap, sub.at_full_caps))
+        return sub
+
+    monkeypatch.setattr(PB, "align_pairs_dispatch", record)
+    assert _fields(PB.align_pairs_finish(h)) == _fields(
+        BT.align_pairs(attr, pats, txts))
+    assert len(rungs) == 2 and not rungs[0][2] and rungs[1][2]
+    assert h.cfg.S_cap < rungs[0][1] < rungs[1][1]
+
+
+def test_match_bonus_penalties_match_reference():
+    pairs = CASES["mixed"][:8]
+    attr = _attr(match=-1, mismatch=5, gap_opening=7, gap_extension=3)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    assert _fields(PB.align_pairs(attr, pats, txts, device="cpu")) == \
+        _fields(BT.align_pairs(attr, pats, txts))
+
+
+def test_stream_matches_align_pairs():
+    attr = _attr()
+    batches = [([p for p, _ in CASES[c]], [t for _, t in CASES[c]])
+               for c in ("readme", "with_n", "div2")]
+    seq = [BT.align_pairs(attr, p, t) for p, t in batches]
+    out = list(PB.align_pairs_stream(attr, iter(batches), depth=2,
+                                     device="cpu"))
+    assert [_fields(r) for r in out] == [_fields(r) for r in seq]
+
+
+def test_batch_aligner_stream_and_empty_batches():
+    a = BatchWavefrontAligner(span="end-to-end", device="cpu")
+    pats = [p.decode() for p, _ in README_PAIRS]
+    txts = [t.decode() for _, t in README_PAIRS]
+    out = list(a.align_stream(iter([(pats, txts), ([], []),
+                                    (pats, txts, dict(Lp=128, Lt=128))]),
+                              depth=1))
+    assert out[1] == []
+    assert _fields(out[0]) == _fields(out[2]) == _fields(a.align(pats, txts))
+    assert out[0][0].cigarstring == "3M1X4M1D7M1I9M1X6M"
+    assert out[0][0].score == -24
+
+
+@pytest.mark.parametrize("kw", [
+    dict(span="ends-free"), dict(scope="score"), dict(distance="linear"),
+    dict(heuristic="adaptive"), dict(memory_mode="low"),
+    dict(wildcard="N"),
+])
+def test_off_slice_config_raises(kw):
+    pats = [p for p, _ in README_PAIRS]
+    txts = [t for _, t in README_PAIRS]
+    kw = dict(dict(span="end-to-end"), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchWavefrontAligner(device="cpu", **kw).align(pats, txts)
+
+
+@pytest.mark.parametrize("W,S_cap", [(1024, 300000), (1152, 2000)])
+def test_long_read_shapes_raise(W, S_cap):
+    """A choices record over the device budget needs the segmented
+    traceback; a band over 1024 diagonals needs more than one thread per
+    diagonal. Neither is ported yet."""
+    pats = [p for p, _ in README_PAIRS]
+    txts = [t for _, t in README_PAIRS]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        PB.align_pairs(_attr(), pats, txts, device="cpu", W=W, S_cap=S_cap)
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PB.align_pairs(_attr(), [b"ACGT"], [b"ACGT"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchWavefrontAligner(span="end-to-end")
+
+
+def test_attributes_match_reference_aligner():
+    kw = dict(match=-2, mismatch=6, gap_opening=5, gap_extension=1,
+              span="end-to-end", max_steps=77)
+    port = BatchWavefrontAligner(device="cpu", **kw)._attr
+    ref = WavefrontAligner(backend="numpy", **kw)._attributes()
+    assert port == ref

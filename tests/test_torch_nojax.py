@@ -1,0 +1,57 @@
+"""The port runs with jax absent, as it must on a GPU host without it.
+
+A subprocess installs an import hook that refuses `jax` and `jaxlib`,
+imports pywfa_tpu_torch, aligns 8 pairs on the CPU, checks them against
+the scalar oracle, and asserts that jax never entered sys.modules.
+"""
+import os
+import subprocess
+import sys
+
+SCRIPT = r"""
+import sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+
+import torch
+torch.set_num_threads(1)
+import pywfa_tpu_torch
+from pywfa_tpu.oracle import OracleAligner
+from tests.corpus import random_pairs
+
+pairs = random_pairs(41, 8, 20, 90, 0.05, 0.05, as_bytes=True)
+aligner = pywfa_tpu_torch.BatchWavefrontAligner(span="end-to-end",
+                                                device="cpu")
+res = aligner.align([p for p, _ in pairs], [t for _, t in pairs])
+for (p, t), r in zip(pairs, res):
+    o = OracleAligner(aligner._attr).align(p, t)
+    assert (r.status, r.score, r.ops) == (o.status, o.score, o.ops), (p, t)
+assert "jax" not in sys.modules and "jaxlib" not in sys.modules
+print("OK", len(res))
+"""
+
+
+def test_port_imports_and_aligns_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("OK 8")
+
+
+def test_port_sources_never_import_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "pywfa_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as fh:
+                    src = fh.read()
+                assert "import jax" not in src and "from jax" not in src, name
