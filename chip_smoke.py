@@ -8,10 +8,16 @@ Phases (any failure raises and exits nonzero; nothing falls back):
 1. Device: the card's name and power limit from nvidia-smi, whether the
    native host library loaded; exits nonzero without CUDA.
 2. Build: compiles the fused-loop CUDA kernel from the checkout.
-3. Kernel against its plain torch version on the card, byte for byte, at
-   the main path's shapes: 4096 pairs of 150 bp at 2% divergence at the
-   first rung (W=256, S_cap=96) and at W=128, and 256 pairs (64 unrelated)
-   at the terminal rung (W=384, S_cap=649); both times by CUDA events.
+3. Each kernel variant against its plain torch version on the card, byte
+   for byte, at the main paths' shapes: end to end with the choice
+   record, 4096 pairs of 150 bp at 2% divergence at the first rung
+   (W=256, S_cap=96) and at W=128, and 256 pairs (64 unrelated) at the
+   terminal rung (W=384, S_cap=649); ends-free with the record, 4096
+   150 bp reads in 200 bp windows with text frees of 50 at their first
+   rung, and the main pairs with all frees 0; score only, the end-to-end
+   rung-1 and terminal sets and the windows; and one WavefrontAligner
+   call with pywfa's defaults in both scopes (a 150 bp pair padded to 16
+   pairs at Lp = Lt = 256, W=256, S_cap=96). Both times by CUDA events.
 4. Stream: BatchWavefrontAligner(distance="affine", span="end-to-end",
    device="cuda").align_stream over 16 batches of 4096 pairs (timed:
    alignments/s), then over one probe batch (25% divergence, unrelated
@@ -20,8 +26,18 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    every pair must complete, and 512 sampled pairs plus every probe pair
    must equal the scalar oracle in score and CIGAR. Prints the per-stage
    ms/batch measured on one 4096-pair batch.
+5. API: pywfa_tpu_torch.WavefrontAligner(device="cuda") with pywfa's
+   defaults (ends-free, zero frees) on 256 single 150 bp pairs and the
+   README / reference-test golden pairs, in the full and the score scope;
+   every result equals the reference's numpy oracle on score, status,
+   CIGAR and start/end. Prints the median ms per call.
+6. Two timed streams of 8 x 4096 pairs, alignments/s, 512 sampled pairs
+   each equal to the oracle: ends-free reads in windows (text frees of
+   50), and end-to-end score-only.
 
-The line before the last is the kernels' JSON record; the last line is
+Each main-path phase zeroes the kernels' launch counts just before it and
+reads them just after; it fails unless its kernel variants launched. The
+line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
@@ -37,6 +53,11 @@ B_MAIN = 4096
 L = 150
 DIV = 0.02
 N_BATCHES = 16
+WINDOW = 200
+WINDOW_FREE = 50
+N_NEW_BATCHES = 8
+N_API = 256
+MAXS = 2**31 - 1
 
 
 def log(msg):
@@ -57,6 +78,31 @@ def make_pairs(rng, n, length, divergence):
                                 % 4]
     return ([pats[i].tobytes() for i in range(n)],
             [txts[i].tobytes() for i in range(n)])
+
+
+def make_windows(rng, n, length, window, divergence):
+    """n reads of `length` bp, each copied with int(length * divergence)
+    substitutions into a random window of `window` bp at a random offset."""
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    reads, copies = make_pairs(rng, n, length, divergence)
+    wins = alphabet[rng.integers(0, 4, size=(n, window))]
+    offs = rng.integers(0, window - length + 1, size=n)
+    for i in range(n):
+        wins[i, offs[i]:offs[i] + length] = np.frombuffer(copies[i],
+                                                          dtype=np.uint8)
+    return reads, [wins[i].tobytes() for i in range(n)]
+
+
+def reset_counts():
+    """Zero the fused loop's launch counts, by variant."""
+    from pywfa_tpu_torch.ops import fused_loop
+    for k in fused_loop.variant_launches:
+        fused_loop.variant_launches[k] = 0
+
+
+def read_counts():
+    from pywfa_tpu_torch.ops import fused_loop
+    return dict(fused_loop.variant_launches)
 
 
 def mutate(rng, p, sub, ind):
@@ -148,7 +194,7 @@ def phase_build():
                 log(f"  ptxas: {line.strip()}")
 
 
-def _device_inputs(cfg, pats, txts, dev):
+def _device_inputs(cfg, pats, txts, dev, frees_row=(0, 0, 0, 0)):
     from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch.ops import engine as TE
     plens = np.fromiter(map(len, pats), dtype=np.int32, count=len(pats))
@@ -161,11 +207,49 @@ def _device_inputs(cfg, pats, txts, dev):
     lens = PB._to_device(np.stack([plens, tlens]), dev)
     pat, txt = TE.decode_packed(cfg, rows, lens[0], lens[1])
     bits = TE.build_eq_bits(cfg, pat, txt)
-    frees = torch.zeros((len(pats), 4), dtype=torch.int32, device=dev)
-    return bits, lens[0], lens[1], frees
+    # per-pair clamped frees, as the batch path builds them
+    frees = np.minimum(np.array([frees_row], dtype=np.int32),
+                       np.stack([plens, plens, tlens, tlens], axis=1))
+    return bits, lens[0], lens[1], PB._to_device(frees, dev)
+
+
+def rung1_config(attr, pats, txts):
+    """The first rung the batch path picks for these pairs."""
+    from pywfa_tpu.attributes import validate_alignment
+    from pywfa_tpu_torch import batch as PB
+    maxLp = max(map(len, pats))
+    maxLt = max(map(len, txts))
+    attr0 = validate_alignment(attr, maxLp, maxLt)
+    _, cfg, _ = PB._derive_config(attr0, PB._bucket_len(maxLp),
+                                  PB._bucket_len(maxLt), min(maxLp, maxLt),
+                                  None, None, False)
+    return cfg
+
+
+def api_single_inputs(attr, pat, txt):
+    """The 16-pair batch and the first-rung config of one WavefrontAligner
+    call, as engine_adapter.align_single and batch.align_pairs_dispatch
+    build them: power-of-two length buckets, "A"/"A" pad pairs."""
+    from pywfa_tpu.attributes import validate_alignment
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch import engine_adapter as EA
+    Lp = EA._bucket_len(len(pat), EA.DEFAULT_SCHEDULE)
+    Lt = EA._bucket_len(len(txt), EA.DEFAULT_SCHEDULE)
+    attr0 = validate_alignment(attr, len(pat), len(txt))
+    pad = PB._bucket_B(1) - 1
+    pats, txts = [pat] + [b"A"] * pad, [txt] + [b"A"] * pad
+    maxLp, maxLt = max(map(len, pats)), max(map(len, txts))
+    attr0 = validate_alignment(PB._clamp_frees(attr0, maxLp, maxLt), maxLp,
+                               maxLt)
+    _, cfg, _ = PB._derive_config(attr0, max(Lp, PB._bucket_len(maxLp)),
+                                  max(Lt, PB._bucket_len(maxLt)),
+                                  min(maxLp, maxLt), None, None, False)
+    return (pats, txts), cfg
 
 
 def phase_kernel_vs_plain(attr, dev):
+    import dataclasses
+    from pywfa_tpu.align import WavefrontAligner as RefAligner
     from pywfa_tpu_torch.ops import config as C
     from pywfa_tpu_torch.ops import fused_loop
     rng = np.random.default_rng(SEED + 1)
@@ -174,20 +258,48 @@ def phase_kernel_vs_plain(attr, dev):
     unrelated = (make_pairs(rng, 64, L, 0.0)[0],
                  make_pairs(rng, 64, L, 0.0)[0])
     term = (related[0] + unrelated[0], related[1] + unrelated[1])
+    windows = make_windows(rng, B_MAIN, L, WINDOW, DIV)
+    ef_attr = RefAligner(backend="numpy", text_begin_free=WINDOW_FREE,
+                         text_end_free=WINDOW_FREE)._attributes()
+    default_attr = RefAligner(backend="numpy")._attributes()
+    score_attr = RefAligner(backend="numpy", scope="score")._attributes()
+    p = make_pairs(rng, 1, L, 0.0)[0][0]
+    single = (p, mutate(rng, p, DIV, 0.01))
+    win_cfg = rung1_config(ef_attr, *windows)
+    rung1 = C.full_config(attr, 160, 160, W=256, S_cap=96)
+    terminal = C.full_config(attr, 160, 160)
+    wfree = (0, 0, WINDOW_FREE, WINDOW_FREE)
+    zero = (0, 0, 0, 0)
     shapes = [
-        ("rung1", main, C.full_config(attr, 160, 160, W=256, S_cap=96)),
-        ("w128", main, C.full_config(attr, 160, 160, W=128, S_cap=96)),
-        ("terminal", term, C.full_config(attr, 160, 160)),
+        ("rung1", main, rung1, zero),
+        ("w128", main, C.full_config(attr, 160, 160, W=128, S_cap=96), zero),
+        ("terminal", term, terminal, zero),
+        ("endsfree_window", windows, win_cfg, wfree),
+        ("endsfree_default", main, rung1_config(default_attr, *main), zero),
+        ("score_rung1", main,
+         dataclasses.replace(rung1, record_choices=False), zero),
+        ("score_terminal", term,
+         dataclasses.replace(terminal, record_choices=False), zero),
+        ("score_endsfree_window", windows,
+         dataclasses.replace(win_cfg, record_choices=False), wfree),
+        ("api_single",) + api_single_inputs(default_attr, *single) + (zero,),
+        ("api_single_score",) + api_single_inputs(score_attr, *single)
+        + (zero,),
     ]
     records = {}
-    for name, (pats, txts), cfg in shapes:
-        args = _device_inputs(cfg, pats, txts, dev)
-        ms = 2**31 - 1
+    for name, (pats, txts), cfg, frees_row in shapes:
+        args = _device_inputs(cfg, pats, txts, dev, frees_row)
+        ms = MAXS
         got = fused_loop.align_batch_fused_loop(cfg, *args, ms)
         want = fused_loop.align_batch_fused_loop_ref(cfg, *args, ms)
         torch.cuda.synchronize()
+        if set(got) != set(want) or ("choices" in got) != cfg.record_choices:
+            raise AssertionError(f"{name}: outputs {sorted(got)} vs "
+                                 f"{sorted(want)}")
         err = 0
         for key in ("status", "final_s", "end_k", "end_off", "choices"):
+            if key not in want:
+                continue
             a, b = got[key], want[key]
             if a.shape != b.shape or a.dtype != b.dtype:
                 raise AssertionError(f"{name}: {key} {a.shape}/{a.dtype} vs "
@@ -198,8 +310,10 @@ def phase_kernel_vs_plain(attr, dev):
             cfg, *args, ms), 20)
         p_ms = cuda_ms(lambda: fused_loop.align_batch_fused_loop_ref(
             cfg, *args, ms), 3)
-        log(f"kernel vs plain [{name}] B={len(pats)} W={cfg.W} "
-            f"S_cap={cfg.S_cap} steps={int(got['steps'])} "
+        log(f"kernel vs plain [{name}] variant={fused_loop.variant(cfg)} "
+            f"B={len(pats)} W={cfg.W} S_cap={cfg.S_cap} Lp={cfg.Lp} "
+            f"Lt={cfg.Lt} NQ={args[0].shape[0]} "
+            f"steps={int(got['steps'])} "
             f"status_counts={status} max_abs_err={err} "
             f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f}")
         if err != 0:
@@ -226,7 +340,7 @@ def phase_stream(dev):
     list(aligner.align_stream(iter(batches[:1]), depth=1))
     torch.cuda.synchronize()
 
-    fused_loop.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     results = list(aligner.align_stream(iter(batches), depth=3))
     torch.cuda.synchronize()
@@ -235,7 +349,7 @@ def phase_stream(dev):
     results += list(aligner.align_stream(iter([probe]), depth=3))
     torch.cuda.synchronize()
     probe_wall = time.perf_counter() - t0
-    launches = fused_loop.launches
+    launches = read_counts()["e2e"]
     n_main = N_BATCHES * B_MAIN
     log(f"stream: {N_BATCHES} batches, {n_main} pairs in {wall:.3f} s = "
         f"{n_main / wall:.0f} alignments/s ({1e3 * wall / N_BATCHES:.2f} "
@@ -327,6 +441,145 @@ def phase_stream(dev):
     return launches
 
 
+# README and reference-test golden pairs: (pattern, text, aligner kwargs)
+GOLDEN = [
+    ("TCTTTACTCGCGCGTTGGAGAAATACAATAGT", "TCTATACTGCGCGTTTGGAGAAATAAAATAGT",
+     {}),
+    ("AAAAACCTTTTTAAAAAA", "GGCCAAAAACCAAAAAA", {}),
+    ("AAAAAAAAAAAACCTTTTAAAAAAGAAAAAAA", "ACCCCCCCCCCCAAAAACCAAAAAAAAAAAAA",
+     {}),
+    ("AATTAATTTAAGTCTAGGCTACTTTCGGTACTTTGTTCTT",
+     "AATTTAAGTCTAGGCTACTTTCGGTACTTTCTT", {"span": "end-to-end"}),
+    ("AATTAATTTAAGTCTAGGCTACTTTCGGTACTTTGTTCTT",
+     "AATTTAAGTCTAGGCTACTTTCGGTACTTTCTT", {}),
+    ("AAAAACCTTTTTAAAAAA", "GGCCAAAAACCGGGGGGG", {}),
+    ("AAAAACCGGGG", "AAAAACC", {}),
+    ("AAAAACC", "AAAAACCGGGG", {}),
+    ("GGGGAAAAACC", "AAAAACCGGGG", {}),
+    ("AAAAACCGGGG", "GGGGAAAAACC", {}),
+    ("GGGGAAAAACC", "AAAAACC", {}),
+    ("GGGGAAAAACC", "CCCCCAAAAACC", {}),
+    ("GGGGAAAAACCGGGGG", "CCCCCAAAAACCTTTTT", {}),
+    ("AAAAACC", "CCCCCAAAAACCTTTTT", {}),
+]
+
+
+def _api_fields(res):
+    return (res.score, res.status, res.cigarstring, res.pattern_start,
+            res.pattern_end, res.text_start, res.text_end)
+
+
+def phase_api(dev):
+    """pywfa_tpu_torch.WavefrontAligner with pywfa's defaults on the card,
+    one pair per call, against the reference's numpy oracle."""
+    import pywfa_tpu_torch
+    from pywfa_tpu.align import WavefrontAligner as RefAligner
+    rng = np.random.default_rng(SEED + 2)
+    pats, txts = make_pairs(rng, N_API // 2, L, DIV)
+    singles = list(zip(pats, txts))
+    for _ in range(N_API - len(singles)):
+        p = bytes(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, L)])
+        singles.append((p, mutate(rng, p, DIV, 0.01)))
+    singles = [(p.decode(), t.decode(), {}) for p, t in singles]
+    reset_counts()
+    per_call = {}
+    n_checked = 0
+    for scope, items in (("full", singles + GOLDEN),
+                         ("score", singles[:64] + GOLDEN)):
+        aligners = {}
+        times = []
+        n_single = len(items) - len(GOLDEN)
+        for i, (p, t, kw) in enumerate(items):
+            key = tuple(sorted(kw.items()))
+            if key not in aligners:
+                aligners[key] = (
+                    pywfa_tpu_torch.WavefrontAligner(scope=scope, device=dev,
+                                                     **kw),
+                    RefAligner(scope=scope, backend="numpy", **kw))
+            port, ref = aligners[key]
+            t0 = time.perf_counter()
+            got = _api_fields(port(t, p))
+            if i < n_single:
+                times.append(time.perf_counter() - t0)
+            want = _api_fields(ref(t, p))
+            if got != want:
+                raise AssertionError(f"WavefrontAligner({scope}) {p} / {t}: "
+                                     f"{got} vs oracle {want}")
+            n_checked += 1
+        per_call[scope] = 1e3 * float(np.median(times))
+    counts = read_counts()
+    a = pywfa_tpu_torch.WavefrontAligner(GOLDEN[0][0], device=dev)
+    if (a.wavefront_align(GOLDEN[0][1]), a.cigarstring) != (
+            -24, "3M1X4M1D7M1I9M1X6M"):
+        raise AssertionError("the README example differs from its golden")
+    log(f"api: WavefrontAligner(device='cuda'), pywfa defaults: "
+        f"{n_checked} calls equal to the oracle in score, status, CIGAR "
+        f"and start/end; median ms/call full={per_call['full']:.3f} "
+        f"score={per_call['score']:.3f} (single {L} bp pairs); "
+        f"launches {counts}")
+    for variant in ("endsfree", "endsfree_score", "e2e", "e2e_score"):
+        if counts[variant] == 0:
+            raise AssertionError(f"the API phase never launched {variant}")
+    return counts
+
+
+def _timed_stream(aligner, batches):
+    """(results, wall seconds, launch counts) of one stream, after a
+    warm-up batch that is not counted."""
+    list(aligner.align_stream(iter(batches[:1]), depth=1))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = list(aligner.align_stream(iter(batches), depth=3))
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, read_counts()
+
+
+def phase_new_streams(dev):
+    """Two timed streams of 8 x 4096 pairs: ends-free reads in windows,
+    and end-to-end score-only; 512 sampled pairs of each against the
+    oracle."""
+    from pywfa_tpu.oracle import OracleAligner
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    rng = np.random.default_rng(SEED + 3)
+    streams = [
+        ("endsfree_window", "endsfree",
+         BatchWavefrontAligner(text_begin_free=WINDOW_FREE,
+                               text_end_free=WINDOW_FREE, device=dev),
+         [make_windows(rng, B_MAIN, L, WINDOW, DIV)
+          for _ in range(N_NEW_BATCHES)]),
+        ("e2e_score", "e2e_score",
+         BatchWavefrontAligner(span="end-to-end", scope="score", device=dev),
+         [make_pairs(rng, B_MAIN, L, DIV) for _ in range(N_NEW_BATCHES)]),
+    ]
+    counts = {}
+    for name, variant, aligner, batches in streams:
+        results, wall, c = _timed_stream(aligner, batches)
+        n = N_NEW_BATCHES * B_MAIN
+        log(f"stream [{name}]: {N_NEW_BATCHES} batches, {n} pairs in "
+            f"{wall:.3f} s = {n / wall:.0f} alignments/s "
+            f"({1e3 * wall / N_NEW_BATCHES:.2f} ms/batch); launches {c}")
+        if c[variant] < N_NEW_BATCHES:
+            raise AssertionError(f"stream {name} launched {variant} "
+                                 f"{c[variant]} times")
+        flat = [r for rs in results for r in rs]
+        if len(flat) != n or any(r.status != 0 for r in flat):
+            raise AssertionError(f"stream {name}: not every pair completed")
+        pats = [p for b in batches for p in b[0]]
+        txts = [t for b in batches for t in b[1]]
+        oracle = OracleAligner(aligner._attr)
+        for i in sorted(rng.choice(n, 512, replace=False).tolist()):
+            o = oracle.align(pats[i], txts[i])
+            r = flat[i]
+            want = (o.status, o.score, o.ops, o.end_v, o.end_h)
+            if (r.status, r.score, r.ops, r.end_v, r.end_h) != want:
+                raise AssertionError(f"stream {name} pair {i}: {r} vs "
+                                     f"oracle {want}")
+        log(f"oracle: stream [{name}]: 512 sampled pairs equal")
+        counts[variant] = c[variant]
+    return counts
+
+
 def main():
     phase_device()
     dev = torch.device("cuda", 0)
@@ -334,15 +587,36 @@ def main():
     from pywfa_tpu_torch import BatchWavefrontAligner
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     records = phase_kernel_vs_plain(attr, dev)
-    launches = phase_stream(dev)
-    err = max(r[0] for r in records.values())
-    _, k_ms, p_ms = records["rung1"]
-    log(json.dumps({"kernels": [{
-        "name": "fused_loop_affine_e2e", "route": "cuda",
-        "source": "pywfa_tpu_torch/csrc/fused_loop.cu",
-        "replaces": "pywfa_tpu/ops/pallas/fused_loop.py:197",
-        "launches": launches, "max_abs_err": err, "ms": k_ms,
-        "plain_ms": p_ms}]}))
+    launches = {"e2e": phase_stream(dev)}
+    api = phase_api(dev)
+    streams = phase_new_streams(dev)
+    launches["endsfree"] = api["endsfree"] + streams["endsfree"]
+    launches["e2e_score"] = api["e2e_score"] + streams["e2e_score"]
+    launches["endsfree_score"] = api["endsfree_score"]
+    pallas = "pywfa_tpu/ops/pallas/fused_loop.py"
+    # variant: (the TPU kernel it replaces, its shapes, the timed shape)
+    table = {
+        "e2e": (f"{pallas}:197", ("rung1", "w128", "terminal"), "rung1"),
+        "endsfree": (f"{pallas}:197",
+                     ("endsfree_window", "endsfree_default", "api_single"),
+                     "endsfree_window"),
+        "e2e_score": (f"{pallas}:919", ("score_rung1", "score_terminal"),
+                      "score_rung1"),
+        "endsfree_score": (f"{pallas}:919",
+                           ("score_endsfree_window", "api_single_score"),
+                           "score_endsfree_window"),
+    }
+    kernels = []
+    for variant, (replaces, shapes, timed) in table.items():
+        if launches[variant] == 0:
+            raise AssertionError(f"no main path launched {variant}")
+        kernels.append({
+            "name": f"fused_loop_affine_{variant}", "route": "cuda",
+            "source": "pywfa_tpu_torch/csrc/fused_loop.cu",
+            "replaces": replaces, "launches": launches[variant],
+            "max_abs_err": max(records[s][0] for s in shapes),
+            "ms": records[timed][1], "plain_ms": records[timed][2]})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,15 +1,26 @@
 """pywfa_tpu_torch: the PyTorch / CUDA port of pywfa_tpu.
 
-Batched wavefront alignment on one NVIDIA GPU (Hopper, sm_90a), byte-exact
+Wavefront alignment on one NVIDIA GPU (Hopper, sm_90a), byte-exact
 against the JAX package `pywfa_tpu`, which stays the reference. This
 package imports torch and never jax; from `pywfa_tpu` it reuses only the
-jax-free modules (constants, attributes, cigar, oracle, native).
+jax-free modules (constants, attributes, cigar, oracle, native, align,
+utils).
 
-Covered so far: the batch and stream API for gap-affine, end-to-end,
-full-CIGAR alignment without heuristics. Other configurations raise
+Covered so far: pywfa's `WavefrontAligner` and the batch and stream API
+for gap-affine alignment, end-to-end or ends-free (match == 0), full
+CIGAR or score only, without heuristics. Other configurations raise
 NotImplementedError naming their ROADMAP item.
 """
+from .align import (
+    AlignmentResult,
+    WavefrontAligner,
+    cigartuples_to_str,
+    clip_cigartuples,
+    elide_mismatches_from_cigar,
+)
 from .batch import BatchResult, BatchWavefrontAligner, align_pairs, align_pairs_stream
 
-__all__ = ["BatchResult", "BatchWavefrontAligner", "align_pairs",
+__all__ = ["WavefrontAligner", "AlignmentResult", "clip_cigartuples",
+           "cigartuples_to_str", "elide_mismatches_from_cigar",
+           "BatchResult", "BatchWavefrontAligner", "align_pairs",
            "align_pairs_stream"]

@@ -4,11 +4,13 @@ The twin of the main-path subset of `pywfa_tpu.batch`: encode and 2-bit
 pack on the host (native C++), push one input array, run the whole device
 pipeline (decode, eq-bits, the fused loop, the walk, the packing) on one
 device, pull one packed output array, then assemble CIGARs with the native
-match-fill and escalate the pairs that overflowed the rung.
+match-fill (or translate scores, in the score-only scope) and escalate the
+pairs that overflowed the rung.
 
-Covered: gap-affine, end-to-end span, full-CIGAR scope, exact matching, no
-heuristic, high memory mode. Every other configuration raises
-NotImplementedError naming its ROADMAP item.
+Covered: gap-affine, end-to-end span or ends-free span with match == 0,
+full-CIGAR or score-only scope, exact matching, no heuristic, high memory
+mode. Every other configuration raises NotImplementedError naming its
+ROADMAP item.
 
 Transport: pinned host buffers and non_blocking copies on the current
 CUDA stream, with one CUDA event per in-flight batch, so dispatching batch
@@ -26,18 +28,16 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from pywfa_tpu.align import WavefrontAligner as _RefAligner
 from pywfa_tpu.attributes import (
-    INT_MAX,
     AlignerAttributes,
-    AlignmentForm,
-    HeuristicParams,
-    SystemParams,
+    classic_score,
     classic_score_batch,
-    penalties_affine,
     validate_alignment,
 )
 from pywfa_tpu.cigar import Cigar, cigar_maxtrim
 from pywfa_tpu.constants import (
+    DIAGONAL_NULL,
     AlignmentScope,
     AlignmentSpan,
     DistanceMetric,
@@ -235,17 +235,43 @@ class BatchResult:
         return cigar_sprint_sam(self.ops, show_mismatches=False)
 
 
+def _clamp_frees(attr: AlignerAttributes, plen: int, tlen: int
+                 ) -> AlignerAttributes:
+    """Batch semantics of the ends-free span: each free is clamped to the
+    sequence it frees (the reference aborts instead)."""
+    f = attr.form
+    if f.span != AlignmentSpan.ENDS_FREE or f.extension:
+        return attr
+    return dataclasses.replace(attr, form=dataclasses.replace(
+        f,
+        pattern_begin_free=min(f.pattern_begin_free, plen),
+        pattern_end_free=min(f.pattern_end_free, plen),
+        text_begin_free=min(f.text_begin_free, tlen),
+        text_end_free=min(f.text_end_free, tlen)))
+
+
 def _oracle_one(attr: AlignerAttributes, pattern: bytes, text: bytes
                 ) -> BatchResult:
-    """Exact oracle fallback for one pair."""
+    """Exact oracle fallback for one pair, with its ends-free slack
+    clamped to its own lengths."""
+    attr = _clamp_frees(attr, len(pattern), len(text))
     r = OracleAligner(attr).align(pattern, text)
     return BatchResult(r.status, r.score, r.ops, r.end_v, r.end_h,
                        r.wf_score, r.dropped)
 
 
-def _unreachable_result(pen, wf_s: int) -> BatchResult:
-    """Result of an infeasible pair: no end position was recorded, so no
-    walk ran; the reference reports an empty, max-trimmed partial."""
+def _unreachable_result(pen, scope_full: bool, wf_s: int, end_k: int,
+                        end_off: int) -> BatchResult:
+    """Result of an infeasible pair. Without a heuristic no end position is
+    recorded and no walk runs: the score-only scope reports the score of
+    the null end cell, the full scope an empty, max-trimmed partial."""
+    if end_off <= OFFSET_NULL // 2:
+        end_k, end_off = DIAGONAL_NULL, OFFSET_NULL
+    if not scope_full:
+        ev = end_off - end_k
+        return BatchResult(STATUS_ALG_PARTIAL,
+                           classic_score(pen, ev, end_off, wf_s), "", ev,
+                           end_off, wf_s, True)
     cig = Cigar(ops="")
     cigar_maxtrim(cig, pen)
     return BatchResult(STATUS_ALG_PARTIAL, cig.score, cig.ops, cig.end_v,
@@ -337,14 +363,15 @@ def _check_slice(attr0: AlignerAttributes, wildcard) -> None:
         raise NotImplementedError(
             f"{pen.distance_metric.name} is not ported yet (ROADMAP queue 1 "
             "item 5, queue 2 items 4-5); only gap-affine is")
-    if attr0.form.span != AlignmentSpan.END_TO_END:
+    form = attr0.form
+    if form.span == AlignmentSpan.ENDS_FREE and form.extension:
         raise NotImplementedError(
-            "the ends-free span is not ported yet (ROADMAP queue 1 item 5, "
-            "queue 2 item 3)")
-    if attr0.scope != AlignmentScope.COMPUTE_ALIGNMENT:
+            "WF-extension mode is not ported yet (ROADMAP queue 1 item 5)")
+    if form.span == AlignmentSpan.ENDS_FREE and pen.match != 0:
         raise NotImplementedError(
-            "score-only scope is not ported yet (ROADMAP queue 1 item 5, "
-            "queue 2 item 2)")
+            "ends-free alignment with a match bonus seeds the boundary at "
+            "every score (ef_seeding) and is not ported yet (ROADMAP queue "
+            "2 item 7)")
     if int(attr0.heuristic.strategy) != 0:
         raise NotImplementedError(
             "heuristics are not ported yet (ROADMAP queue 1 item 5, "
@@ -364,17 +391,20 @@ def _derive_config(attr0, Lp: int, Lt: int, min_len: int, W, S_cap,
                    escalated: bool):
     """(full_probe, cfg, at_full_caps) of one rung: the optimistic first
     rung scaled to the read length, or the caps the escalation asked for,
-    with the compacted op output below the terminal rung."""
-    full_probe = C.full_config(attr0, Lp, Lt)
+    with the compacted op output below the terminal rung in the full-CIGAR
+    scope. The score-only scope records no choices."""
+    scope_full = attr0.scope == AlignmentScope.COMPUTE_ALIGNMENT
+    full_probe = C.full_config(attr0, Lp, Lt, record_choices=scope_full)
     S0 = max(96, C._round_up(min_len // 6 + 1, 32))
     if (W is None and S_cap is None and full_probe.S_cap > S0
             and not escalated):
         S_cap = min(S0, full_probe.S_cap)
         W = min(full_probe.W,
                 C._round_up(_band_for_score(attr0, S_cap, Lp, Lt), 128))
-    cfg = C.full_config(attr0, Lp, Lt, W=W, S_cap=S_cap)
+    cfg = C.full_config(attr0, Lp, Lt, W=W, S_cap=S_cap,
+                        record_choices=scope_full)
     at_full_caps = cfg.S_cap >= full_probe.S_cap and cfg.W >= full_probe.W
-    if not at_full_caps:
+    if scope_full and not at_full_caps:
         # pairs with more ops than ops_out re-run at the next rung, where
         # they always fit (next ops_out >= 4*S_cap//3 >= S_cap >= n_ops)
         oc = min(cfg.S_cap, max(32, C._round_up(cfg.S_cap // 3, 2)))
@@ -388,8 +418,8 @@ class _Inflight:
 
     __slots__ = ("results", "attr", "attr0", "cfg", "full_probe",
                  "patterns", "texts", "plens", "tlens", "pat_np", "txt_np",
-                 "max_steps_i", "at_full_caps", "Lp", "Lt", "maxLp",
-                 "maxLt", "B", "B0", "device", "out_host", "event",
+                 "max_steps_i", "scope_full", "at_full_caps", "Lp", "Lt",
+                 "maxLp", "maxLt", "B", "B0", "device", "out_host", "event",
                  "packed_np")
 
     def __init__(self, results=None):
@@ -459,13 +489,17 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
     tlens = np.fromiter(map(len, texts), dtype=np.int32, count=B)
     maxLp = int(plens.max())
     maxLt = int(tlens.max())
+    # clamp the ends-free slack to the batch before validation, so that
+    # mixed-length batches pass; _build_frees clamps it per pair
+    attr = _clamp_frees(attr, maxLp, maxLt)
     attr0 = validate_alignment(attr, maxLp, maxLt)
     _check_slice(attr0, wildcard)
+    scope_full = attr0.scope == AlignmentScope.COMPUTE_ALIGNMENT
     Lp = max(Lp or 0, _bucket_len(maxLp))
     Lt = max(Lt or 0, _bucket_len(maxLt))
     full_probe, cfg, at_full_caps = _derive_config(
         attr0, Lp, Lt, min(maxLp, maxLt), W, S_cap, _escalated)
-    if cfg.S_cap * B * cfg.W > CHOICES_BYTES_CAP:
+    if scope_full and cfg.S_cap * B * cfg.W > CHOICES_BYTES_CAP:
         raise NotImplementedError(
             f"the choices record ({cfg.S_cap}x{B}x{cfg.W} bytes) exceeds "
             "the device budget; the segmented traceback is not ported yet "
@@ -481,7 +515,8 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
     txt_np, pt = _encode_side(texts, cfg.Lt, cfg.extend_chunk,
                               TEXT_SENTINEL, tlens)
     if pp is not None and pt is not None:
-        rows, run = np.concatenate([pp, pt], axis=1), E.align_batch_packed_full
+        rows = np.concatenate([pp, pt], axis=1)
+        run = E.align_batch_packed_full
     else:
         # a non-ACGT byte: push the int8 token rows instead
         rows = np.concatenate([pat_np, txt_np], axis=1)
@@ -508,7 +543,7 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
     h.patterns, h.texts = patterns, texts
     h.plens, h.tlens, h.pat_np, h.txt_np = plens, tlens, pat_np, txt_np
     h.max_steps_i = max_steps_i
-    h.at_full_caps = at_full_caps
+    h.scope_full, h.at_full_caps = scope_full, at_full_caps
     h.Lp, h.Lt, h.maxLp, h.maxLt, h.B, h.B0 = Lp, Lt, maxLp, maxLt, B, B0
     h.device = dev
     return h
@@ -527,17 +562,23 @@ def align_pairs_pull(h: _Inflight) -> _Inflight:
 
 def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
     """Phase 2: decode the packed output, assemble CIGARs (native
-    match-fill), escalate the pairs that overflowed the rung and send
-    inconsistent walks to the oracle."""
+    match-fill) or, in the score-only scope, translate the scores;
+    escalate the pairs that overflowed the rung and send inconsistent
+    walks to the oracle."""
     if h.results is not None:
         return h.results
     packed = align_pairs_pull(h).packed_np
     cfg, B = h.cfg, h.B
     plens, tlens = h.plens, h.tlens
     pen = h.attr0.penalties
+    scope_full = h.scope_full
     results: List[Optional[BatchResult]] = [None] * B
 
-    if C.packed_layout(cfg) == "compact":
+    if not scope_full:
+        # the [4, B] int32 meta block of engine.pack_meta
+        status, final_s, end_k, end_off = packed
+        fb = np.zeros(B, dtype=bool)
+    elif C.packed_layout(cfg) == "compact":
         # 14-byte meta + 4-bit op stream (see config.packed_layout)
         status = packed[:B].astype(np.int32)
         fb = packed[B: 2 * B] != 0
@@ -558,15 +599,18 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
     clean_idx = np.flatnonzero(clean_np).tolist()
     native_ops = (_native_fill(clean_idx, h.pat_np, h.txt_np, plens, tlens,
                                end_k, end_off, ops_fwd, k_start)
-                  if clean_idx else {})
+                  if clean_idx and scope_full else {})
     ev_a = end_off - end_k
     eh_a = end_off
-    sc_a = classic_score_batch(pen, ev_a, eh_a, final_s).tolist()
+    if scope_full:
+        sc_a = classic_score_batch(pen, ev_a, eh_a, final_s).tolist()
+    else:
+        sc_a = classic_score_batch(pen, plens, tlens, final_s).tolist()
     final_s_l = final_s.tolist()
     ev_l = ev_a.tolist()
     eh_l = eh_a.tolist()
 
-    if len(native_ops) == B and bool(clean_np.all()):
+    if scope_full and len(native_ops) == B and bool(clean_np.all()):
         # the common batch: every pair completed and was filled natively
         return [BatchResult(STATUS_ALG_COMPLETED, sc, native_ops[b], ev, eh,
                             s, False)
@@ -577,16 +621,27 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
     oracle_idx: List[int] = []
     status_l = status.tolist()
     fb_l = fb.tolist()
+    plens_l = plens.tolist()
+    tlens_l = tlens.tolist()
     for b in range(B):
         st = status_l[b]
-        if st == C.ST_END_REACHED and not fb_l[b]:
+        if st == C.ST_END_REACHED and not scope_full:
+            results[b] = BatchResult(STATUS_ALG_COMPLETED, sc_a[b], "",
+                                     plens_l[b], tlens_l[b], final_s_l[b],
+                                     False)
+        elif st == C.ST_END_REACHED and not fb_l[b]:
+            ev, eh = ev_l[b], eh_l[b]
             ops = native_ops.get(b)
             if ops is None:
                 ops = _match_fill(h.patterns[b], h.texts[b], ops_fwd[b],
-                                  int(k_start[b]), int(plens[b]),
-                                  int(tlens[b]))
+                                  int(k_start[b]), plens_l[b], tlens_l[b])
+                # ends-free: the trailing free ops, the I block first
+                if eh < tlens_l[b]:
+                    ops += "I" * (tlens_l[b] - eh)
+                if ev < plens_l[b]:
+                    ops += "D" * (plens_l[b] - ev)
             results[b] = BatchResult(STATUS_ALG_COMPLETED, sc_a[b], ops,
-                                     ev_l[b], eh_l[b], final_s_l[b], False)
+                                     ev, eh, final_s_l[b], False)
         elif st == C.ST_MAX_STEPS:
             results[b] = BatchResult(STATUS_MAX_STEPS_REACHED,
                                      -h.max_steps_i, "", 0, 0,
@@ -594,9 +649,11 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
         elif (st in (C.ST_OVERFLOW_W, C.ST_OVERFLOW_S)
               and not h.at_full_caps):
             escalate_idx.append(b)
-        elif (st == C.ST_END_UNREACHABLE and not fb_l[b]
-              and int(end_off[b]) <= OFFSET_NULL // 2):
-            results[b] = _unreachable_result(pen, final_s_l[b])
+        elif st == C.ST_END_UNREACHABLE and (
+                not scope_full
+                or (not fb_l[b] and int(end_off[b]) <= OFFSET_NULL // 2)):
+            results[b] = _unreachable_result(pen, scope_full, final_s_l[b],
+                                             int(end_k[b]), int(end_off[b]))
         else:
             # inconsistent walk (rare) -> exact oracle
             oracle_idx.append(b)
@@ -631,50 +688,21 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
 class BatchWavefrontAligner:
     """Batched aligner on one device: many pattern/text pairs per call.
 
-    Configuration kwargs mean what they mean for the reference package's
-    `WavefrontAligner` (including its pywfa defaults, so `span` defaults
-    to "ends-free", which this port does not cover yet: pass
-    span="end-to-end"). `device` defaults to "cuda" and raises when CUDA
-    is absent; "cpu" runs the plain torch versions of the kernels.
+    Configuration kwargs are those of `WavefrontAligner`, with its pywfa
+    defaults (gap-affine 0/4/6/2, ends-free span with zero frees, full
+    scope); configurations off the ported slice raise NotImplementedError
+    naming their ROADMAP item when aligning. `device` defaults to "cuda"
+    and raises when CUDA is absent; "cpu" runs the plain torch versions of
+    the kernels. W and S_cap pin the first rung's band and score cap.
     """
 
     def __init__(self, W: Optional[int] = None, S_cap: Optional[int] = None,
-                 device="cuda", distance="affine", memory_mode="high",
-                 match=0, mismatch=4, gap_opening=6, gap_extension=2,
-                 scope="full", span="ends-free", heuristic=None,
-                 wildcard=None, match_classes=None, max_steps=0,
-                 verbose=0):
-        if distance != "affine":
-            raise NotImplementedError(
-                f"{distance} distance is not ported yet (ROADMAP queue 1 "
-                "item 5)")
-        spans = {"end-to-end": AlignmentSpan.END_TO_END,
-                 "ends-free": AlignmentSpan.ENDS_FREE}
-        scopes = {"full": AlignmentScope.COMPUTE_ALIGNMENT,
-                  "score": AlignmentScope.COMPUTE_SCORE}
-        modes = {"high": MemoryMode.HIGH, "medium": MemoryMode.MED,
-                 "low": MemoryMode.LOW, "biwfa": MemoryMode.ULTRALOW}
-        strategies = {None: HeuristicStrategy.NONE,
-                      "adaptive": HeuristicStrategy.WFADAPTIVE,
-                      "X-drop": HeuristicStrategy.XDROP}
-        for name, value, table in (("span", span, spans),
-                                   ("scope", scope, scopes),
-                                   ("memory_mode", memory_mode, modes),
-                                   ("heuristic", heuristic, strategies)):
-            if value not in table:
-                raise ValueError(f"{name} {value!r} not understood")
-        self._attr = AlignerAttributes(
-            penalties=penalties_affine(match, mismatch, gap_opening,
-                                       gap_extension),
-            scope=scopes[scope],
-            form=AlignmentForm(span=spans[span]),
-            heuristic=HeuristicParams(strategy=strategies[heuristic]),
-            memory_mode=modes[memory_mode],
-            system=SystemParams(max_alignment_steps=(
-                max_steps if max_steps > 0 else INT_MAX), verbose=verbose),
-            match_classes=match_classes or "")
-        self._wildcard = (wildcard.encode("ascii")[0]
-                          if isinstance(wildcard, str) else wildcard)
+                 device="cuda", **kwargs):
+        # the reference class: on the numpy backend the port's subclass
+        # adds nothing, and the import stays downward
+        api = _RefAligner(backend="numpy", **kwargs)
+        self._attr = api._attributes()
+        self._wildcard = api._bwildcard if api._wildcard else None
         self._W = W
         self._S_cap = S_cap
         self._device = _resolve_device(device)
@@ -703,3 +731,15 @@ class BatchWavefrontAligner:
                                   wildcard=self._wildcard, depth=depth,
                                   W=self._W, S_cap=self._S_cap,
                                   device=self._device)
+
+    def align_packed2bits(self, packed_patterns, pattern_lengths,
+                          packed_texts, text_lengths) -> List[BatchResult]:
+        """Align 2-bit-packed DNA pairs (A, C, G, T = 0-3, four bases to a
+        byte, lowest bits first), as the reference package's
+        `BatchWavefrontAligner.align_packed2bits` does."""
+        from pywfa_tpu.utils.encode import unpack2bits
+        bp = [unpack2bits(p, n)
+              for p, n in zip(packed_patterns, pattern_lengths)]
+        bt = [unpack2bits(t, n) for t, n in zip(packed_texts, text_lengths)]
+        return align_pairs(self._attr, bp, bt, W=self._W, S_cap=self._S_cap,
+                           device=self._device)

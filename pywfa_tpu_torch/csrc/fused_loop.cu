@@ -1,8 +1,11 @@
 // Fused whole-alignment WFA score loop for Hopper (sm_90a): gap-affine,
-// end-to-end span, full-CIGAR choice recording, no heuristic.
+// end-to-end or ends-free span (match == 0), full-CIGAR choice recording
+// or score only, no heuristic.
 //
-// Replaces pywfa_tpu/ops/pallas/fused_loop.py::_kernel (its affine
-// end-to-end branch). The plain torch version of the same program is
+// Replaces pywfa_tpu/ops/pallas/fused_loop.py::_kernel (its gap-affine
+// branch without heuristics or ends-free match seeding) and both of its
+// pallas_calls: the recording one and the score-only one. The plain torch
+// version of the same program is
 // pywfa_tpu_torch/ops/fused_loop.py::align_batch_fused_loop_ref; both
 // produce byte-identical status, final_s, end_k, end_off and choices.
 //
@@ -16,14 +19,22 @@
 // warp reductions plus a shared-memory pass over the warps' partials.
 // Each block leaves its loop as soon as its own pair is done.
 //
+// Two template parameters select the variant. kEndsFree seeds WF0 with
+// the begin-free diagonals [-pattern_begin_free, text_begin_free] and ends
+// at the lowest diagonal whose cell reached an end-free boundary: each
+// warp ballots its hits, __ffs picks the warp's lowest, and a pass over
+// the warps' partials in shared memory picks the block's. kRecord = false
+// is the score-only scope: no choice bytes, no choices pointer.
+//
 // What bounds it: the per-step __syncthreads latency (two barriers per
 // score step, a few hundred steps at most), not bytes. The choices record
 // is about 100 MB for a 4096-pair batch at W = 256, tens of microseconds
 // at the card's bandwidth. Making it fast (several pairs per block, a
 // warp per pair, fewer barriers) is later work.
 //
-// A band that outgrows W reports ST_OVERFLOW_W instead of being clamped
-// silently, as the XLA engine of the reference package does.
+// A band that outgrows W, at WF0 or later, reports ST_OVERFLOW_W instead
+// of being clamped silently, as the XLA engine of the reference package
+// does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +42,7 @@
 namespace {
 
 constexpr int kNull = -(1 << 30);
+constexpr int kNullThreshold = kNull / 2;
 constexpr int kBig = 1 << 30;
 constexpr int kComps = 3;  // M, I1, D1
 
@@ -53,7 +65,8 @@ struct Params {
   const uint32_t* bits;  // [NQ, B, W] packed equality words
   const int32_t* plen;   // [B]
   const int32_t* tlen;   // [B]
-  uint8_t* choices;      // [S_cap, B, W], zero on entry
+  const int32_t* frees;  // [B, 4]: pattern begin/end, text begin/end free
+  uint8_t* choices;      // [S_cap, B, W], zero on entry; unused unless kRecord
   int32_t* res;          // [4, B]: status, final_s, end_k, end_off
   int B, W, NQ, S_cap, scope, x, o1e1, e1, max_steps;
 };
@@ -101,13 +114,15 @@ __device__ __forceinline__ int lim_hi(const Wf& f, int widen) {
   return f.null_ ? -kBig : f.hi + widen;
 }
 
-__global__ void fused_loop_affine_e2e(Params p) {
+template <bool kEndsFree, bool kRecord>
+__global__ void fused_loop_affine(Params p) {
   extern __shared__ int smem[];
   const int W = p.W;
   const int scope = p.scope;
   int* off = smem;                        // [kComps * scope][W]
   int* lohi = off + kComps * scope * W;   // [kComps * scope][2]
-  int* red = lohi + kComps * scope * 2;   // [6][32] warp partials
+  int* red = lohi + kComps * scope * 2;   // [6][32] trim warp partials
+  int* term = red + 6 * 32;               // [32] ends-free hit partials
 
   const int w = threadIdx.x;
   const int b = blockIdx.x;
@@ -120,23 +135,36 @@ __global__ void fused_loop_affine_e2e(Params p) {
   const int tlen = p.tlen[b];
   const size_t BW = static_cast<size_t>(p.B) * W;
   const uint32_t* bits = p.bits + static_cast<size_t>(b) * W + w;
-  uint8_t* choices = p.choices + static_cast<size_t>(b) * W + w;
+  uint8_t* choices =
+      kRecord ? p.choices + static_cast<size_t>(b) * W + w : nullptr;
   const int NQ32 = p.NQ * 32;
 
-  // WF0: M at score 0 is the single cell k = 0, offset 0
+  // WF0: M at score 0 holds the begin-free seeds, diagonals
+  // [-pattern_begin_free, text_begin_free] at offset max(k, 0); without
+  // the ends-free span only k = 0, offset 0
+  int wf0_lo = 0, wf0_hi = 0, pef = 0, tef = 0;
+  if (kEndsFree) {
+    const int32_t* fr = p.frees + 4 * static_cast<size_t>(b);
+    wf0_lo = -fr[0];
+    pef = fr[1];
+    wf0_hi = fr[2];
+    tef = fr[3];
+  }
   for (int i = 0; i < kComps * scope; ++i) off[i * W + w] = kNull;
-  off[M * W + w] = (k == 0) ? 0 : kNull;
+  off[M * W + w] = (k >= wf0_lo && k <= wf0_hi) ? max(k, 0) : kNull;
   for (int i = w; i < kComps * scope; i += W) {
-    lohi[2 * i] = (i == 0) ? 0 : 1;
-    lohi[2 * i + 1] = (i == 0) ? 0 : -1;
+    lohi[2 * i] = (i == 0) ? wf0_lo : 1;
+    lohi[2 * i + 1] = (i == 0) ? wf0_hi : -1;
   }
   __syncthreads();
 
   // block-uniform state: every thread computes the same values
   int s = 0, status = 0, final_s = 0, end_k = 0, end_off = kNull;
   int nnull = 0;
-  bool done = false;
-  int m_lo = 0, m_hi = 0;  // band of M at score s (written last step)
+  // seeds past the band: the pair escalates before its first step
+  bool done = kEndsFree && (wf0_lo < kmin + 2 || wf0_hi > kmin + W - 3);
+  if (done) status = ST_OVERFLOW_W;
+  int m_lo = wf0_lo, m_hi = wf0_hi;  // band of M at score s
 
   while (!done && s < p.S_cap - 1) {
     int* m_row = off + (M * scope + s % scope) * W;
@@ -162,19 +190,46 @@ __global__ void fused_loop_affine_e2e(Params p) {
       m_off += fm - idx;
       m_row[w] = m_off;
     }
+    if (kEndsFree) {
+      // a cell on an end-free boundary: the text consumed with at most
+      // pattern_end_free bases left, or the pattern with at most
+      // text_end_free left; each warp posts its lowest such diagonal
+      const int v = m_off - k;
+      const bool cellv = !m_null && k >= m_lo && k <= m_hi &&
+                         m_off > kNullThreshold;
+      const bool hit = cellv && ((m_off >= tlen && plen - v <= pef) ||
+                                 (v >= plen && tlen - m_off <= tef));
+      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, hit);
+      if (lane == 0) term[warp] = ballot ? warp * 32 + __ffs(ballot) - 1 : W;
+    }
     __syncthreads();
 
-    // --- termination: the end cell k = tlen - plen reached offset tlen ---
-    const int ak = tlen - plen;
-    const int aw = ak - kmin;
-    const int cell = (aw >= 0 && aw < W) ? m_row[aw] : 0;
-    if (!m_null && m_lo <= ak && ak <= m_hi && cell >= tlen) {
-      status = ST_END_REACHED;
-      final_s = s;
-      end_k = ak;
-      end_off = tlen;
-      done = true;
-      break;
+    // --- termination ---
+    if (kEndsFree) {
+      // the lowest diagonal that hit wins
+      int first = W;
+      for (int i = 0; i < nwarps; ++i) first = min(first, term[i]);
+      if (first < W) {
+        status = ST_END_REACHED;
+        final_s = s;
+        end_k = first + kmin;
+        end_off = m_row[first];
+        done = true;
+        break;
+      }
+    } else {
+      // the end cell k = tlen - plen reached offset tlen
+      const int ak = tlen - plen;
+      const int aw = ak - kmin;
+      const int cell = (aw >= 0 && aw < W) ? m_row[aw] : 0;
+      if (!m_null && m_lo <= ak && ak <= m_hi && cell >= tlen) {
+        status = ST_END_REACHED;
+        final_s = s;
+        end_k = ak;
+        end_off = tlen;
+        done = true;
+        break;
+      }
     }
 
     // --- compute s + 1 ---
@@ -262,7 +317,7 @@ __global__ void fused_loop_affine_e2e(Params p) {
         m_hi = thi;
       }
     }
-    if (band_n && choice != 0) {
+    if (kRecord && band_n && choice != 0) {
       choices[static_cast<size_t>(s1) * BW] = static_cast<uint8_t>(choice);
     }
 
@@ -289,22 +344,39 @@ __global__ void fused_loop_affine_e2e(Params p) {
   }
 }
 
+template <bool kEndsFree, bool kRecord>
+int launch(const Params& p, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_loop_affine<kEndsFree, kRecord>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  fused_loop_affine<kEndsFree, kRecord><<<p.B, p.W, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch the loop for B pairs on `stream`; returns the cudaError_t of the
-// launch (0 on success). All pointers are device pointers.
-int wfa_fused_loop_affine_e2e(const void* bits, const void* plen,
-                              const void* tlen, void* choices, void* res,
-                              int B, int W, int NQ, int S_cap, int scope,
-                              int x, int o1e1, int e1, int max_steps,
-                              void* stream) {
+// launch (0 on success). All pointers are device pointers; `frees` is
+// read only when ends_free, `choices` written only when record.
+int wfa_fused_loop_affine(const void* bits, const void* plen,
+                          const void* tlen, const void* frees, void* choices,
+                          void* res, int B, int W, int NQ, int S_cap,
+                          int scope, int x, int o1e1, int e1, int max_steps,
+                          int ends_free, int record, void* stream) {
   if (B == 0) return 0;
+  if ((ends_free && frees == nullptr) || (record && choices == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
   p.bits = static_cast<const uint32_t*>(bits);
   p.plen = static_cast<const int32_t*>(plen);
   p.tlen = static_cast<const int32_t*>(tlen);
+  p.frees = static_cast<const int32_t*>(frees);
   p.choices = static_cast<uint8_t*>(choices);
   p.res = static_cast<int32_t*>(res);
   p.B = B;
@@ -317,16 +389,15 @@ int wfa_fused_loop_affine_e2e(const void* bits, const void* plen,
   p.e1 = e1;
   p.max_steps = max_steps;
   const size_t smem =
-      (static_cast<size_t>(kComps) * scope * W + kComps * scope * 2 + 6 * 32) *
+      (static_cast<size_t>(kComps) * scope * W + kComps * scope * 2 + 7 * 32) *
       sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_loop_affine_e2e, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ends_free) {
+    return record ? launch<true, true>(p, smem, st)
+                  : launch<true, false>(p, smem, st);
   }
-  fused_loop_affine_e2e<<<B, W, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return record ? launch<false, true>(p, smem, st)
+                : launch<false, false>(p, smem, st);
 }
 
 const char* wfa_cuda_error_string(int err) {

@@ -74,8 +74,8 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.wfa_fused_loop_affine_e2e.argtypes = [vp] * 5 + [ci] * 9 + [vp]
-        lib.wfa_fused_loop_affine_e2e.restype = ci
+        lib.wfa_fused_loop_affine.argtypes = [vp] * 6 + [ci] * 11 + [vp]
+        lib.wfa_fused_loop_affine.restype = ci
         lib.wfa_cuda_error_string.argtypes = [ci]
         lib.wfa_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

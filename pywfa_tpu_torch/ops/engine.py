@@ -3,7 +3,10 @@
 The twin of the XLA-op stages of `pywfa_tpu.ops.engine` that the main path
 runs: the 2-bit decode, the packed equality bits, the traceback walk and
 the output packing, plus the pipelines that chain them with the fused
-loop (`align_batch_packed_full`, `align_batch_fused_full`). Every function
+loop: `align_batch_packed_full` and `align_batch_fused_full`, which end in
+`pack_full` in the full-CIGAR scope and in `pack_meta` in the score-only
+one (`align_batch_packed_meta` and `align_batch_fused_meta` are their
+names under the reference's score-only spelling). Every function
 is device-agnostic: it runs where its input tensors live, CPU or CUDA.
 Only the walk synchronises with the device, to end early.
 
@@ -178,7 +181,9 @@ def traceback_walk(cfg: EngineConfig, choices: torch.Tensor,
     in FORWARD cigar order, as the reference's level scan writes it.
     Every step lowers s by at least min(mismatch, gap_extension1), which
     bounds the iteration count; every 4 steps one host sync ends the walk
-    early once no pair is still walking.
+    early once no pair is still walking. A pair stops at score 0 on the
+    diagonal it reached, which is a WF0 seed (k != 0 on the ends-free
+    span) and becomes its k_start.
     Returns (ops_fwd [B, S_cap] uint8, n_ops [B], k_start [B], fallback [B]).
     """
     if cfg.metric != DistanceMetric.GAP_AFFINE:
@@ -285,17 +290,23 @@ def pack_walked(cfg: EngineConfig, out: dict, ok: torch.Tensor,
                       ops_fwd.reshape(-1)])
 
 
+def _pack(cfg: EngineConfig, out: dict) -> torch.Tensor:
+    """The scope's packed output: pack_full with the choice record,
+    pack_meta without it."""
+    return pack_full(cfg, out) if cfg.record_choices else pack_meta(out)
+
+
 def align_batch_packed_full(cfg: EngineConfig, packed, plen, tlen, frees,
                             max_steps: int) -> torch.Tensor:
-    """2-bit input -> packed output: decode, eq-bits, the fused loop, the
-    walk and the packing, all on `packed`'s device."""
+    """2-bit input -> packed output: decode, eq-bits, the fused loop, and
+    in the full scope the walk and the packing, all on `packed`'s
+    device."""
     plen = plen.to(torch.int32)
     tlen = tlen.to(torch.int32)
     pat, txt = decode_packed(cfg, packed, plen, tlen)
     bits = build_eq_bits(cfg, pat, txt)
-    out = fused_loop.align_batch_fused_loop(cfg, bits, plen, tlen, frees,
-                                            max_steps)
-    return pack_full(cfg, out)
+    return _pack(cfg, fused_loop.align_batch_fused_loop(
+        cfg, bits, plen, tlen, frees, max_steps))
 
 
 def align_batch_fused_full(cfg: EngineConfig, fused, plen, tlen, frees,
@@ -306,6 +317,18 @@ def align_batch_fused_full(cfg: EngineConfig, fused, plen, tlen, frees,
     tlen = tlen.to(torch.int32)
     pat, txt = decode_fused(cfg, fused)
     bits = build_eq_bits(cfg, pat, txt)
-    out = fused_loop.align_batch_fused_loop(cfg, bits, plen, tlen, frees,
-                                            max_steps)
-    return pack_full(cfg, out)
+    return _pack(cfg, fused_loop.align_batch_fused_loop(
+        cfg, bits, plen, tlen, frees, max_steps))
+
+
+def pack_meta(out: dict) -> torch.Tensor:
+    """Score-only scope: the [4, B] int32 meta block (status, final_s,
+    end_k, end_off), decoded by batch.align_pairs_finish."""
+    return torch.stack([out["status"], out["final_s"], out["end_k"],
+                        out["end_off"]]).to(torch.int32)
+
+
+# the score-only pipelines under the reference's names (cfg.record_choices
+# is False there, so the pipelines end in pack_meta)
+align_batch_packed_meta = align_batch_packed_full
+align_batch_fused_meta = align_batch_fused_full

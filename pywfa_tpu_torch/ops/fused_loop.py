@@ -1,9 +1,10 @@
-"""The fused whole-alignment score loop: gap-affine, end-to-end, full CIGAR.
+"""The fused whole-alignment score loop: gap-affine, end-to-end or
+ends-free span, full-CIGAR or score-only scope.
 
 The twin of `pywfa_tpu/ops/pallas/fused_loop.py`. For every pair it runs
 the whole WFA score loop -- extend, terminate, compute s+1, trim, record
-one choice byte per cell -- and returns the same dict as the reference's
-`align_batch_pallas`.
+one choice byte per cell unless the scope is score-only -- and returns the
+same dict as the reference's `align_batch_pallas`.
 
 `align_batch_fused_loop` is the entry point. On CUDA tensors it launches
 the hand-written kernel in `csrc/fused_loop.cu`; on CPU tensors it runs
@@ -12,7 +13,8 @@ kernel's own array program over [B, W] with a Python loop over scores.
 
 One deliberate difference from the Pallas kernel: a band that outgrows W
 reports ST_OVERFLOW_W, as the XLA engine does, instead of being clamped
-silently. The escalation ladder re-runs such pairs at a wider band.
+silently; so do ends-free WF0 seeds past the band. The escalation ladder
+re-runs such pairs at a wider band.
 """
 from __future__ import annotations
 
@@ -21,13 +23,15 @@ import torch
 from pywfa_tpu.constants import AlignmentSpan, DistanceMetric
 
 from .config import (
-    D1, I1, M, MSRC_D1, MSRC_I1, MSRC_NONE, MSRC_X, NULL,
+    D1, I1, M, MSRC_D1, MSRC_I1, MSRC_NONE, MSRC_X, NULL, NULL_THRESHOLD,
     ST_END_REACHED, ST_END_UNREACHABLE, ST_MAX_STEPS, ST_OVERFLOW_S,
     ST_OVERFLOW_W, EngineConfig,
 )
 
-# kernel launches made by align_batch_fused_loop (plain version excluded)
-launches = 0
+# kernel launches made by align_batch_fused_loop (plain version excluded),
+# by variant (see `variant`)
+variant_launches = {"e2e": 0, "endsfree": 0, "e2e_score": 0,
+                    "endsfree_score": 0}
 
 # shared memory one block may use on sm_90 (bytes)
 SMEM_LIMIT = 232448
@@ -37,17 +41,31 @@ NC = 3  # components of the gap-affine ring: M, I1, D1
 
 def smem_bytes(cfg: EngineConfig) -> int:
     """Dynamic shared memory of one block: the offsets ring, its lo/hi
-    pairs and the per-warp partials of the six trim reductions."""
-    return (NC * cfg.scope * cfg.W + NC * cfg.scope * 2 + 6 * 32) * 4
+    pairs and the per-warp partials of the six trim reductions and of the
+    ends-free termination."""
+    return (NC * cfg.scope * cfg.W + NC * cfg.scope * 2 + 7 * 32) * 4
+
+
+def _ends_free(cfg: EngineConfig) -> bool:
+    return cfg.span == AlignmentSpan.ENDS_FREE
+
+
+def variant(cfg: EngineConfig) -> str:
+    """The kernel variant a config launches: span, then "_score" for the
+    score-only scope."""
+    return (("endsfree" if _ends_free(cfg) else "e2e")
+            + ("" if cfg.record_choices else "_score"))
 
 
 def supported(cfg: EngineConfig) -> bool:
-    """The slice this module covers: gap-affine, end-to-end, full-CIGAR
-    recording, exact matching, no heuristic, one thread per diagonal."""
+    """The slice this module covers: gap-affine, end-to-end or ends-free
+    span (ends-free only with match == 0, whose WF0 seeding is static),
+    full-CIGAR or score-only scope, exact matching, no heuristic, one
+    thread per diagonal."""
     return (cfg.metric == DistanceMetric.GAP_AFFINE
-            and cfg.span == AlignmentSpan.END_TO_END
+            and (cfg.span == AlignmentSpan.END_TO_END
+                 or (_ends_free(cfg) and cfg.match == 0))
             and cfg.strategy == 0
-            and cfg.record_choices
             and cfg.wildcard < 0
             and not cfg.match_classes
             and cfg.W % 32 == 0 and cfg.W <= MAX_THREADS
@@ -57,10 +75,10 @@ def supported(cfg: EngineConfig) -> bool:
 def _check(cfg: EngineConfig, bits, plen, tlen, frees):
     if not supported(cfg):
         raise NotImplementedError(
-            "the fused loop covers gap-affine end-to-end full-CIGAR "
-            "alignment without heuristics, wildcards or match classes, "
-            f"with W <= {MAX_THREADS} (got {cfg}); the rest waits in "
-            "ROADMAP queue 2")
+            "the fused loop covers gap-affine alignment, end-to-end or "
+            "ends-free with match == 0, without heuristics, wildcards or "
+            f"match classes, with W <= {MAX_THREADS} (got {cfg}); the rest "
+            "waits in ROADMAP queue 2")
     if bits.dim() != 3 or bits.shape[2] != cfg.W:
         raise ValueError(f"bits must be [NQ, B, {cfg.W}], got "
                          f"{tuple(bits.shape)}")
@@ -87,12 +105,12 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     """Run the fused score loop over B pairs.
 
     bits: [NQ, B, W] int32 bit patterns (engine.build_eq_bits); plen/tlen:
-    [B] int32; frees: [B, 4] int32 (all zero on this span); max_steps: the
-    user step cap. Returns dict(status, final_s, end_k, end_off, choices,
-    steps) with choices [S_cap, B, W] uint8; levels a pair never reaches
-    read 0.
+    [B] int32; frees: [B, 4] int32 (pattern begin, pattern end, text
+    begin, text end free; read on the ends-free span only); max_steps: the
+    user step cap. Returns dict(status, final_s, end_k, end_off, steps),
+    plus choices [S_cap, B, W] uint8 when cfg.record_choices (levels a
+    pair never reaches read 0).
     """
-    global launches
     _check(cfg, bits, plen, tlen, frees)
     max_steps = min(int(max_steps), 2**31 - 1)
     if bits.device.type == "cpu":
@@ -100,29 +118,36 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
                                           max_steps)
     if bits.device.type != "cuda":
         raise ValueError(f"no fused loop for device {bits.device}")
-    for name, t in (("bits", bits), ("plen", plen), ("tlen", tlen)):
+    for name, t in (("bits", bits), ("plen", plen), ("tlen", tlen),
+                    ("frees", frees)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     from . import cuda_build
     lib = cuda_build.load()
     NQ, B, W = bits.shape
     dev = bits.device
-    choices = torch.zeros((cfg.S_cap, B, W), dtype=torch.uint8, device=dev)
+    record = cfg.record_choices
+    # score-only scope: no [S_cap, B, W] record, so no memset of it either
+    choices = (torch.zeros((cfg.S_cap, B, W), dtype=torch.uint8, device=dev)
+               if record else None)
     res = torch.empty((4, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.wfa_fused_loop_affine_e2e(
+        rc = lib.wfa_fused_loop_affine(
             bits.data_ptr(), plen.data_ptr(), tlen.data_ptr(),
-            choices.data_ptr(), res.data_ptr(), B, W, NQ, cfg.S_cap,
-            cfg.scope, cfg.mismatch,
+            frees.data_ptr(), choices.data_ptr() if record else None,
+            res.data_ptr(), B, W, NQ, cfg.S_cap, cfg.scope, cfg.mismatch,
             cfg.gap_opening1 + cfg.gap_extension1, cfg.gap_extension1,
-            max_steps, stream)
+            max_steps, int(_ends_free(cfg)), int(record), stream)
     if rc != 0:
         raise RuntimeError("fused loop kernel launch failed: "
                            + cuda_build.error_string(rc))
-    launches += 1
-    return dict(status=res[0], final_s=res[1], end_k=res[2],
-                end_off=res[3], choices=choices, steps=res[1].max())
+    variant_launches[variant(cfg)] += 1
+    out = dict(status=res[0], final_s=res[1], end_k=res[2], end_off=res[3],
+               steps=res[1].max())
+    if record:
+        out["choices"] = choices
+    return out
 
 
 def _ctz32(m):
@@ -137,8 +162,9 @@ def _ctz32(m):
 def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
                                max_steps: int) -> dict:
     """The plain torch version: the Pallas kernel's array program (its
-    affine end-to-end branch) over [B, W], all pairs as one tile, with the
-    band-overflow flag of the XLA engine. Runs on any device."""
+    gap-affine branch, both spans, both scopes) over [B, W], all pairs as
+    one tile, with the band-overflow flag of the XLA engine. Runs on any
+    device."""
     NQ, B, W = bits.shape
     dev = bits.device
     i32 = torch.int32
@@ -151,14 +177,32 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
     karr = iota + kmin
     plen = plen.to(i32)[:, None]
     tlen = tlen.to(i32)[:, None]
+    ends_free = _ends_free(cfg)
+    record = cfg.record_choices
 
+    # --- WF0 (the Pallas kernel's `:270-290`) ---
+    if ends_free:
+        frees = frees.to(i32)
+        pbf, pef = frees[:, 0:1], frees[:, 1:2]
+        tbf, tef = frees[:, 2:3], frees[:, 3:4]
+        wf0_lo, wf0_hi = -pbf, tbf
+        off0 = torch.where((karr >= 0) & (karr <= wf0_hi), karr.clamp(min=0),
+                           torch.where((karr < 0) & (karr >= wf0_lo), 0,
+                                       NULL))
+        # seeds past the band (engine._init_state): escalate at once
+        overflow0 = (wf0_lo < kmin + 2) | (wf0_hi > kmin + W - 3)
+    else:
+        wf0_lo = wf0_hi = 0
+        off0 = torch.where(karr == 0, 0, NULL)
+        overflow0 = torch.zeros((B, 1), dtype=torch.bool, device=dev)
     off = torch.full((NC * scope, B, W), NULL, dtype=i32, device=dev)
     lo = torch.ones((NC * scope, B, 1), dtype=i32, device=dev)
     hi = -torch.ones((NC * scope, B, 1), dtype=i32, device=dev)
-    off[M * scope] = torch.where(karr == 0, 0, NULL)
-    lo[M * scope] = 0
-    hi[M * scope] = 0
-    choices = torch.zeros((S_cap, B, W), dtype=torch.uint8, device=dev)
+    off[M * scope] = off0
+    lo[M * scope] = wf0_lo
+    hi[M * scope] = wf0_hi
+    choices = (torch.zeros((S_cap, B, W), dtype=torch.uint8, device=dev)
+               if record else None)
     null_row = torch.full((B, W), NULL, dtype=i32, device=dev)
     one = torch.ones((B, 1), dtype=i32, device=dev)
     true = torch.ones((B, 1), dtype=torch.bool, device=dev)
@@ -191,8 +235,9 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
         return torch.zeros((B, 1), dtype=i32, device=dev)
 
     s = 0
-    done = torch.zeros((B, 1), dtype=torch.bool, device=dev)
-    status, final_s, end_k, nnull = col(), col(), col(), col()
+    done = overflow0.clone()
+    status = torch.where(overflow0, ST_OVERFLOW_W, col())
+    final_s, end_k, nnull = col(), col(), col()
     end_off = col() + NULL
     while bool((~done).any()) and s < S_cap - 1:
         active = ~done
@@ -221,16 +266,31 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
         m_off = torch.where(valid, m_off + (fm - idx), m_off)
         off[M * scope + slot] = m_off
 
-        # --- termination at k = tlen - plen, offset tlen ---
-        ak = tlen - plen
-        cell = torch.where(karr == ak, m_off, 0).sum(1, keepdim=True,
-                                                      dtype=i32)
-        on_band = (m_lo <= ak) & (ak <= m_hi)
-        hit = active & ~m_null & on_band & (cell >= tlen)
+        # --- termination ---
+        if ends_free:
+            # the lowest diagonal on an end-free boundary wins
+            v = m_off - karr
+            cellv = band_mask(m_lo, m_hi) & (m_off > NULL_THRESHOLD)
+            done_h = cellv & (m_off >= tlen) & ((plen - v) <= pef)
+            done_v = cellv & (v >= plen) & ((tlen - m_off) <= tef)
+            dmask = done_h | done_v
+            firsti = torch.where(dmask, iota, W).amin(1, keepdim=True)
+            hit = active & ~m_null & dmask.any(1, keepdim=True)
+            t_k = firsti + kmin
+            t_off = torch.where(iota == firsti, m_off, 0).sum(
+                1, keepdim=True, dtype=i32)
+        else:
+            # the end cell k = tlen - plen reached offset tlen
+            ak = tlen - plen
+            cell = torch.where(karr == ak, m_off, 0).sum(1, keepdim=True,
+                                                          dtype=i32)
+            on_band = (m_lo <= ak) & (ak <= m_hi)
+            hit = active & ~m_null & on_band & (cell >= tlen)
+            t_k, t_off = ak, tlen
         status = torch.where(hit, ST_END_REACHED, status)
         final_s = torch.where(hit, s, final_s)
-        end_k = torch.where(hit, ak, end_k)
-        end_off = torch.where(hit, tlen, end_off)
+        end_k = torch.where(hit, t_k, end_k)
+        end_off = torch.where(hit, t_off, end_off)
         done = done | hit
         active = active & ~hit
 
@@ -306,7 +366,8 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
                 (karr >= tlo) & (karr <= thi), arr, NULL)
             lo[c * scope + slot1] = tlo
             hi[c * scope + slot1] = thi
-        choices[s1] = torch.where(band_n, choice, 0).to(torch.uint8)
+        if record:
+            choices[s1] = torch.where(band_n, choice, 0).to(torch.uint8)
 
         # band overflow: the pair escalates to a wider band
         status = torch.where(overflow, ST_OVERFLOW_W, status)
@@ -322,6 +383,8 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
     running = ~done
     status = torch.where(running, ST_OVERFLOW_S, status)
     final_s = torch.where(running, s, final_s)
-    return dict(status=status[:, 0], final_s=final_s[:, 0],
-                end_k=end_k[:, 0], end_off=end_off[:, 0], choices=choices,
-                steps=final_s.max())
+    out = dict(status=status[:, 0], final_s=final_s[:, 0],
+               end_k=end_k[:, 0], end_off=end_off[:, 0], steps=final_s.max())
+    if record:
+        out["choices"] = choices
+    return out

@@ -4,18 +4,20 @@
 whole main path (host encode, the torch device pipeline with the fused
 loop's plain version, host finish, escalation) and must equal
 `pywfa_tpu.batch.align_pairs` and the scalar oracle on every BatchResult
-field. Tolerance: zero.
+field, on both spans and in both scopes. Tolerance: zero.
 """
 import pytest
 import torch
 
 from pywfa_tpu import batch as BT
+from pywfa_tpu import native
 from pywfa_tpu.align import WavefrontAligner
 from pywfa_tpu.oracle import OracleAligner
+from pywfa_tpu.utils.encode import pack2bits
 from pywfa_tpu_torch import BatchWavefrontAligner
 from pywfa_tpu_torch import batch as PB
 from tests.corpus import random_pairs
-from tests.test_torch_engine import README_PAIRS
+from tests.test_torch_engine import README_PAIRS, window_pairs
 
 torch.set_num_threads(1)
 
@@ -122,7 +124,8 @@ def test_batch_aligner_stream_and_empty_batches():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(span="ends-free"), dict(scope="score"), dict(distance="linear"),
+    dict(distance="affine2p"), dict(span="ends-free", match=-1),
+    dict(distance="linear"),
     dict(heuristic="adaptive"), dict(memory_mode="low"),
     dict(wildcard="N"),
 ])
@@ -160,3 +163,101 @@ def test_attributes_match_reference_aligner():
     port = BatchWavefrontAligner(device="cpu", **kw)._attr
     ref = WavefrontAligner(backend="numpy", **kw)._attributes()
     assert port == ref
+
+
+# name: (pairs, aligner kwargs); every span but the last is pywfa's
+# default, ends-free
+EF_CASES = {
+    "defaults": (README_PAIRS + CASES["mixed"], dict()),
+    "window": (window_pairs(35, 12, 40, 100, 15), dict(
+        text_begin_free=15, text_end_free=15)),
+    # frees past the shortest pairs (clamped per pair) and pairs that
+    # escalate past the first rung
+    "escalate": (CASES["div25"] + CASES["mixed"][:6], dict(
+        pattern_begin_free=8, pattern_end_free=8, text_begin_free=8,
+        text_end_free=8)),
+    "e2e": (CASES["div25"], dict(span="end-to-end")),
+}
+
+
+def _ref_oracle(attr, pairs):
+    """The reference's per-pair oracle, ends-free slack clamped per pair."""
+    return [BT._oracle_one(attr, p, t, None) for p, t in pairs]
+
+
+@pytest.mark.parametrize("scope", ["full", "score"])
+@pytest.mark.parametrize("case", sorted(EF_CASES))
+def test_spans_and_scopes_match_reference_and_oracle(case, scope):
+    pairs, kw = EF_CASES[case]
+    attr = WavefrontAligner(backend="numpy", scope=scope,
+                            **kw)._attributes()
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    port = PB.align_pairs(attr, pats, txts, device="cpu")
+    assert _fields(port) == _fields(BT.align_pairs(attr, pats, txts))
+    assert _fields(port) == _fields(_ref_oracle(attr, pairs))
+    if scope == "score":
+        assert all(r.ops == "" for r in port)
+
+
+def test_ends_free_escalation_reaches_wider_rungs(monkeypatch):
+    pairs, kw = EF_CASES["escalate"]
+    attr = WavefrontAligner(backend="numpy", **kw)._attributes()
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    rungs = []
+    dispatch = PB.align_pairs_dispatch
+
+    def record(*args, **kw):
+        sub = dispatch(*args, **kw)
+        rungs.append((sub.cfg.W, sub.cfg.S_cap))
+        return sub
+
+    monkeypatch.setattr(PB, "align_pairs_dispatch", record)
+    port = PB.align_pairs(attr, pats, txts, device="cpu")
+    assert len(rungs) >= 2 and rungs[0][1] < rungs[-1][1]
+    assert _fields(port) == _fields(_ref_oracle(attr, pairs))
+
+
+def test_frees_past_the_shortest_pair_are_clamped_per_pair():
+    """Frees larger than every pair of a mixed-length batch: the batch
+    aligns (the reference would refuse one such pair alone) and each pair
+    equals the oracle run with its own clamped frees; an inconsistent
+    walk's oracle fallback clamps the same way."""
+    pairs = [(b"ACGTTGCA", b"TTACGTTGCAGG"), (b"AC", b"GGGACT")] + \
+        window_pairs(36, 5, 30, 60, 20)
+    attr = WavefrontAligner(backend="numpy", pattern_begin_free=100,
+                            pattern_end_free=100, text_begin_free=150,
+                            text_end_free=150)._attributes()
+    port = PB.align_pairs(attr, [p for p, _ in pairs],
+                          [t for _, t in pairs], device="cpu")
+    assert _fields(port) == _fields(_ref_oracle(attr, pairs))
+    assert _fields([PB._oracle_one(attr, p, t) for p, t in pairs]) == \
+        _fields(port)
+
+
+@pytest.mark.parametrize("case", ["window", "escalate"])
+def test_python_fill_appends_trailing_free_ops(monkeypatch, case):
+    """Without the native library the Python match-fill assembles the
+    CIGARs, trailing free I and D blocks included."""
+    pairs, kw = EF_CASES[case]
+    attr = WavefrontAligner(backend="numpy", **kw)._attributes()
+    want = _ref_oracle(attr, pairs)
+    monkeypatch.setattr(native, "lib", lambda: None)
+    port = PB.align_pairs(attr, [p for p, _ in pairs],
+                          [t for _, t in pairs], device="cpu")
+    assert _fields(port) == _fields(want)
+    assert any(r.ops.endswith("I") for r in port)
+
+
+def test_default_batch_aligner_matches_reference():
+    pats = [p.decode() for p, _ in README_PAIRS]
+    txts = [t.decode() for _, t in README_PAIRS]
+    port = BatchWavefrontAligner(device="cpu")
+    ref = BT.BatchWavefrontAligner()
+    assert port._attr == ref._api._attributes()
+    assert _fields(port.align(pats, txts)) == _fields(ref.align(pats, txts))
+    packed = ([pack2bits(p.encode()) for p in pats], [len(p) for p in pats],
+              [pack2bits(t.encode()) for t in txts], [len(t) for t in txts])
+    assert _fields(port.align_packed2bits(*packed)) == _fields(
+        ref.align_packed2bits(*packed))

@@ -1,5 +1,9 @@
 """The CUDA fused-loop kernel against its plain torch version, on the card.
 
+Every variant (end-to-end or ends-free span, full-CIGAR or score-only
+scope) is held against the plain version, and the API paths against the
+scalar oracle.
+
 Runs only where a CUDA device is present (marker `cuda`; skipped
 elsewhere). The file imports no jax, so on a GPU host without jax run it
 without the suite's conftest:
@@ -9,11 +13,14 @@ without the suite's conftest:
 Every comparison is of integers and byte-exact (tolerance zero).
 """
 import dataclasses
+import random
 
 import numpy as np
 import pytest
 import torch
 
+import pywfa_tpu_torch
+from pywfa_tpu.align import WavefrontAligner as RefAligner
 from pywfa_tpu.attributes import AlignerAttributes, AlignmentForm
 from pywfa_tpu.constants import AlignmentSpan
 from pywfa_tpu.oracle import OracleAligner
@@ -21,7 +28,7 @@ from pywfa_tpu_torch import batch as PB
 from pywfa_tpu_torch.ops import config as C
 from pywfa_tpu_torch.ops import engine as TE
 from pywfa_tpu_torch.ops import fused_loop
-from tests.corpus import random_pairs
+from tests.corpus import mutate, random_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -36,7 +43,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _inputs(cfg, pairs, dev):
+def _inputs(cfg, pairs, dev, frees_row=(0, 0, 0, 0)):
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
     plens = np.array([len(p) for p in pats], dtype=np.int32)
@@ -47,9 +54,62 @@ def _inputs(cfg, pairs, dev):
                           tlens)
     bits = TE.build_eq_bits(cfg, torch.from_numpy(pat).to(dev),
                             torch.from_numpy(txt).to(dev))
+    lens = np.stack([plens, plens, tlens, tlens], axis=1)
+    frees = np.minimum(np.array([frees_row], dtype=np.int32), lens)
     return (bits, torch.from_numpy(plens).to(dev),
-            torch.from_numpy(tlens).to(dev),
-            torch.zeros((len(pairs), 4), dtype=torch.int32, device=dev))
+            torch.from_numpy(tlens).to(dev), torch.from_numpy(frees).to(dev))
+
+
+def _window_pairs(seed, n, length, flank):
+    """n reads of `length` bp, each mutated inside a window of random
+    flanks of up to `flank` bases a side."""
+    rng = random.Random(seed)
+
+    def rand(k):
+        return "".join(rng.choice("ACGT") for _ in range(k))
+
+    out = []
+    for _ in range(n):
+        p = rand(length)
+        t = (rand(rng.randint(0, flank)) + mutate(rng, p, 0.03, 0.01)
+             + rand(rng.randint(0, flank)))
+        out.append((p.encode(), t.encode()))
+    return out
+
+
+@pytest.mark.parametrize("span,record,W,S_cap,frees_row", [
+    ("ends-free", True, None, None, (8, 8, 20, 20)),
+    ("ends-free", True, 256, 96, (8, 8, 20, 20)),
+    ("ends-free", False, 256, 96, (8, 8, 20, 20)),
+    ("ends-free", True, 256, 96, (0, 0, 0, 0)),
+    ("end-to-end", False, None, None, (0, 0, 0, 0)),
+    ("end-to-end", False, 256, 96, (0, 0, 0, 0)),
+    # text-begin-free seeds past the band: ST_OVERFLOW_W at WF0
+    ("ends-free", True, 128, 96, (0, 0, 70, 70)),
+])
+def test_kernel_variants_match_plain_version(dev, span, record, W, S_cap,
+                                             frees_row):
+    spans = {"ends-free": AlignmentSpan.ENDS_FREE,
+             "end-to-end": AlignmentSpan.END_TO_END}
+    attr = AlignerAttributes(form=AlignmentForm(span=spans[span]))
+    pairs = (_window_pairs(54, 48, 120, 20)
+             + random_pairs(55, 16, 20, 150, 0.1, 0.05, unrelated=0.3,
+                            as_bytes=True))
+    cfg = C.full_config(attr, 192, 192, W=W, S_cap=S_cap,
+                        record_choices=record)
+    args = _inputs(cfg, pairs, dev, frees_row)
+    name = fused_loop.variant(cfg)
+    before = fused_loop.variant_launches[name]
+    got = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    assert fused_loop.variant_launches[name] == before + 1
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
+    torch.cuda.synchronize()
+    keys = KEYS if record else KEYS[:4]
+    assert set(got) == set(want) and ("choices" in got) == record
+    for k in keys:
+        assert torch.equal(got[k], want[k]), k
+    if W == 128:
+        assert (got["status"] == C.ST_OVERFLOW_W).any()
 
 
 @pytest.mark.parametrize("W,S_cap,max_steps", [
@@ -63,9 +123,9 @@ def test_kernel_matches_plain_version(dev, W, S_cap, max_steps):
                          as_bytes=True)
     cfg = C.full_config(ATTR, 160, 160, W=W, S_cap=S_cap)
     args = _inputs(cfg, pairs, dev)
-    before = fused_loop.launches
+    before = fused_loop.variant_launches["e2e"]
     got = fused_loop.align_batch_fused_loop(cfg, *args, max_steps)
-    assert fused_loop.launches == before + 1
+    assert fused_loop.variant_launches["e2e"] == before + 1
     want = fused_loop.align_batch_fused_loop_ref(cfg, *args, max_steps)
     torch.cuda.synchronize()
     for k in KEYS:
@@ -97,3 +157,22 @@ def test_align_pairs_on_cuda_matches_oracle(dev):
     for (p, t), r in zip(pairs, res):
         o = oracle.align(p, t)
         assert (r.status, r.score, r.ops) == (o.status, o.score, o.ops)
+
+
+@pytest.mark.parametrize("scope", ["full", "score"])
+def test_wavefront_aligner_on_cuda_matches_oracle(dev, scope):
+    """pywfa's defaults (ends-free, zero frees) and a read in a window with
+    text frees, through the single-pair API on the card."""
+    pairs = (random_pairs(56, 12, 30, 150, 0.05, 0.02, unrelated=0.2,
+                          as_bytes=True) + _window_pairs(57, 8, 100, 25))
+    for kw in (dict(), dict(text_begin_free=25, text_end_free=25)):
+        a = pywfa_tpu_torch.WavefrontAligner(scope=scope, device=dev, **kw)
+        o = RefAligner(scope=scope, backend="numpy", **kw)
+        for p, t in pairs:
+            got = a(t.decode(), p.decode())
+            want = o(t.decode(), p.decode())
+            assert (a.status, a.score, a.cigarstring) == (
+                o.status, o.score, o.cigarstring), (p, t)
+            assert (got.pattern_start, got.pattern_end, got.text_start,
+                    got.text_end) == (want.pattern_start, want.pattern_end,
+                                      want.text_start, want.text_end)

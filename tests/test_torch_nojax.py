@@ -1,8 +1,10 @@
 """The port runs with jax absent, as it must on a GPU host without it.
 
 A subprocess installs an import hook that refuses `jax` and `jaxlib`,
-imports pywfa_tpu_torch, aligns 8 pairs on the CPU, checks them against
-the scalar oracle, and asserts that jax never entered sys.modules.
+imports pywfa_tpu_torch, aligns 8 pairs on the CPU through the batch API
+and through `WavefrontAligner` with pywfa's defaults (ends-free, both
+scopes), checks them against the scalar oracle, and asserts that jax
+never entered sys.modules.
 """
 import os
 import subprocess
@@ -32,6 +34,14 @@ res = aligner.align([p for p, _ in pairs], [t for _, t in pairs])
 for (p, t), r in zip(pairs, res):
     o = OracleAligner(aligner._attr).align(p, t)
     assert (r.status, r.score, r.ops) == (o.status, o.score, o.ops), (p, t)
+for scope in ("full", "score"):
+    a = pywfa_tpu_torch.WavefrontAligner(scope=scope, device="cpu")
+    o = pywfa_tpu_torch.WavefrontAligner(scope=scope, backend="numpy")
+    for p, t in pairs:
+        a(t.decode(), p.decode())
+        o(t.decode(), p.decode())
+        assert (a.status, a.score, a.cigarstring, a.locations) == (
+            o.status, o.score, o.cigarstring, o.locations), (p, t)
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 print("OK", len(res))
 """
