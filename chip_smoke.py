@@ -6,10 +6,12 @@
 Phases (any failure raises and exits nonzero; nothing falls back):
 
 1. Device: the card's name and power limit from nvidia-smi, whether the
-   native host library loaded; exits nonzero without CUDA.
-2. Build: compiles the fused-loop CUDA kernel from the checkout.
+   native host library built and loaded; exits nonzero without CUDA.
+2. Build: compiles the fused-loop CUDA kernel (20 variants: 5 distance
+   metrics x 2 spans x 2 scopes) from the checkout; prints ptxas'
+   registers and spills per variant.
 3. Each kernel variant against its plain torch version on the card, byte
-   for byte, at the main paths' shapes: end to end with the choice
+   for byte, at the main paths' shapes. Gap-affine: end to end with the choice
    record, 4096 pairs of 150 bp at 2% divergence at the first rung
    (W=256, S_cap=96) and at W=128, and 256 pairs (64 unrelated) at the
    terminal rung (W=384, S_cap=649); ends-free with the record, 4096
@@ -17,9 +19,18 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    rung, and the main pairs with all frees 0; score only, the end-to-end
    rung-1 and terminal sets and the windows; and one WavefrontAligner
    call with pywfa's defaults in both scopes (a 150 bp pair padded to 16
-   pairs at Lp = Lt = 256, W=256, S_cap=96). Both times by CUDA events.
+   pairs at Lp = Lt = 256, W=256, S_cap=96). Affine2p, gap-linear, edit
+   and indel: the main pairs at each metric's first rung (W=384, 128, 256,
+   256) with the record and score only, affine2p at its terminal rung
+   (W=512, S_cap=649), the windows under affine2p and edit, and one
+   WavefrontAligner call a metric in both scopes. Both times by CUDA
+   events; beside them the bound, the least time the card could take: the
+   eq words read once plus the choice levels these pairs write over 3.35
+   TB/s, or the cells these pairs compute times an operation count a cell
+   over 67 Tops/s, whichever is larger (the [S_cap, B, W] memset is not
+   in it).
 4. Stream: BatchWavefrontAligner(distance="affine", span="end-to-end",
-   device="cuda").align_stream over 16 batches of 4096 pairs (timed:
+   device="cuda").align_stream over 8 batches of 4096 pairs (timed:
    alignments/s), then over one probe batch (25% divergence, unrelated
    pairs, an N row, mixed lengths) that escalates up to the terminal rung.
    The kernel's launch count over both must cover every batch and rung,
@@ -31,16 +42,27 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    README / reference-test golden pairs, in the full and the score scope;
    every result equals the reference's numpy oracle on score, status,
    CIGAR and start/end. Prints the median ms per call.
-6. Two timed streams of 8 x 4096 pairs, alignments/s, 512 sampled pairs
-   each equal to the oracle: ends-free reads in windows (text frees of
-   50), and end-to-end score-only.
+6. Four timed streams of 8 x 4096 pairs, alignments/s, 512 sampled pairs
+   each equal to the oracle: gap-affine ends-free reads in windows (text
+   frees of 50); gap-affine end-to-end score-only; affine2p end to end
+   with full CIGARs, one pair in eight carrying a 30-60 bp indel (what
+   the second gap piece is for); levenshtein end-to-end score-only (the
+   candidate-filter use).
+7. Per new metric, a probe batch that escalates to the terminal rung,
+   every pair against the oracle, and WavefrontAligner on 64 single pairs
+   in both scopes (48 with pywfa's defaults, 16 end to end).
 
-Each main-path phase zeroes the kernels' launch counts just before it and
-reads them just after; it fails unless its kernel variants launched. The
-line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+Each main-path phase zeroes the kernels' launch counts and the count of
+pairs sent to the host oracle just before it and reads them just after; it
+fails unless its kernel variants launched, if a timed stream or an API
+phase sent any pair to the oracle, or if any phase did so for an
+inconsistent walk. The line before the last is the kernels' JSON record;
+the last line is {"ok": true, "device": {...}}.
 """
+import collections
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,12 +74,25 @@ SEED = 0
 B_MAIN = 4096
 L = 150
 DIV = 0.02
-N_BATCHES = 16
+N_BATCHES = 8
 WINDOW = 200
 WINDOW_FREE = 50
 N_NEW_BATCHES = 8
 N_API = 256
+N_METRIC_API = 64
 MAXS = 2**31 - 1
+
+# the four metrics beside gap-affine, as WavefrontAligner's `distance`
+METRICS = ("affine2p", "linear", "levenshtein", "indel")
+
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
+# and 32-bit operations outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# integer operations of one cell of one score step, counted from the
+# kernel's source (extension, termination test, candidates, priority
+# maximum, bounds, band, trim), by components of the metric
+OPS_PER_CELL = {1: 60, 3: 110, 5: 170}
 
 
 def log(msg):
@@ -93,16 +128,66 @@ def make_windows(rng, n, length, window, divergence):
     return reads, [wins[i].tobytes() for i in range(n)]
 
 
+def make_gap_pairs(rng, n, length, divergence, share=0.125):
+    """make_pairs, with one text in 1/share losing or gaining one run of
+    30-60 bases at a random place."""
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pats, txts = make_pairs(rng, n, length, divergence)
+    for i in np.flatnonzero(rng.random(n) < share):
+        g = int(rng.integers(30, 61))
+        at = int(rng.integers(10, length - g - 10))
+        if rng.random() < 0.5:
+            txts[i] = txts[i][:at] + txts[i][at + g:]
+        else:
+            txts[i] = (txts[i][:at] + alphabet[rng.integers(0, 4, g)].tobytes()
+                       + txts[i][at:])
+    return pats, txts
+
+
 def reset_counts():
-    """Zero the fused loop's launch counts, by variant."""
+    """Zero the fused loop's launch counts, by variant, and the count of
+    pairs sent to the host oracle, by reason."""
+    from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch.ops import fused_loop
     for k in fused_loop.variant_launches:
         fused_loop.variant_launches[k] = 0
+    for k in PB.oracle_fallbacks:
+        PB.oracle_fallbacks[k] = 0
 
 
 def read_counts():
     from pywfa_tpu_torch.ops import fused_loop
     return dict(fused_loop.variant_launches)
+
+
+def launched(counts):
+    """The variants of `counts` that launched at all."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_fallbacks(phase, timed):
+    """Print the pairs the phase sent to the host oracle, by reason. A
+    timed stream or an API phase must send none; no phase may send one
+    for an inconsistent walk, which would be a wrong kernel or walk hiding
+    behind the oracle."""
+    from pywfa_tpu_torch import batch as PB
+    fb = dict(PB.oracle_fallbacks)
+    log(f"oracle fallbacks [{phase}]: {fb}")
+    if fb["inconsistent walk"]:
+        raise AssertionError(f"{phase}: {fb['inconsistent walk']} pairs had "
+                             "an inconsistent walk")
+    if timed and any(fb.values()):
+        raise AssertionError(f"{phase}: pairs went to the host oracle: {fb}")
+    return fb
+
+
+def metric_attr(metric, **kw):
+    """(attributes, prefix of the kernel variants' names) of a metric."""
+    from pywfa_tpu_torch.align import WavefrontAligner
+    from pywfa_tpu_torch.ops import fused_loop
+    attr = WavefrontAligner(backend="numpy", distance=metric,
+                            **kw)._attributes()
+    return attr, fused_loop.METRIC_PREFIX[attr.penalties.distance_metric]
 
 
 def mutate(rng, p, sub, ind):
@@ -175,7 +260,7 @@ def phase_device():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     log(smi.splitlines()[0])
-    from pywfa_tpu import native
+    from pywfa_tpu_torch import native
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -189,9 +274,18 @@ def phase_build():
     cuda_build.load()
     log(f"build: {time.perf_counter() - t0:.2f} s ({path})")
     if cuda_build.last_build is not None:
+        # one line a kernel: template arguments <metric, ends-free, record>
+        name = "?"
+        spills = ""
         for line in cuda_build.last_build[1].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+            m = re.search(r"fused_loopILi(\d)ELb([01])ELb([01])E", line)
+            if m and "Compiling" in line:
+                name = "<{}, {}, {}>".format(*m.groups())
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                log(f"  ptxas fused_loop{name}: "
+                    f"{line.split(':', 1)[1].strip()}; {spills}")
 
 
 def _device_inputs(cfg, pats, txts, dev, frees_row=(0, 0, 0, 0)):
@@ -215,8 +309,8 @@ def _device_inputs(cfg, pats, txts, dev, frees_row=(0, 0, 0, 0)):
 
 def rung1_config(attr, pats, txts):
     """The first rung the batch path picks for these pairs."""
-    from pywfa_tpu.attributes import validate_alignment
     from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.attributes import validate_alignment
     maxLp = max(map(len, pats))
     maxLt = max(map(len, txts))
     attr0 = validate_alignment(attr, maxLp, maxLt)
@@ -230,9 +324,9 @@ def api_single_inputs(attr, pat, txt):
     """The 16-pair batch and the first-rung config of one WavefrontAligner
     call, as engine_adapter.align_single and batch.align_pairs_dispatch
     build them: power-of-two length buckets, "A"/"A" pad pairs."""
-    from pywfa_tpu.attributes import validate_alignment
     from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch import engine_adapter as EA
+    from pywfa_tpu_torch.attributes import validate_alignment
     Lp = EA._bucket_len(len(pat), EA.DEFAULT_SCHEDULE)
     Lt = EA._bucket_len(len(txt), EA.DEFAULT_SCHEDULE)
     attr0 = validate_alignment(attr, len(pat), len(txt))
@@ -247,9 +341,31 @@ def api_single_inputs(attr, pat, txt):
     return (pats, txts), cfg
 
 
+def kernel_bound(cfg, args, out, cells):
+    """(bound_ms, bound_by): the least time the card could take for this
+    call. Bytes: every input read once (the eq words, the lengths, the
+    frees on the ends-free span) and every output written once (the result
+    block and, with the record, the levels these pairs reach, W bytes
+    each; the memset of the whole [S_cap, B, W] tensor is not counted)
+    over the card's memory rate. Operations: the cells these pairs compute
+    (the non-zero choice bytes of the recording run, plus WF0) times the
+    metric's count a cell, over the card's 32-bit rate."""
+    from pywfa_tpu_torch.constants import AlignmentSpan
+    bits = args[0]
+    B = bits.shape[1]
+    nbytes = bits.numel() * 4 + B * 8 + B * 16
+    if cfg.span == AlignmentSpan.ENDS_FREE:
+        nbytes += B * 16
+    if cfg.record_choices:
+        nbytes += int(out["final_s"].clamp(min=0).sum()) * cfg.W
+    ops = cells * OPS_PER_CELL[cfg.n_comp]
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_kernel_vs_plain(attr, dev):
-    import dataclasses
-    from pywfa_tpu.align import WavefrontAligner as RefAligner
+    from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
     from pywfa_tpu_torch.ops import config as C
     from pywfa_tpu_torch.ops import fused_loop
     rng = np.random.default_rng(SEED + 1)
@@ -286,6 +402,25 @@ def phase_kernel_vs_plain(attr, dev):
         ("api_single_score",) + api_single_inputs(score_attr, *single)
         + (zero,),
     ]
+    for metric in METRICS:
+        m_attr, prefix = metric_attr(metric, span="end-to-end")
+        m_rung1 = rung1_config(m_attr, *main)
+        shapes.append((prefix + "rung1", main, m_rung1, zero))
+        shapes.append((prefix + "score_rung1", main,
+                       dataclasses.replace(m_rung1, record_choices=False),
+                       zero))
+        if metric == "affine2p":
+            shapes.append((prefix + "terminal", term,
+                           C.full_config(m_attr, 160, 160), zero))
+        if metric in ("affine2p", "levenshtein"):
+            m_ef, _ = metric_attr(metric, text_begin_free=WINDOW_FREE,
+                                  text_end_free=WINDOW_FREE)
+            shapes.append((prefix + "endsfree_window", windows,
+                           rung1_config(m_ef, *windows), wfree))
+        for scope, tag in (("full", ""), ("score", "_score")):
+            m_def, _ = metric_attr(metric, scope=scope)
+            shapes.append((prefix + "api_single" + tag,)
+                          + api_single_inputs(m_def, *single) + (zero,))
     records = {}
     for name, (pats, txts), cfg, frees_row in shapes:
         args = _device_inputs(cfg, pats, txts, dev, frees_row)
@@ -309,24 +444,33 @@ def phase_kernel_vs_plain(attr, dev):
         k_ms = cuda_ms(lambda: fused_loop.align_batch_fused_loop(
             cfg, *args, ms), 20)
         p_ms = cuda_ms(lambda: fused_loop.align_batch_fused_loop_ref(
-            cfg, *args, ms), 3)
+            cfg, *args, ms), 2)
+        rec = got if cfg.record_choices else fused_loop.align_batch_fused_loop(
+            dataclasses.replace(cfg, record_choices=True), *args, ms)
+        cells = int(torch.count_nonzero(rec["choices"])) + len(pats)
+        del rec
+        b_ms, b_by = kernel_bound(cfg, args, got, cells)
         log(f"kernel vs plain [{name}] variant={fused_loop.variant(cfg)} "
             f"B={len(pats)} W={cfg.W} S_cap={cfg.S_cap} Lp={cfg.Lp} "
             f"Lt={cfg.Lt} NQ={args[0].shape[0]} "
             f"steps={int(got['steps'])} "
             f"status_counts={status} max_abs_err={err} "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f}")
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f} "
+            f"bound_ms={b_ms:.3g} bound_by={b_by} cells={cells} "
+            f"smem={fused_loop.smem_bytes(cfg)}")
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from plain version")
-        records[name] = (err, k_ms, p_ms)
+        records[name] = dict(variant=fused_loop.variant(cfg), err=err,
+                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by)
     return records
 
 
 def phase_stream(dev):
-    from pywfa_tpu.cigar import ops_to_cigarstring
-    from pywfa_tpu.oracle import OracleAligner
     from pywfa_tpu_torch import BatchWavefrontAligner
     from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.cigar import ops_to_cigarstring
+    from pywfa_tpu_torch.oracle import OracleAligner
     from pywfa_tpu_torch.ops import config as C
     from pywfa_tpu_torch.ops import engine as TE
     from pywfa_tpu_torch.ops import fused_loop
@@ -345,11 +489,14 @@ def phase_stream(dev):
     results = list(aligner.align_stream(iter(batches), depth=3))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check_fallbacks("stream e2e", timed=True)
     t0 = time.perf_counter()
     results += list(aligner.align_stream(iter([probe]), depth=3))
     torch.cuda.synchronize()
     probe_wall = time.perf_counter() - t0
-    launches = read_counts()["e2e"]
+    check_fallbacks("stream e2e + probe", timed=False)
+    counts = read_counts()
+    launches = counts["e2e"]
     n_main = N_BATCHES * B_MAIN
     log(f"stream: {N_BATCHES} batches, {n_main} pairs in {wall:.3f} s = "
         f"{n_main / wall:.0f} alignments/s ({1e3 * wall / N_BATCHES:.2f} "
@@ -438,7 +585,7 @@ def phase_stream(dev):
         f"{k}={v:.3f}" for k, v in stages.items()))
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.0f}"
         " MiB")
-    return launches
+    return counts
 
 
 # README and reference-test golden pairs: (pattern, text, aligner kwargs)
@@ -473,7 +620,7 @@ def phase_api(dev):
     """pywfa_tpu_torch.WavefrontAligner with pywfa's defaults on the card,
     one pair per call, against the reference's numpy oracle."""
     import pywfa_tpu_torch
-    from pywfa_tpu.align import WavefrontAligner as RefAligner
+    from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
     rng = np.random.default_rng(SEED + 2)
     pats, txts = make_pairs(rng, N_API // 2, L, DIV)
     singles = list(zip(pats, txts))
@@ -508,6 +655,7 @@ def phase_api(dev):
             n_checked += 1
         per_call[scope] = 1e3 * float(np.median(times))
     counts = read_counts()
+    check_fallbacks("api", timed=True)
     a = pywfa_tpu_torch.WavefrontAligner(GOLDEN[0][0], device=dev)
     if (a.wavefront_align(GOLDEN[0][1]), a.cigarstring) != (
             -24, "3M1X4M1D7M1I9M1X6M"):
@@ -516,7 +664,7 @@ def phase_api(dev):
         f"{n_checked} calls equal to the oracle in score, status, CIGAR "
         f"and start/end; median ms/call full={per_call['full']:.3f} "
         f"score={per_call['score']:.3f} (single {L} bp pairs); "
-        f"launches {counts}")
+        f"launches {launched(counts)}")
     for variant in ("endsfree", "endsfree_score", "e2e", "e2e_score"):
         if counts[variant] == 0:
             raise AssertionError(f"the API phase never launched {variant}")
@@ -536,11 +684,12 @@ def _timed_stream(aligner, batches):
 
 
 def phase_new_streams(dev):
-    """Two timed streams of 8 x 4096 pairs: ends-free reads in windows,
-    and end-to-end score-only; 512 sampled pairs of each against the
-    oracle."""
-    from pywfa_tpu.oracle import OracleAligner
+    """Four timed streams of 8 x 4096 pairs: gap-affine ends-free reads in
+    windows and end-to-end score-only, affine2p end to end with full
+    CIGARs and a long-gap share, levenshtein end-to-end score-only; 512
+    sampled pairs of each against the oracle."""
     from pywfa_tpu_torch import BatchWavefrontAligner
+    from pywfa_tpu_torch.oracle import OracleAligner
     rng = np.random.default_rng(SEED + 3)
     streams = [
         ("endsfree_window", "endsfree",
@@ -551,14 +700,25 @@ def phase_new_streams(dev):
         ("e2e_score", "e2e_score",
          BatchWavefrontAligner(span="end-to-end", scope="score", device=dev),
          [make_pairs(rng, B_MAIN, L, DIV) for _ in range(N_NEW_BATCHES)]),
+        ("affine2p_e2e_gaps", "affine2p_e2e",
+         BatchWavefrontAligner(distance="affine2p", span="end-to-end",
+                               device=dev),
+         [make_gap_pairs(rng, B_MAIN, L, DIV)
+          for _ in range(N_NEW_BATCHES)]),
+        ("edit_e2e_score", "edit_e2e_score",
+         BatchWavefrontAligner(distance="levenshtein", span="end-to-end",
+                               scope="score", device=dev),
+         [make_pairs(rng, B_MAIN, L, DIV) for _ in range(N_NEW_BATCHES)]),
     ]
-    counts = {}
+    counts = collections.Counter()
     for name, variant, aligner, batches in streams:
         results, wall, c = _timed_stream(aligner, batches)
+        check_fallbacks(f"stream {name}", timed=True)
         n = N_NEW_BATCHES * B_MAIN
         log(f"stream [{name}]: {N_NEW_BATCHES} batches, {n} pairs in "
             f"{wall:.3f} s = {n / wall:.0f} alignments/s "
-            f"({1e3 * wall / N_NEW_BATCHES:.2f} ms/batch); launches {c}")
+            f"({1e3 * wall / N_NEW_BATCHES:.2f} ms/batch); launches "
+            f"{launched(c)}")
         if c[variant] < N_NEW_BATCHES:
             raise AssertionError(f"stream {name} launched {variant} "
                                  f"{c[variant]} times")
@@ -576,8 +736,92 @@ def phase_new_streams(dev):
                 raise AssertionError(f"stream {name} pair {i}: {r} vs "
                                      f"oracle {want}")
         log(f"oracle: stream [{name}]: 512 sampled pairs equal")
-        counts[variant] = c[variant]
+        counts.update(c)
     return counts
+
+
+def phase_metrics(dev):
+    """Each new metric through the batch API and the pywfa API on the
+    card: a probe batch that escalates to its terminal rung, every pair
+    against the oracle (indel's unrelated pairs may pass the terminal
+    rung's score cap and go to the oracle: counted and printed), then
+    WavefrontAligner on 64 single pairs in both scopes, 48 with pywfa's
+    defaults and 16 end to end, against the numpy oracle."""
+    import pywfa_tpu_torch
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
+    rng = np.random.default_rng(SEED + 5)
+    pats, txts = make_pairs(rng, N_METRIC_API // 2, L, DIV)
+    singles = list(zip(pats, txts))
+    for _ in range(N_METRIC_API - len(singles)):
+        p = bytes(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, L)])
+        singles.append((p, mutate(rng, p, DIV, 0.01)))
+    rng.shuffle(singles)
+    singles = [(p.decode(), t.decode(),
+                {} if i < 3 * N_METRIC_API // 4 else {"span": "end-to-end"})
+               for i, (p, t) in enumerate(singles)]
+    total = collections.Counter()
+    for metric in METRICS:
+        prefix = metric_attr(metric)[1]
+        probe = make_probe(rng)
+        aligner = BatchWavefrontAligner(distance=metric, span="end-to-end",
+                                        device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = aligner.align(*probe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        fb = check_fallbacks(f"probe {metric}", timed=False)
+        if c[prefix + "e2e"] < 2:
+            raise AssertionError(f"probe {metric}: {c[prefix + 'e2e']} "
+                                 "launches; the batch must escalate")
+        for i, (p, t, r) in enumerate(zip(*probe, res)):
+            o = PB._oracle_one(aligner._attr, p, t)
+            want = (o.status, o.score, o.ops, o.end_v, o.end_h)
+            if (r.status, r.score, r.ops, r.end_v, r.end_h) != want:
+                raise AssertionError(f"probe {metric} pair {i}: {r} vs "
+                                     f"oracle {want}")
+        log(f"probe [{metric}]: {len(res)} pairs equal to the oracle in "
+            f"{1e3 * wall:.1f} ms; {c[prefix + 'e2e']} launches; "
+            f"{sum(fb.values())} pairs answered by the host oracle")
+        total.update(c)
+
+        reset_counts()
+        per_call = {}
+        for scope in ("full", "score"):
+            aligners = {}
+            times = []
+            for p, t, kw in singles:
+                key = tuple(sorted(kw.items()))
+                if key not in aligners:
+                    aligners[key] = (
+                        pywfa_tpu_torch.WavefrontAligner(
+                            distance=metric, scope=scope, device=dev, **kw),
+                        RefAligner(distance=metric, scope=scope,
+                                   backend="numpy", **kw))
+                port, ref = aligners[key]
+                t0 = time.perf_counter()
+                got = _api_fields(port(t, p))
+                times.append(time.perf_counter() - t0)
+                want = _api_fields(ref(t, p))
+                if got != want:
+                    raise AssertionError(
+                        f"WavefrontAligner({metric}, {scope}) {p} / {t}: "
+                        f"{got} vs oracle {want}")
+            per_call[scope] = 1e3 * float(np.median(times))
+        c = read_counts()
+        check_fallbacks(f"api {metric}", timed=True)
+        log(f"api [{metric}]: {2 * len(singles)} calls equal to the oracle; "
+            f"median ms/call full={per_call['full']:.3f} "
+            f"score={per_call['score']:.3f}; launches {launched(c)}")
+        for tail in ("endsfree", "endsfree_score", "e2e", "e2e_score"):
+            if c[prefix + tail] == 0:
+                raise AssertionError(f"api {metric} never launched "
+                                     f"{prefix + tail}")
+        total.update(c)
+    return total
 
 
 def main():
@@ -587,40 +831,59 @@ def main():
     from pywfa_tpu_torch import BatchWavefrontAligner
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     records = phase_kernel_vs_plain(attr, dev)
-    launches = {"e2e": phase_stream(dev)}
-    api = phase_api(dev)
-    streams = phase_new_streams(dev)
-    launches["endsfree"] = api["endsfree"] + streams["endsfree"]
-    launches["e2e_score"] = api["e2e_score"] + streams["e2e_score"]
-    launches["endsfree_score"] = api["endsfree_score"]
-    pallas = "pywfa_tpu/ops/pallas/fused_loop.py"
-    # variant: (the TPU kernel it replaces, its shapes, the timed shape)
-    table = {
-        "e2e": (f"{pallas}:197", ("rung1", "w128", "terminal"), "rung1"),
-        "endsfree": (f"{pallas}:197",
-                     ("endsfree_window", "endsfree_default", "api_single"),
-                     "endsfree_window"),
-        "e2e_score": (f"{pallas}:919", ("score_rung1", "score_terminal"),
-                      "score_rung1"),
-        "endsfree_score": (f"{pallas}:919",
-                           ("score_endsfree_window", "api_single_score"),
-                           "score_endsfree_window"),
-    }
-    kernels = []
-    for variant, (replaces, shapes, timed) in table.items():
-        if launches[variant] == 0:
-            raise AssertionError(f"no main path launched {variant}")
-        kernels.append({
-            "name": f"fused_loop_affine_{variant}", "route": "cuda",
-            "source": "pywfa_tpu_torch/csrc/fused_loop.cu",
-            "replaces": replaces, "launches": launches[variant],
-            "max_abs_err": max(records[s][0] for s in shapes),
-            "ms": records[timed][1], "plain_ms": records[timed][2]})
-    log(json.dumps({"kernels": kernels}))
+    # launches of the main paths only: each phase zeroes the counts before
+    # its path and reads them after it
+    launches = collections.Counter()
+    for phase in (phase_stream, phase_api, phase_new_streams, phase_metrics):
+        launches.update(phase(dev))
+    nvidia_smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(nvidia_smi)
+    log(json.dumps({"kernels": kernel_records(records, launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_records(records, launches):
+    """One entry a kernel variant for the JSON line: its launches on the
+    main paths, and the error, times and bound of the largest shape it was
+    held at against its plain version."""
+    from pywfa_tpu_torch.ops import fused_loop
+    pallas = "pywfa_tpu/ops/pallas/fused_loop.py"
+    # the Pallas lines each variant replaces: the kernel body and the
+    # score-only call for gap-affine, the metric's branch for the others
+    branch = {"": None, "affine2p_": 640, "linear_": 590, "edit_": 569,
+              "indel_": 569}
+    # the shape whose times stand for the variant: the largest it was held
+    # at on a main path's inputs
+    timed_order = ("rung1", "endsfree_window", "score_rung1",
+                   "score_endsfree_window", "api_single", "api_single_score")
+    kernels = []
+    for variant in fused_loop.VARIANTS:
+        if launches[variant] == 0:
+            raise AssertionError(f"no main path launched {variant}")
+        prefix = next(p for p in sorted(branch, key=len, reverse=True)
+                      if variant.startswith(p))
+        held = {n: r for n, r in records.items() if r["variant"] == variant}
+        if not held:
+            raise AssertionError(f"{variant} was not held against its plain "
+                                 "version")
+        timed = next(held[prefix + n] for n in timed_order
+                     if prefix + n in held)
+        line = branch[prefix] or (919 if variant.endswith("_score") else 197)
+        kernels.append({
+            "name": f"fused_loop_{variant}", "route": "cuda",
+            "source": "pywfa_tpu_torch/csrc/fused_loop.cu",
+            "replaces": f"{pallas}:{line}", "launches": launches[variant],
+            "max_abs_err": max(r["err"] for r in held.values()),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": None})
+    return kernels
 
 
 if __name__ == "__main__":

@@ -10,8 +10,9 @@ time unless they synchronise) and runs:
 - pywfa_tpu_torch.WavefrontAligner(device="cuda") with pywfa's defaults,
   one 150 bp pair per call, full and score scope (128 calls each);
 - BatchWavefrontAligner.align_stream, depth 3, 8 x 4096 pairs, twice
-  each: ends-free reads in 200 bp windows (text frees 50) and end-to-end
-  score-only.
+  each: gap-affine ends-free reads in 200 bp windows (text frees 50) and
+  end-to-end score-only; affine2p end to end with full CIGARs and a
+  long-gap share; levenshtein end-to-end score-only.
 
 Prints, per path, the wall per unit (call or batch) and each stage's ms
 per unit, then the device busy share of one more pass under
@@ -29,7 +30,8 @@ import numpy as np
 import torch
 
 from chip_smoke import (B_MAIN, DIV, L, N_NEW_BATCHES, SEED, WINDOW,
-                        WINDOW_FREE, make_pairs, make_windows, mutate)
+                        WINDOW_FREE, make_gap_pairs, make_pairs, make_windows,
+                        mutate)
 
 N_CALLS = 128
 N_PROFILED_CALLS = 64
@@ -143,6 +145,15 @@ def main():
           for _ in range(N_NEW_BATCHES)]),
         ("e2e_score",
          BatchWavefrontAligner(span="end-to-end", scope="score", device=dev),
+         [make_pairs(rng, B_MAIN, L, DIV) for _ in range(N_NEW_BATCHES)]),
+        ("affine2p_e2e_gaps",
+         BatchWavefrontAligner(distance="affine2p", span="end-to-end",
+                               device=dev),
+         [make_gap_pairs(rng, B_MAIN, L, DIV)
+          for _ in range(N_NEW_BATCHES)]),
+        ("edit_e2e_score",
+         BatchWavefrontAligner(distance="levenshtein", span="end-to-end",
+                               scope="score", device=dev),
          [make_pairs(rng, B_MAIN, L, DIV) for _ in range(N_NEW_BATCHES)]),
     ]
     for name, aligner, batches in streams:

@@ -2,12 +2,14 @@
 
 Wavefront alignment on one NVIDIA GPU (Hopper, sm_90a), byte-exact
 against the JAX package `pywfa_tpu`, which stays the reference. This
-package imports torch and never jax; from `pywfa_tpu` it reuses only the
-jax-free modules (constants, attributes, cigar, oracle, native, align,
-utils).
+package imports torch, never jax, and nothing of `pywfa_tpu`: it keeps
+its own copies of the modules it shares with it (constants, attributes,
+cigar, oracle, align, utils, and the native host library, built at first
+use).
 
 Covered so far: pywfa's `WavefrontAligner` and the batch and stream API
-for gap-affine alignment, end-to-end or ends-free (match == 0), full
+for all five distance metrics (gap-affine, gap-affine 2-piece,
+gap-linear, edit, indel), end-to-end or ends-free (match == 0), full
 CIGAR or score only, without heuristics. Other configurations raise
 NotImplementedError naming their ROADMAP item.
 """

@@ -7,10 +7,12 @@ device, pull one packed output array, then assemble CIGARs with the native
 match-fill (or translate scores, in the score-only scope) and escalate the
 pairs that overflowed the rung.
 
-Covered: gap-affine, end-to-end span or ends-free span with match == 0,
-full-CIGAR or score-only scope, exact matching, no heuristic, high memory
-mode. Every other configuration raises NotImplementedError naming its
-ROADMAP item.
+Covered: all five distance metrics, end-to-end span or ends-free span
+with match == 0, full-CIGAR or score-only scope, exact matching, no
+heuristic, high memory mode. Every other configuration raises
+NotImplementedError naming its ROADMAP item. Pairs the device does not
+answer (an inconsistent walk, an overflow at the terminal rung's caps) go
+to the scalar oracle on the host and are counted in `oracle_fallbacks`.
 
 Transport: pinned host buffers and non_blocking copies on the current
 CUDA stream, with one CUDA event per in-flight batch, so dispatching batch
@@ -28,15 +30,22 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from pywfa_tpu.align import WavefrontAligner as _RefAligner
-from pywfa_tpu.attributes import (
+from . import native
+from .align import WavefrontAligner as _ApiAligner
+from .attributes import (
     AlignerAttributes,
     classic_score,
     classic_score_batch,
     validate_alignment,
 )
-from pywfa_tpu.cigar import Cigar, cigar_maxtrim
-from pywfa_tpu.constants import (
+from .cigar import (
+    Cigar,
+    cigar_maxtrim,
+    cigar_sprint_sam,
+    ops_to_cigarstring,
+    ops_to_cigartuples,
+)
+from .constants import (
     DIAGONAL_NULL,
     AlignmentScope,
     AlignmentSpan,
@@ -48,14 +57,21 @@ from pywfa_tpu.constants import (
     STATUS_ALG_PARTIAL,
     STATUS_MAX_STEPS_REACHED,
 )
-from pywfa_tpu.oracle import OracleAligner
-
+from .oracle import OracleAligner
 from .ops import config as C
 from .ops import engine as E
 from .ops import fused_loop
 
 PATTERN_SENTINEL = C.PATTERN_PAD
 TEXT_SENTINEL = C.TEXT_PAD
+
+# pairs that align_pairs_finish sent to the scalar oracle on the host, by
+# reason: a walk over the choice record that did not hold together, a pair
+# still overflowing at the terminal rung's caps, or a dropped pair with an
+# end cell (heuristics only). Callers zero it and read it to see how much of
+# a batch the device did not answer.
+oracle_fallbacks = {"inconsistent walk": 0, "overflow at full caps": 0,
+                    "dropped": 0}
 
 # device-memory budget for the choices tensor (S_cap * B * W bytes); above
 # it the reference segments the traceback, which is not ported yet
@@ -103,7 +119,6 @@ def pack_tokens(mat: np.ndarray, lens: np.ndarray,
     lens = np.asarray(lens)
     if lens.size and int(lens.max()) > width:
         return None
-    from pywfa_tpu import native
     if native.lib() is not None:
         return native.pack2_batch(mat, lens, width)
     codes = _STRICT_ACGT[mat.view(np.uint8)[:, :width]]
@@ -123,7 +138,6 @@ def _encode_side(seqs, L, chunk, sentinel, lens):
     """One side of a batch: the sentinel-padded token matrix plus its 2-bit
     rows (None when any in-length byte is not ACGT), in one native pass
     when the native library is available."""
-    from pywfa_tpu import native
     if native.lib() is not None:
         r = native.encode_pack_batch(b"".join(seqs), lens, L + chunk,
                                      sentinel, pack_width=L)
@@ -177,7 +191,6 @@ def _native_fill(clean_idx, pat_np, txt_np, plens, tlens, end_k, end_off,
                  ops_fwd, k_start) -> dict:
     """Batched C++ match-fill for the clean pairs; {} if the native library
     is unavailable."""
-    from pywfa_tpu import native
     if native.lib() is None:
         return {}
     idx = np.asarray(clean_idx)
@@ -221,17 +234,14 @@ class BatchResult:
 
     @property
     def cigartuples(self):
-        from pywfa_tpu.cigar import ops_to_cigartuples
         return ops_to_cigartuples(self.ops)
 
     @property
     def cigarstring(self) -> str:
-        from pywfa_tpu.cigar import ops_to_cigarstring
         return ops_to_cigarstring(self.ops)
 
     @property
     def sam_cigar(self) -> str:
-        from pywfa_tpu.cigar import cigar_sprint_sam
         return cigar_sprint_sam(self.ops, show_mismatches=False)
 
 
@@ -359,10 +369,6 @@ def _bucket_B(n: int) -> int:
 def _check_slice(attr0: AlignerAttributes, wildcard) -> None:
     """Raise NotImplementedError for configurations off the ported slice."""
     pen = attr0.penalties
-    if pen.distance_metric != DistanceMetric.GAP_AFFINE:
-        raise NotImplementedError(
-            f"{pen.distance_metric.name} is not ported yet (ROADMAP queue 1 "
-            "item 5, queue 2 items 4-5); only gap-affine is")
     form = attr0.form
     if form.span == AlignmentSpan.ENDS_FREE and form.extension:
         raise NotImplementedError(
@@ -655,7 +661,13 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
             results[b] = _unreachable_result(pen, scope_full, final_s_l[b],
                                              int(end_k[b]), int(end_off[b]))
         else:
-            # inconsistent walk (rare) -> exact oracle
+            # -> exact oracle, counted by reason
+            if st in (C.ST_OVERFLOW_W, C.ST_OVERFLOW_S):
+                oracle_fallbacks["overflow at full caps"] += 1
+            elif st == C.ST_END_UNREACHABLE and not fb_l[b]:
+                oracle_fallbacks["dropped"] += 1
+            else:
+                oracle_fallbacks["inconsistent walk"] += 1
             oracle_idx.append(b)
 
     if escalate_idx:
@@ -698,9 +710,9 @@ class BatchWavefrontAligner:
 
     def __init__(self, W: Optional[int] = None, S_cap: Optional[int] = None,
                  device="cuda", **kwargs):
-        # the reference class: on the numpy backend the port's subclass
-        # adds nothing, and the import stays downward
-        api = _RefAligner(backend="numpy", **kwargs)
+        # the API class assembles and validates the attributes; on the
+        # numpy backend it resolves no device
+        api = _ApiAligner(backend="numpy", **kwargs)
         self._attr = api._attributes()
         self._wildcard = api._bwildcard if api._wildcard else None
         self._W = W
@@ -737,7 +749,7 @@ class BatchWavefrontAligner:
         """Align 2-bit-packed DNA pairs (A, C, G, T = 0-3, four bases to a
         byte, lowest bits first), as the reference package's
         `BatchWavefrontAligner.align_packed2bits` does."""
-        from pywfa_tpu.utils.encode import unpack2bits
+        from .utils.encode import unpack2bits
         bp = [unpack2bits(p, n)
               for p, n in zip(packed_patterns, pattern_lengths)]
         bt = [unpack2bits(t, n) for t, n in zip(packed_texts, text_lengths)]

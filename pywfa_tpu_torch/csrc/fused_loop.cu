@@ -1,28 +1,41 @@
-// Fused whole-alignment WFA score loop for Hopper (sm_90a): gap-affine,
-// end-to-end or ends-free span (match == 0), full-CIGAR choice recording
-// or score only, no heuristic.
+// Fused whole-alignment WFA score loop for Hopper (sm_90a): all five
+// distance metrics (gap-affine, gap-affine 2-piece, gap-linear, edit,
+// indel), end-to-end or ends-free span (match == 0), full-CIGAR choice
+// recording or score only, no heuristic.
 //
-// Replaces pywfa_tpu/ops/pallas/fused_loop.py::_kernel (its gap-affine
-// branch without heuristics or ends-free match seeding) and both of its
+// Replaces pywfa_tpu/ops/pallas/fused_loop.py::_kernel (every metric's
+// branch, without heuristics or ends-free match seeding) and both of its
 // pallas_calls: the recording one and the score-only one. The plain torch
 // version of the same program is
 // pywfa_tpu_torch/ops/fused_loop.py::align_batch_fused_loop_ref; both
 // produce byte-identical status, final_s, end_k, end_off and choices.
 //
 // Design: one thread block per pair, one thread per diagonal
-// (blockDim = W, thread w owns k = kmin + w). The wavefront ring
-// offsets[3 * scope][W] and its lo/hi pairs live in dynamic shared memory
-// (27.6 KB at W = 256, scope = 9). Extension reads the packed equality
+// (blockDim = W, thread w owns k = kmin + w). The wavefront ring and its
+// lo/hi pairs live in dynamic shared memory. The ring keeps a depth per
+// component: M is read as far back as the scope (the largest penalty sum
+// plus one), a gap component only at its own extension distance, so it
+// keeps gap_extension + 1 rows. Gap-affine at 4/6/2 has 9 + 2 * 3 = 15
+// rows (15.4 KB at W = 256); the 2-piece metric at 4/6/2/24/1 has
+// 26 + 2 * 3 + 2 * 2 = 36 rows (73.7 KB at W = 512) where five components
+// of 26 rows each would not fit one block. Extension reads the packed equality
 // words bits[q, b, w] from word off >> 5 upward and stops at the first
 // mismatch (__ffs of the inverted word), with reads coalesced across w.
 // The end trim takes its first/last in-bounds diagonal per component with
 // warp reductions plus a shared-memory pass over the warps' partials.
 // Each block leaves its loop as soon as its own pair is done.
 //
-// Two template parameters select the variant. kEndsFree seeds WF0 with
-// the begin-free diagonals [-pattern_begin_free, text_begin_free] and ends
-// at the lowest diagonal whose cell reached an end-free boundary: each
-// warp ballots its hits, __ffs picks the warp's lowest, and a pass over
+// Three template parameters select the variant. kMetric picks the step:
+// gap-affine computes M, I1, D1 from M at s+1-x and s+1-(o+e) and I1/D1 at
+// s+1-e; the 2-piece metric adds I2, D2 with their own distances and the
+// five-way priority X > D2 > D1 > I2 > I1, with extend bits 5-6 in the
+// choice byte; gap-linear has M alone, mismatch from s+1-x and both gaps
+// from s+1-indel; edit and indel have M alone and take every candidate
+// from s (indel has no mismatch), and end a pair whose wavefront came out
+// empty at the next step instead of counting null steps. kEndsFree seeds
+// WF0 with the begin-free diagonals [-pattern_begin_free, text_begin_free]
+// and ends at the lowest diagonal whose cell reached an end-free boundary:
+// each warp ballots its hits, __ffs picks the warp's lowest, and a pass over
 // the warps' partials in shared memory picks the block's. kRecord = false
 // is the score-only scope: no choice bytes, no choices pointer.
 //
@@ -44,7 +57,18 @@ namespace {
 constexpr int kNull = -(1 << 30);
 constexpr int kNullThreshold = kNull / 2;
 constexpr int kBig = 1 << 30;
-constexpr int kComps = 3;  // M, I1, D1
+
+// kMetric values (pywfa_tpu_torch/ops/fused_loop.py::METRIC_CODE)
+constexpr int kAffine = 0;
+constexpr int kAffine2p = 1;
+constexpr int kLinear = 2;
+constexpr int kEdit = 3;
+constexpr int kIndel = 4;
+constexpr int kMaxComps = 5;  // M, I1, D1, I2, D2
+
+__host__ __device__ constexpr int n_comps(int metric) {
+  return metric == kAffine ? 3 : (metric == kAffine2p ? 5 : 1);
+}
 
 constexpr int ST_END_REACHED = 1;
 constexpr int ST_END_UNREACHABLE = 2;
@@ -56,10 +80,14 @@ constexpr int MSRC_NONE = 0;
 constexpr int MSRC_X = 1;
 constexpr int MSRC_I1 = 2;
 constexpr int MSRC_D1 = 3;
+constexpr int MSRC_I2 = 4;
+constexpr int MSRC_D2 = 5;
 
 constexpr int M = 0;
 constexpr int I1 = 1;
 constexpr int D1 = 2;
+constexpr int I2 = 3;
+constexpr int D2 = 4;
 
 struct Params {
   const uint32_t* bits;  // [NQ, B, W] packed equality words
@@ -68,7 +96,13 @@ struct Params {
   const int32_t* frees;  // [B, 4]: pattern begin/end, text begin/end free
   uint8_t* choices;      // [S_cap, B, W], zero on entry; unused unless kRecord
   int32_t* res;          // [4, B]: status, final_s, end_k, end_off
-  int B, W, NQ, S_cap, scope, x, o1e1, e1, max_steps;
+  int B, W, NQ, S_cap, scope, max_steps;
+  // score distances from s + 1 back to the source wavefronts: M for a
+  // mismatch; M opening and I1/D1 extending gap piece 1 (gap-linear: its
+  // indel penalty, nothing extends); the same for piece 2
+  int x, o1, e1, o2, e2;
+  // the ring: component c owns rows [base[c], base[c] + depth[c])
+  int base[kMaxComps], depth[kMaxComps], rows;
 };
 
 // One wavefront of the ring: its row in shared memory (nullptr for a
@@ -79,16 +113,22 @@ struct Wf {
   bool null_;
 };
 
+// The wavefront of component `comp` at score s1 - dist, where `slot1` is
+// the component's ring slot of score s1 (s1 % depth, kept incrementally:
+// the loop takes no modulo) and 0 < dist < depth.
 __device__ __forceinline__ Wf read_wf(const int* off, const int* lohi,
-                                      int comp, int score, int scope,
-                                      int W) {
+                                      const Params& p, int comp, int slot1,
+                                      int dist, int s1) {
   Wf f;
-  if (score < 0) {
+  const int W = p.W;
+  if (s1 - dist < 0) {
     f.row = nullptr;
     f.lo = 1;
     f.hi = -1;
   } else {
-    const int i = comp * scope + score % scope;
+    int j = slot1 - dist;
+    if (j < 0) j += p.depth[comp];
+    const int i = p.base[comp] + j;
     f.row = off + i * W;
     f.lo = lohi[2 * i];
     f.hi = lohi[2 * i + 1];
@@ -114,15 +154,34 @@ __device__ __forceinline__ int lim_hi(const Wf& f, int widen) {
   return f.null_ ? -kBig : f.hi + widen;
 }
 
-template <bool kEndsFree, bool kRecord>
-__global__ void fused_loop_affine(Params p) {
+// One gap component's cell: open from M (prio 0) vs extend (prio 1, wins
+// ties); `add` is 1 for an insertion, which advances the offset. An
+// all-invalid cell keeps the raw value, which only M's bounds check nulls.
+__device__ __forceinline__ int gap_cell(int open_src, int ext_src, int add,
+                                        int* ext) {
+  const int gp = max(pack(open_src + add, 0), pack(ext_src + add, 1));
+  *ext = (gp >= 0 && (gp & 7) == 1) ? 1 : 0;
+  return gp < 0 ? max(open_src, ext_src) + add : (gp >> 3);
+}
+
+// M source of a one-component metric from the packed maximum's priority
+__device__ __forceinline__ int one_comp_source(int pm) {
+  const int pr = pm & 7;
+  return pr == 5 ? MSRC_X : (pr == 3 ? MSRC_D1 : (pr == 1 ? MSRC_I1
+                                                          : MSRC_NONE));
+}
+
+template <int kMetric, bool kEndsFree, bool kRecord>
+__global__ void fused_loop(Params p) {
+  constexpr int kComps = n_comps(kMetric);
+  constexpr bool kEditLike = kMetric == kEdit || kMetric == kIndel;
   extern __shared__ int smem[];
   const int W = p.W;
   const int scope = p.scope;
-  int* off = smem;                        // [kComps * scope][W]
-  int* lohi = off + kComps * scope * W;   // [kComps * scope][2]
-  int* red = lohi + kComps * scope * 2;   // [6][32] trim warp partials
-  int* term = red + 6 * 32;               // [32] ends-free hit partials
+  int* off = smem;                        // [rows][W]
+  int* lohi = off + p.rows * W;           // [rows][2]
+  int* red = lohi + p.rows * 2;           // [2 * kComps][32] trim partials
+  int* term = red + 2 * kComps * 32;      // [32] ends-free hit partials
 
   const int w = threadIdx.x;
   const int b = blockIdx.x;
@@ -150,9 +209,9 @@ __global__ void fused_loop_affine(Params p) {
     wf0_hi = fr[2];
     tef = fr[3];
   }
-  for (int i = 0; i < kComps * scope; ++i) off[i * W + w] = kNull;
-  off[M * W + w] = (k >= wf0_lo && k <= wf0_hi) ? max(k, 0) : kNull;
-  for (int i = w; i < kComps * scope; i += W) {
+  for (int i = 0; i < p.rows; ++i) off[i * W + w] = kNull;
+  off[w] = (k >= wf0_lo && k <= wf0_hi) ? max(k, 0) : kNull;  // M, score 0
+  for (int i = w; i < p.rows; i += W) {
     lohi[2 * i] = (i == 0) ? wf0_lo : 1;
     lohi[2 * i + 1] = (i == 0) ? wf0_hi : -1;
   }
@@ -165,9 +224,13 @@ __global__ void fused_loop_affine(Params p) {
   bool done = kEndsFree && (wf0_lo < kmin + 2 || wf0_hi > kmin + W - 3);
   if (done) status = ST_OVERFLOW_W;
   int m_lo = wf0_lo, m_hi = wf0_hi;  // band of M at score s
+  // each component's ring slot of score s (s % depth, without the modulo)
+  int slot[kComps];
+#pragma unroll
+  for (int c = 0; c < kComps; ++c) slot[c] = 0;
 
   while (!done && s < p.S_cap - 1) {
-    int* m_row = off + (M * scope + s % scope) * W;
+    int* m_row = off + slot[M] * W;  // M owns rows [0, scope)
     const bool m_null = m_lo > m_hi;
     // feasibility probe: a run of null steps longer than the scope
     if (m_null && nnull > scope) {
@@ -234,40 +297,116 @@ __global__ void fused_loop_affine(Params p) {
 
     // --- compute s + 1 ---
     const int s1 = s + 1;
-    const int slot1 = s1 % scope;
-    const Wf mm = read_wf(off, lohi, M, s1 - p.x, scope, W);
-    const Wf op = read_wf(off, lohi, M, s1 - p.o1e1, scope, W);
-    const Wf i1 = read_wf(off, lohi, I1, s1 - p.e1, scope, W);
-    const Wf d1 = read_wf(off, lohi, D1, s1 - p.e1, scope, W);
-    int lo_n = min(min(lim_lo(mm, 0), lim_lo(op, 1)),
-                   min(lim_lo(i1, 1), lim_lo(d1, 1)));
-    int hi_n = max(max(lim_hi(mm, 0), lim_hi(op, 1)),
-                   max(lim_hi(i1, 1), lim_hi(d1, 1)));
-    const bool all_null = mm.null_ && op.null_ && i1.null_ && d1.null_;
-
-    // I1 / D1: open vs extend, extend wins ties; an all-invalid cell keeps
-    // the raw shifted value, which only the bounds check below nulls
-    const int op_l = at(op, w - 1, W), op_r = at(op, w + 1, W);
-    const int i1_l = at(i1, w - 1, W), d1_r = at(d1, w + 1, W);
-    const int i1p = max(pack(op_l + 1, 0), pack(i1_l + 1, 1));
-    const int ins1 = i1p < 0 ? max(op_l, i1_l) + 1 : (i1p >> 3);
-    const int i1_ext = (i1p >= 0 && (i1p & 7) == 1) ? 1 : 0;
-    const int d1p = max(pack(op_r, 0), pack(d1_r, 1));
-    const int del1 = d1p < 0 ? max(op_r, d1_r) : (d1p >> 3);
-    const int d1_ext = (d1p >= 0 && (d1p & 7) == 1) ? 1 : 0;
-    const int mis = at(mm, w, W) + 1;
-    // M by the packed (value << 3) | prio max: X(5) > D1(3) > I1(1)
-    const int pm = max(pack(mis, 5), max(pack(del1, 3), pack(ins1, 1)));
-    const int raw = max(mis, max(del1, ins1));
-    const int pr = pm & 7;
-    const int msrc = pm < 0 ? MSRC_NONE
-                            : (pr == 5 ? MSRC_X : (pr == 3 ? MSRC_D1 : MSRC_I1));
-    const int choice = msrc | (i1_ext << 3) | (d1_ext << 4);
-    nnull = all_null ? nnull + 1 : 0;
-    int mval = pm < 0 ? raw : (pm >> 3);
+    int slot1[kComps];  // the slots of score s + 1
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) {
+      slot1[c] = slot[c] + 1 == p.depth[c] ? 0 : slot[c] + 1;
+    }
+    // per component: the cell's value and whether the component is
+    // produced at all (M on every non-null step, a gap component only
+    // when one of its sources exists)
+    int arr[kComps];
+    bool prod[kComps];
+    int lo_n, hi_n, choice, mval;
+    bool all_null;
+    if constexpr (kEditLike) {
+      // every candidate comes from the wavefront of s
+      const Wf pw = read_wf(off, lohi, p, M, slot1[M], 1, s1);
+      lo_n = pw.lo - 1;
+      hi_n = pw.hi + 1;
+      all_null = pw.null_;
+      int pm = max(pack(at(pw, w + 1, W), 3), pack(at(pw, w - 1, W) + 1, 1));
+      if constexpr (kMetric == kEdit) pm = max(pack(at(pw, w, W) + 1, 5), pm);
+      // an all-invalid cell stays negative; the bounds check nulls it
+      mval = pm >> 3;
+      choice = one_comp_source(pm);
+    } else if constexpr (kMetric == kLinear) {
+      const Wf mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1);
+      const Wf op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1);
+      lo_n = min(lim_lo(mm, 0), lim_lo(op, 1));
+      hi_n = max(lim_hi(mm, 0), lim_hi(op, 1));
+      all_null = mm.null_ && op.null_;
+      const int pm = max(pack(at(mm, w, W) + 1, 5),
+                         max(pack(at(op, w + 1, W), 3),
+                             pack(at(op, w - 1, W) + 1, 1)));
+      mval = pm < 0 ? kNull : (pm >> 3);
+      choice = one_comp_source(pm);
+    } else {
+      const Wf mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1);
+      const Wf op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1);
+      const Wf i1 = read_wf(off, lohi, p, I1, slot1[I1], p.e1, s1);
+      const Wf d1 = read_wf(off, lohi, p, D1, slot1[D1], p.e1, s1);
+      lo_n = min(min(lim_lo(mm, 0), lim_lo(op, 1)),
+                 min(lim_lo(i1, 1), lim_lo(d1, 1)));
+      hi_n = max(max(lim_hi(mm, 0), lim_hi(op, 1)),
+                 max(lim_hi(i1, 1), lim_hi(d1, 1)));
+      all_null = mm.null_ && op.null_ && i1.null_ && d1.null_;
+      int i1_ext, d1_ext;
+      const int ins1 =
+          gap_cell(at(op, w - 1, W), at(i1, w - 1, W), 1, &i1_ext);
+      const int del1 =
+          gap_cell(at(op, w + 1, W), at(d1, w + 1, W), 0, &d1_ext);
+      const int mis = at(mm, w, W) + 1;
+      arr[I1] = ins1;
+      arr[D1] = del1;
+      prod[I1] = !(op.null_ && i1.null_);
+      prod[D1] = !(op.null_ && d1.null_);
+      // M by the packed (value << 3) | prio max
+      int pm, raw;
+      if constexpr (kMetric == kAffine2p) {
+        const Wf op2 = read_wf(off, lohi, p, M, slot1[M], p.o2, s1);
+        const Wf i2 =
+            read_wf(off, lohi, p, I2, slot1[kComps - 2], p.e2, s1);
+        const Wf d2 =
+            read_wf(off, lohi, p, D2, slot1[kComps - 1], p.e2, s1);
+        lo_n = min(lo_n, min(lim_lo(op2, 1),
+                             min(lim_lo(i2, 1), lim_lo(d2, 1))));
+        hi_n = max(hi_n, max(lim_hi(op2, 1),
+                             max(lim_hi(i2, 1), lim_hi(d2, 1))));
+        all_null = all_null && op2.null_ && i2.null_ && d2.null_;
+        int i2_ext, d2_ext;
+        const int ins2 =
+            gap_cell(at(op2, w - 1, W), at(i2, w - 1, W), 1, &i2_ext);
+        const int del2 =
+            gap_cell(at(op2, w + 1, W), at(d2, w + 1, W), 0, &d2_ext);
+        // I2 and D2 are the last two of the five components
+        arr[kComps - 2] = ins2;
+        arr[kComps - 1] = del2;
+        prod[kComps - 2] = !(op2.null_ && i2.null_);
+        prod[kComps - 1] = !(op2.null_ && d2.null_);
+        // X(5) > D2(4) > D1(3) > I2(2) > I1(1)
+        pm = max(max(pack(mis, 5), pack(del2, 4)),
+                 max(pack(del1, 3), max(pack(ins2, 2), pack(ins1, 1))));
+        raw = max(max(mis, del2), max(del1, max(ins2, ins1)));
+        const int pr = pm & 7;
+        const int msrc =
+            pm < 0 ? MSRC_NONE
+                   : (pr == 5 ? MSRC_X
+                              : (pr == 4 ? MSRC_D2
+                                         : (pr == 3 ? MSRC_D1
+                                                    : (pr == 2 ? MSRC_I2
+                                                               : MSRC_I1))));
+        choice = msrc | (i1_ext << 3) | (d1_ext << 4) | (i2_ext << 5) |
+                 (d2_ext << 6);
+      } else {
+        // X(5) > D1(3) > I1(1)
+        pm = max(pack(mis, 5), max(pack(del1, 3), pack(ins1, 1)));
+        raw = max(mis, max(del1, ins1));
+        const int pr = pm & 7;
+        const int msrc =
+            pm < 0 ? MSRC_NONE
+                   : (pr == 5 ? MSRC_X : (pr == 3 ? MSRC_D1 : MSRC_I1));
+        choice = msrc | (i1_ext << 3) | (d1_ext << 4);
+      }
+      // an all-invalid cell keeps the largest raw candidate
+      mval = pm < 0 ? raw : (pm >> 3);
+    }
+    // edit and indel count no null steps (see the trim below)
+    if (!kEditLike) nnull = all_null ? nnull + 1 : 0;
     if (mval < 0 || mval > tlen || mval - k < 0 || mval - k > plen) {
       mval = kNull;
     }
+    arr[M] = mval;
 
     const bool write = !all_null;
     const int klo = kmin + 2, khi = kmin + W - 3;
@@ -277,9 +416,9 @@ __global__ void fused_loop_affine(Params p) {
     const bool bandn = k >= lo_n && k <= hi_n;
     const bool band_n = bandn && write;
 
-    int arr[kComps] = {mval, ins1, del1};
-    const bool prod[kComps] = {write, write && !(op.null_ && i1.null_),
-                               write && !(op.null_ && d1.null_)};
+    prod[M] = write;
+#pragma unroll
+    for (int c = 1; c < kComps; ++c) prod[c] = prod[c] && write;
 #pragma unroll
     for (int c = 0; c < kComps; ++c) {
       if (!(band_n && prod[c])) arr[c] = kNull;
@@ -306,15 +445,18 @@ __global__ void fused_loop_affine(Params p) {
       const bool keep = prod[c] && first < W;
       const int tlo = keep ? first + kmin : 1;
       const int thi = keep ? last + kmin : -1;
-      const int slot = c * scope + slot1;
-      off[slot * W + w] = (k >= tlo && k <= thi) ? arr[c] : kNull;
+      const int row = p.base[c] + slot1[c];
+      off[row * W + w] = (k >= tlo && k <= thi) ? arr[c] : kNull;
       if (w == 0) {
-        lohi[2 * slot] = tlo;
-        lohi[2 * slot + 1] = thi;
+        lohi[2 * row] = tlo;
+        lohi[2 * row + 1] = thi;
       }
+      slot[c] = slot1[c];
       if (c == M) {
         m_lo = tlo;
         m_hi = thi;
+        // an empty edit or indel wavefront ends the pair at the next probe
+        if (kEditLike && tlo > thi) nnull = kBig;
       }
     }
     if (kRecord && band_n && choice != 0) {
@@ -344,16 +486,30 @@ __global__ void fused_loop_affine(Params p) {
   }
 }
 
-template <bool kEndsFree, bool kRecord>
-int launch(const Params& p, size_t smem, cudaStream_t stream) {
+template <int kMetric, bool kEndsFree, bool kRecord>
+int launch(const Params& p, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(p.rows) * p.W + p.rows * 2 +
+                       (2 * n_comps(kMetric) + 1) * 32) *
+                      sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_loop_affine<kEndsFree, kRecord>,
+        fused_loop<kMetric, kEndsFree, kRecord>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fused_loop_affine<kEndsFree, kRecord><<<p.B, p.W, smem, stream>>>(p);
+  fused_loop<kMetric, kEndsFree, kRecord><<<p.B, p.W, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMetric>
+int launch_metric(const Params& p, bool ends_free, bool record,
+                  cudaStream_t stream) {
+  if (ends_free) {
+    return record ? launch<kMetric, true, true>(p, stream)
+                  : launch<kMetric, true, false>(p, stream);
+  }
+  return record ? launch<kMetric, false, true>(p, stream)
+                : launch<kMetric, false, false>(p, stream);
 }
 
 }  // namespace
@@ -362,14 +518,20 @@ extern "C" {
 
 // Launch the loop for B pairs on `stream`; returns the cudaError_t of the
 // launch (0 on success). All pointers are device pointers; `frees` is
-// read only when ends_free, `choices` written only when record.
-int wfa_fused_loop_affine(const void* bits, const void* plen,
-                          const void* tlen, const void* frees, void* choices,
-                          void* res, int B, int W, int NQ, int S_cap,
-                          int scope, int x, int o1e1, int e1, int max_steps,
-                          int ends_free, int record, void* stream) {
+// read only when ends_free, `choices` written only when record. `metric`
+// is one of the kMetric codes; x, o1, e1, o2, e2 are the score distances
+// of Params (an unused one is 0); `depths` is a host array of the ring's
+// rows per component of the metric, M first
+// (pywfa_tpu_torch/ops/fused_loop.py::ring_depths).
+int wfa_fused_loop(const void* bits, const void* plen, const void* tlen,
+                   const void* frees, void* choices, void* res,
+                   const int* depths, int B, int W, int NQ, int S_cap,
+                   int scope, int x, int o1, int e1, int o2, int e2,
+                   int max_steps, int metric, int ends_free, int record,
+                   void* stream) {
   if (B == 0) return 0;
-  if ((ends_free && frees == nullptr) || (record && choices == nullptr)) {
+  if ((ends_free && frees == nullptr) || (record && choices == nullptr) ||
+      depths == nullptr || metric < kAffine || metric > kIndel) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -384,20 +546,31 @@ int wfa_fused_loop_affine(const void* bits, const void* plen,
   p.NQ = NQ;
   p.S_cap = S_cap;
   p.scope = scope;
-  p.x = x;
-  p.o1e1 = o1e1;
-  p.e1 = e1;
   p.max_steps = max_steps;
-  const size_t smem =
-      (static_cast<size_t>(kComps) * scope * W + kComps * scope * 2 + 7 * 32) *
-      sizeof(int);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ends_free) {
-    return record ? launch<true, true>(p, smem, st)
-                  : launch<true, false>(p, smem, st);
+  p.x = x;
+  p.o1 = o1;
+  p.e1 = e1;
+  p.o2 = o2;
+  p.e2 = e2;
+  p.rows = 0;
+  for (int c = 0; c < kMaxComps; ++c) {
+    p.base[c] = p.rows;
+    p.depth[c] = c < n_comps(metric) ? depths[c] : 0;
+    p.rows += p.depth[c];
   }
-  return record ? launch<false, true>(p, smem, st)
-                : launch<false, false>(p, smem, st);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (metric) {
+    case kAffine:
+      return launch_metric<kAffine>(p, ends_free, record, st);
+    case kAffine2p:
+      return launch_metric<kAffine2p>(p, ends_free, record, st);
+    case kLinear:
+      return launch_metric<kLinear>(p, ends_free, record, st);
+    case kEdit:
+      return launch_metric<kEdit>(p, ends_free, record, st);
+    default:
+      return launch_metric<kIndel>(p, ends_free, record, st);
+  }
 }
 
 const char* wfa_cuda_error_string(int err) {

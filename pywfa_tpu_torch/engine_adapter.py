@@ -8,10 +8,9 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from pywfa_tpu.attributes import AlignerAttributes, validate_alignment
-from pywfa_tpu.oracle import OracleAligner, OracleResult
-
+from .attributes import AlignerAttributes, validate_alignment
 from .batch import align_pairs
+from .oracle import OracleAligner, OracleResult
 from .ops import config as C
 from .ops import fused_loop
 

@@ -8,10 +8,12 @@ No torch here: this module is pure Python and imports nothing heavy.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import os
 from typing import Optional, Tuple
 
-from pywfa_tpu.constants import AlignmentSpan, DistanceMetric, OFFSET_NULL
+from .. import attributes, constants
+from ..constants import AlignmentSpan, DistanceMetric, OFFSET_NULL
 
 NULL = OFFSET_NULL
 NULL_THRESHOLD = OFFSET_NULL // 2
@@ -106,10 +108,31 @@ class EngineConfig:
         return -(self.W // 2)
 
 
+def _carry(value):
+    """A JAX-package value as the port's own type: dataclasses and enums
+    become the port's classes of the same name, field by field and by
+    value; plain values pass through."""
+    if dataclasses.is_dataclass(value):
+        cls = getattr(attributes, type(value).__name__)
+        return cls(**{f.name: _carry(getattr(value, f.name))
+                      for f in dataclasses.fields(cls)})
+    if isinstance(value, enum.Enum):
+        return getattr(constants, type(value).__name__)(value.value)
+    return value
+
+
 def from_reference(ref) -> EngineConfig:
     """The port's config built field by field from a JAX-package config."""
-    return EngineConfig(**{f.name: getattr(ref, f.name)
+    return EngineConfig(**{f.name: _carry(getattr(ref, f.name))
                            for f in dataclasses.fields(EngineConfig)})
+
+
+def attributes_from_reference(ref) -> attributes.AlignerAttributes:
+    """The port's AlignerAttributes built field by field from a
+    JAX-package AlignerAttributes (its penalties, form, heuristic and
+    system blocks included). A named match-class table is registered per
+    package and does not come across with its name."""
+    return _carry(ref)
 
 
 def full_config(attr, plen: int, tlen: int, wildcard: int = -1,

@@ -74,8 +74,9 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.wfa_fused_loop_affine.argtypes = [vp] * 6 + [ci] * 11 + [vp]
-        lib.wfa_fused_loop_affine.restype = ci
+        lib.wfa_fused_loop.argtypes = ([vp] * 6 + [ctypes.POINTER(ci)]
+                                       + [ci] * 14 + [vp])
+        lib.wfa_fused_loop.restype = ci
         lib.wfa_cuda_error_string.argtypes = [ci]
         lib.wfa_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -22,11 +22,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from pywfa_tpu.constants import DistanceMetric
-
+from ..constants import DistanceMetric
 from . import fused_loop
 from .config import (
-    D1, I1, M, MSRC_D1, MSRC_I1, MSRC_NONE, MSRC_SEED, MSRC_X,
+    D1, D2, I1, I2, M, MSRC_D1, MSRC_D2, MSRC_I1, MSRC_I2, MSRC_NONE,
+    MSRC_SEED, MSRC_X,
     NULL_THRESHOLD, PATTERN_PAD, ST_END_REACHED, ST_END_UNREACHABLE,
     ST_OVERFLOW_S, TEXT_PAD, WOP_D, WOP_I, WOP_MFLAG, WOP_X,
     EngineConfig, fused_widths, packed_layout, packed_widths,
@@ -127,38 +127,66 @@ def build_eq_bits(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor
 
 @functools.lru_cache(maxsize=64)
 def _walk_tables(cfg: EngineConfig, device: torch.device) -> dict:
-    """Per-(component, choice byte) transition tables of the gap-affine
-    walk step.
+    """Per-(component, choice byte) transition tables of the walk step.
 
-    Entry comp * 256 + ch (comp in M, I1, D1) holds what the reference's
-    walk step derives from (comp, ch): the emitted token, the score and
-    diagonal deltas, the next component, and the kind of the step at M
-    (0 move, 1 stop at a seed, 2 inconsistent chain). At M every source
-    but X and I1 takes the deletion branch, as the reference's where-chain
-    does; a gap-affine choice byte holds no other source.
+    Entry comp * 256 + ch holds what the reference's walk step derives
+    from (comp, ch): the emitted token, the score and diagonal deltas, the
+    next component, and the kind of the step at M (0 move, 1 stop at a
+    seed, 2 inconsistent chain). The table has one block of 256 rows a
+    component: M alone for gap-linear, edit and indel, which never leave
+    M and step back by the mismatch or the indel penalty (1 and 1 for edit
+    and indel); M, I1, D1 for gap-affine; I2 and D2 besides for the
+    2-piece metric, whose M block follows the I2/D2 sources and whose
+    bytes carry their extend bits 5-6. Sources a metric never writes take
+    the last branch of the reference's where-chain.
     """
-    x = cfg.mismatch
-    o1e1 = cfg.gap_opening1 + cfg.gap_extension1
-    e1 = cfg.gap_extension1
     ch = np.arange(256, dtype=np.int64)
     msrc = ch & 7
-    ext = {I1: (ch >> 3) & 1, D1: (ch >> 4) & 1}
-
     is_x = msrc == MSRC_X
-    is_i = msrc == MSRC_I1
-    m_ext = np.where(is_i, ext[I1], ext[D1])
-    m_op = np.where(is_x, WOP_X, np.where(is_i, WOP_I, WOP_D))
-    m_ds = np.where(is_x, x, np.where(m_ext == 1, e1, o1e1))
-    m_dk = np.where(is_i, -1, np.where(msrc == MSRC_D1, 1, 0))
-    m_next = np.where(is_x | (m_ext == 0), M, np.where(is_i, I1, D1))
     m_kind = np.where(msrc == MSRC_SEED, 1, np.where(msrc == MSRC_NONE, 2, 0))
-
-    rows = [(m_op | WOP_MFLAG, m_ds, m_dk, m_next, m_kind)]
-    for comp, op, dk in ((I1, WOP_I, -1), (D1, WOP_D, 1)):
-        e = ext[comp] == 1
-        rows.append((np.full(256, op), np.where(e, e1, o1e1),
-                     np.full(256, dk), np.where(e, comp, M),
-                     np.zeros(256, np.int64)))
+    if cfg.n_comp == 1:
+        edit_like = cfg.metric in (DistanceMetric.EDIT, DistanceMetric.INDEL)
+        lin_x = 1 if edit_like else cfg.mismatch
+        lin_open = 1 if edit_like else cfg.gap_opening1
+        is_i = msrc == MSRC_I1
+        rows = [(np.where(is_x, WOP_X, np.where(is_i, WOP_I, WOP_D))
+                 | WOP_MFLAG,
+                 np.where(is_x, lin_x, lin_open),
+                 np.where(is_i, -1, np.where(msrc == MSRC_D1, 1, 0)),
+                 np.full(256, M), m_kind)]
+    else:
+        x = cfg.mismatch
+        # per gap component: (source code, extend bit, open and extend
+        # distances, op, diagonal delta)
+        e1, e2 = cfg.gap_extension1, cfg.gap_extension2
+        o1e1 = cfg.gap_opening1 + e1
+        o2e2 = cfg.gap_opening2 + e2
+        gaps = {I1: (MSRC_I1, 3, o1e1, e1, WOP_I, -1),
+                D1: (MSRC_D1, 4, o1e1, e1, WOP_D, 1),
+                I2: (MSRC_I2, 5, o2e2, e2, WOP_I, -1),
+                D2: (MSRC_D2, 6, o2e2, e2, WOP_D, 1)}
+        # at M the chain is X, I1, D1, I2, else D2
+        m_comp = np.where(msrc == MSRC_I1, I1, np.where(
+            msrc == MSRC_D1, D1, np.where(msrc == MSRC_I2, I2, D2)))
+        m_op = np.where(is_x, WOP_X, np.where(
+            (msrc == MSRC_I1) | (msrc == MSRC_I2), WOP_I, WOP_D))
+        m_dk = np.where((msrc == MSRC_I1) | (msrc == MSRC_I2), -1, np.where(
+            (msrc == MSRC_D1) | (msrc == MSRC_D2), 1, 0))
+        m_ds = np.full(256, x)
+        m_next = np.full(256, M)
+        for comp, (_, bit, oe, e, _, _) in gaps.items():
+            ext = (ch >> bit) & 1
+            pick = ~is_x & (m_comp == comp)
+            m_ds = np.where(pick, np.where(ext == 1, e, oe), m_ds)
+            m_next = np.where(pick & (ext == 1), comp, m_next)
+        rows = [(m_op | WOP_MFLAG, m_ds, m_dk, m_next, m_kind)]
+        # at a gap component: extend continues the chain, open returns to M
+        for comp in range(1, cfg.n_comp):
+            _, bit, oe, e, op, dk = gaps[comp]
+            ext = ((ch >> bit) & 1) == 1
+            rows.append((np.full(256, op), np.where(ext, e, oe),
+                         np.full(256, dk), np.where(ext, comp, M),
+                         np.zeros(256, np.int64)))
     cols = list(zip(*rows))
 
     def t(i, dtype):
@@ -179,21 +207,19 @@ def traceback_walk(cfg: EngineConfig, choices: torch.Tensor,
     choices[s, b, k] with one gather and takes one step; the op it emits
     lands at its score level, so the stream is zero-sparse over levels
     in FORWARD cigar order, as the reference's level scan writes it.
-    Every step lowers s by at least min(mismatch, gap_extension1), which
-    bounds the iteration count; every 4 steps one host sync ends the walk
+    Every step lowers s by at least the metric's smallest score
+    distance, which bounds the iteration count; every 4 steps one host sync ends the walk
     early once no pair is still walking. A pair stops at score 0 on the
     diagonal it reached, which is a WF0 seed (k != 0 on the ends-free
     span) and becomes its k_start.
     Returns (ops_fwd [B, S_cap] uint8, n_ops [B], k_start [B], fallback [B]).
     """
-    if cfg.metric != DistanceMetric.GAP_AFFINE:
-        raise NotImplementedError(
-            "the traceback walk of metrics other than gap-affine is not "
-            "ported yet (ROADMAP queue 1 item 5)")
     S_cap, B, W = choices.shape
     dev = choices.device
     tb = _walk_tables(cfg, dev)
-    n_iter = (S_cap - 1) // min(cfg.mismatch, cfg.gap_extension1) + 2
+    # the least score a step goes back: the metric's smallest distance
+    min_step = min(d for d in fused_loop.score_distances(cfg) if d > 0)
+    n_iter = (S_cap - 1) // min_step + 2
     flat = choices.reshape(-1)
     row = torch.arange(B, dtype=torch.int64, device=dev)
     s = final_s.to(torch.int32).clone()

@@ -1,4 +1,5 @@
-"""The fused whole-alignment score loop: gap-affine, end-to-end or
+"""The fused whole-alignment score loop: all five distance metrics
+(gap-affine, gap-affine 2-piece, gap-linear, edit, indel), end-to-end or
 ends-free span, full-CIGAR or score-only scope.
 
 The twin of `pywfa_tpu/ops/pallas/fused_loop.py`. For every pair it runs
@@ -18,32 +19,64 @@ re-runs such pairs at a wider band.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from pywfa_tpu.constants import AlignmentSpan, DistanceMetric
-
+from ..constants import AlignmentSpan, DistanceMetric
 from .config import (
-    D1, I1, M, MSRC_D1, MSRC_I1, MSRC_NONE, MSRC_X, NULL, NULL_THRESHOLD,
-    ST_END_REACHED, ST_END_UNREACHABLE, ST_MAX_STEPS, ST_OVERFLOW_S,
-    ST_OVERFLOW_W, EngineConfig,
+    D1, D2, I1, I2, M, MSRC_D1, MSRC_D2, MSRC_I1, MSRC_I2, MSRC_NONE, MSRC_X,
+    NULL, NULL_THRESHOLD, ST_END_REACHED, ST_END_UNREACHABLE, ST_MAX_STEPS,
+    ST_OVERFLOW_S, ST_OVERFLOW_W, EngineConfig,
 )
+
+# the kernel's metric codes (csrc/fused_loop.cu) and the variant-name
+# prefix of each metric; gap-affine, pywfa's default, carries none
+METRIC_CODE = {DistanceMetric.GAP_AFFINE: 0, DistanceMetric.GAP_AFFINE_2P: 1,
+               DistanceMetric.GAP_LINEAR: 2, DistanceMetric.EDIT: 3,
+               DistanceMetric.INDEL: 4}
+METRIC_PREFIX = {DistanceMetric.GAP_AFFINE: "",
+                 DistanceMetric.GAP_AFFINE_2P: "affine2p_",
+                 DistanceMetric.GAP_LINEAR: "linear_",
+                 DistanceMetric.EDIT: "edit_", DistanceMetric.INDEL: "indel_"}
+VARIANTS = tuple(prefix + span + scope
+                 for prefix in METRIC_PREFIX.values()
+                 for span in ("e2e", "endsfree") for scope in ("", "_score"))
 
 # kernel launches made by align_batch_fused_loop (plain version excluded),
 # by variant (see `variant`)
-variant_launches = {"e2e": 0, "endsfree": 0, "e2e_score": 0,
-                    "endsfree_score": 0}
+variant_launches = dict.fromkeys(VARIANTS, 0)
 
 # shared memory one block may use on sm_90 (bytes)
 SMEM_LIMIT = 232448
 MAX_THREADS = 1024
-NC = 3  # components of the gap-affine ring: M, I1, D1
+
+
+def _edit_like(cfg: EngineConfig) -> bool:
+    return cfg.metric in (DistanceMetric.EDIT, DistanceMetric.INDEL)
+
+
+def ring_depths(cfg: EngineConfig) -> tuple:
+    """Rows of the kernel's wavefront ring, per component. M is read as
+    far back as the scope; a gap component only at its own extension
+    distance, so it keeps gap_extension + 1 rows. At pywfa's affine2p
+    penalties that is 26 + 2 * 3 + 2 * 2 = 36 rows instead of 5 * 26."""
+    if cfg.metric == DistanceMetric.GAP_AFFINE:
+        return (cfg.scope,) + (cfg.gap_extension1 + 1,) * 2
+    if cfg.metric == DistanceMetric.GAP_AFFINE_2P:
+        return ((cfg.scope,) + (cfg.gap_extension1 + 1,) * 2
+                + (cfg.gap_extension2 + 1,) * 2)
+    return (cfg.scope,)
 
 
 def smem_bytes(cfg: EngineConfig) -> int:
     """Dynamic shared memory of one block: the offsets ring, its lo/hi
-    pairs and the per-warp partials of the six trim reductions and of the
-    ends-free termination."""
-    return (NC * cfg.scope * cfg.W + NC * cfg.scope * 2 + 7 * 32) * 4
+    pairs and the per-warp partials of the two trim reductions a component
+    and of the ends-free termination."""
+    depths = ring_depths(cfg)
+    rows = sum(depths)
+    return (rows * cfg.W + rows * 2 + (2 * len(depths) + 1) * 32) * 4
 
 
 def _ends_free(cfg: EngineConfig) -> bool:
@@ -51,18 +84,19 @@ def _ends_free(cfg: EngineConfig) -> bool:
 
 
 def variant(cfg: EngineConfig) -> str:
-    """The kernel variant a config launches: span, then "_score" for the
-    score-only scope."""
-    return (("endsfree" if _ends_free(cfg) else "e2e")
+    """The kernel variant a config launches: the metric's prefix (none for
+    gap-affine), the span, then "_score" for the score-only scope."""
+    return (METRIC_PREFIX[cfg.metric]
+            + ("endsfree" if _ends_free(cfg) else "e2e")
             + ("" if cfg.record_choices else "_score"))
 
 
 def supported(cfg: EngineConfig) -> bool:
-    """The slice this module covers: gap-affine, end-to-end or ends-free
-    span (ends-free only with match == 0, whose WF0 seeding is static),
-    full-CIGAR or score-only scope, exact matching, no heuristic, one
-    thread per diagonal."""
-    return (cfg.metric == DistanceMetric.GAP_AFFINE
+    """The slice this module covers: every distance metric, end-to-end or
+    ends-free span (ends-free only with match == 0, whose WF0 seeding is
+    static), full-CIGAR or score-only scope, exact matching, no heuristic,
+    one thread per diagonal."""
+    return (cfg.metric in METRIC_CODE
             and (cfg.span == AlignmentSpan.END_TO_END
                  or (_ends_free(cfg) and cfg.match == 0))
             and cfg.strategy == 0
@@ -75,8 +109,8 @@ def supported(cfg: EngineConfig) -> bool:
 def _check(cfg: EngineConfig, bits, plen, tlen, frees):
     if not supported(cfg):
         raise NotImplementedError(
-            "the fused loop covers gap-affine alignment, end-to-end or "
-            "ends-free with match == 0, without heuristics, wildcards or "
+            "the fused loop covers end-to-end alignment, or ends-free with "
+            "match == 0, without heuristics, wildcards or "
             f"match classes, with W <= {MAX_THREADS} (got {cfg}); the rest "
             "waits in ROADMAP queue 2")
     if bits.dim() != 3 or bits.shape[2] != cfg.W:
@@ -131,14 +165,17 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     choices = (torch.zeros((cfg.S_cap, B, W), dtype=torch.uint8, device=dev)
                if record else None)
     res = torch.empty((4, B), dtype=torch.int32, device=dev)
+    x, o1, e1, o2, e2 = score_distances(cfg)
+    depths = ring_depths(cfg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.wfa_fused_loop_affine(
+        rc = lib.wfa_fused_loop(
             bits.data_ptr(), plen.data_ptr(), tlen.data_ptr(),
             frees.data_ptr(), choices.data_ptr() if record else None,
-            res.data_ptr(), B, W, NQ, cfg.S_cap, cfg.scope, cfg.mismatch,
-            cfg.gap_opening1 + cfg.gap_extension1, cfg.gap_extension1,
-            max_steps, int(_ends_free(cfg)), int(record), stream)
+            res.data_ptr(), (ctypes.c_int * len(depths))(*depths), B, W, NQ,
+            cfg.S_cap, cfg.scope, x, o1, e1, o2, e2, max_steps,
+            METRIC_CODE[cfg.metric], int(_ends_free(cfg)), int(record),
+            stream)
     if rc != 0:
         raise RuntimeError("fused loop kernel launch failed: "
                            + cuda_build.error_string(rc))
@@ -148,6 +185,24 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     if record:
         out["choices"] = choices
     return out
+
+
+def score_distances(cfg: EngineConfig) -> tuple:
+    """Score distances (x, o1, e1, o2, e2) from s + 1 back to the source
+    wavefronts: M for a mismatch; M opening and I1/D1 extending a gap of
+    piece 1; the same for piece 2. Gap-linear opens at its indel penalty
+    and extends nothing; edit and indel read only s; an unused distance
+    is 0."""
+    m = cfg.metric
+    if _edit_like(cfg):
+        return (1, 1, 0, 0, 0)
+    if m == DistanceMetric.GAP_LINEAR:
+        return (cfg.mismatch, cfg.gap_opening1, 0, 0, 0)
+    o1e1 = cfg.gap_opening1 + cfg.gap_extension1
+    if m == DistanceMetric.GAP_AFFINE:
+        return (cfg.mismatch, o1e1, cfg.gap_extension1, 0, 0)
+    return (cfg.mismatch, o1e1, cfg.gap_extension1,
+            cfg.gap_opening2 + cfg.gap_extension2, cfg.gap_extension2)
 
 
 def _ctz32(m):
@@ -161,17 +216,20 @@ def _ctz32(m):
 
 def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
                                max_steps: int) -> dict:
-    """The plain torch version: the Pallas kernel's array program (its
-    gap-affine branch, both spans, both scopes) over [B, W], all pairs as
-    one tile, with the band-overflow flag of the XLA engine. Runs on any
-    device."""
+    """The plain torch version: the Pallas kernel's array program (every
+    metric's branch, both spans, both scopes) over [B, W], all pairs as
+    one tile, with the band-overflow flag of the XLA engine. Its ring has
+    `scope` rows for every component. Runs on any device."""
     NQ, B, W = bits.shape
     dev = bits.device
     i32 = torch.int32
     scope, S_cap, kmin = cfg.scope, cfg.S_cap, cfg.kmin
-    x = cfg.mismatch
-    o1e1 = cfg.gap_opening1 + cfg.gap_extension1
-    e1 = cfg.gap_extension1
+    x, o1e1, e1, o2e2, e2 = score_distances(cfg)
+    metric = cfg.metric
+    edit_like = _edit_like(cfg)
+    linear = metric == DistanceMetric.GAP_LINEAR
+    affine2p = metric == DistanceMetric.GAP_AFFINE_2P
+    NC = cfg.n_comp
     NQ32 = NQ * 32
     iota = torch.arange(W, dtype=i32, device=dev)[None, :]
     karr = iota + kmin
@@ -226,6 +284,25 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
 
     def pack(value, prio):
         return torch.where(value >= 0, (value << 3) | prio, -2**30)
+
+    def gap(open_off, ext_off, dk):
+        """One gap component: open from M vs extend (extend wins ties).
+        An all-invalid cell keeps the raw shifted value, which only M's
+        bounds check nulls. Returns (values, extended)."""
+        add = 1 if dk < 0 else 0  # an insertion advances the offset
+        gp = torch.maximum(pack(shift(open_off, dk) + add, 0),
+                           pack(shift(ext_off, dk) + add, 1))
+        value = torch.where(gp < 0,
+                            shift(torch.maximum(open_off, ext_off), dk) + add,
+                            gp >> 3)
+        return value, (gp >= 0) & ((gp & 7) == 1)
+
+    def one_comp_source(pm):
+        pr = pm & 7
+        return torch.where(pr == 5, MSRC_X,
+                           torch.where(pr == 3, MSRC_D1,
+                                       torch.where(pr == 1, MSRC_I1,
+                                                   MSRC_NONE)))
 
     def lim(lo_, hi_, nul, widen):
         return (torch.where(nul, 2**30, lo_ - widen),
@@ -297,46 +374,91 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
         # --- compute s+1 ---
         s1 = s + 1
         slot1 = s1 % scope
-        mm_off, mm_lo, mm_hi, mm_null = read_wf(M, s1 - x)
-        op_off, op_lo, op_hi, op_null = read_wf(M, s1 - o1e1)
-        i1_off, i1_lo, i1_hi, i1_null = read_wf(I1, s1 - e1)
-        d1_off, d1_lo, d1_hi, d1_null = read_wf(D1, s1 - e1)
-        l1, h1 = lim(mm_lo, mm_hi, mm_null, 0)
-        l2, h2 = lim(op_lo, op_hi, op_null, 1)
-        l3, h3 = lim(i1_lo, i1_hi, i1_null, 1)
-        l4, h4 = lim(d1_lo, d1_hi, d1_null, 1)
-        lo_n = torch.minimum(torch.minimum(l1, l2), torch.minimum(l3, l4))
-        hi_n = torch.maximum(torch.maximum(h1, h2), torch.maximum(h3, h4))
-        all_null = mm_null & op_null & i1_null & d1_null
-
-        # I1/D1 open vs extend (extend wins ties); an all-invalid cell
-        # keeps the raw shifted value, which only the bounds check nulls
-        i1p = torch.maximum(pack(shift(op_off, -1) + 1, 0),
-                            pack(shift(i1_off, -1) + 1, 1))
-        ins1 = torch.where(i1p < 0,
-                           shift(torch.maximum(op_off, i1_off), -1) + 1,
-                           i1p >> 3)
-        i1_ext = (i1p >= 0) & ((i1p & 7) == 1)
-        d1p = torch.maximum(pack(shift(op_off, +1), 0),
-                            pack(shift(d1_off, +1), 1))
-        del1 = torch.where(d1p < 0,
-                           shift(torch.maximum(op_off, d1_off), +1),
-                           d1p >> 3)
-        d1_ext = (d1p >= 0) & ((d1p & 7) == 1)
-        mis = mm_off + 1
-        # M by the packed (value << 3) | prio max: X(5) > D1(3) > I1(1)
-        pm = torch.maximum(pack(mis, 5), torch.maximum(pack(del1, 3),
-                                                       pack(ins1, 1)))
-        raw = torch.maximum(mis, torch.maximum(del1, ins1))
-        pr = pm & 7
-        msrc = torch.where(pm < 0, MSRC_NONE,
-                           torch.where(pr == 5, MSRC_X,
-                                       torch.where(pr == 3, MSRC_D1,
-                                                   MSRC_I1)))
-        choice = (msrc | (i1_ext.to(i32) << 3) | (d1_ext.to(i32) << 4))
-        nnull = torch.where(active & all_null, nnull + 1,
-                            torch.where(active, 0, nnull))
-        mvals = torch.where(pm < 0, raw, pm >> 3)
+        if edit_like:
+            # one component; every candidate comes from the wavefront of s
+            p_off, p_lo, p_hi, p_null = read_wf(M, s1 - 1)
+            lo_n = p_lo - 1
+            hi_n = p_hi + 1
+            all_null = p_null
+            pm = torch.maximum(pack(shift(p_off, +1), 3),
+                               pack(shift(p_off, -1) + 1, 1))
+            if metric == DistanceMetric.EDIT:  # indel has no mismatch
+                pm = torch.maximum(pack(p_off + 1, 5), pm)
+            # an all-invalid cell stays negative; the bounds check nulls it
+            mvals = pm >> 3
+            choice = one_comp_source(pm)
+            gaps = gap_prods = ()
+        elif linear:
+            # one component; mismatch from s1 - x, both gaps from s1 - o
+            mm_off, mm_lo, mm_hi, mm_null = read_wf(M, s1 - x)
+            op_off, op_lo, op_hi, op_null = read_wf(M, s1 - o1e1)
+            l1, h1 = lim(mm_lo, mm_hi, mm_null, 0)
+            l2, h2 = lim(op_lo, op_hi, op_null, 1)
+            lo_n = torch.minimum(l1, l2)
+            hi_n = torch.maximum(h1, h2)
+            all_null = mm_null & op_null
+            pm = torch.maximum(
+                pack(mm_off + 1, 5),
+                torch.maximum(pack(shift(op_off, +1), 3),
+                              pack(shift(op_off, -1) + 1, 1)))
+            mvals = torch.where(pm < 0, NULL, pm >> 3)
+            choice = one_comp_source(pm)
+            gaps = gap_prods = ()
+        else:
+            mm_off, mm_lo, mm_hi, mm_null = read_wf(M, s1 - x)
+            op_off, op_lo, op_hi, op_null = read_wf(M, s1 - o1e1)
+            i1_off, i1_lo, i1_hi, i1_null = read_wf(I1, s1 - e1)
+            d1_off, d1_lo, d1_hi, d1_null = read_wf(D1, s1 - e1)
+            lims = [lim(mm_lo, mm_hi, mm_null, 0),
+                    lim(op_lo, op_hi, op_null, 1),
+                    lim(i1_lo, i1_hi, i1_null, 1),
+                    lim(d1_lo, d1_hi, d1_null, 1)]
+            all_null = mm_null & op_null & i1_null & d1_null
+            ins1, i1_ext = gap(op_off, i1_off, -1)
+            del1, d1_ext = gap(op_off, d1_off, +1)
+            mis = mm_off + 1
+            gaps = (ins1, del1)
+            gap_prods = (~(op_null & i1_null), ~(op_null & d1_null))
+            if affine2p:
+                op2_off, op2_lo, op2_hi, op2_null = read_wf(M, s1 - o2e2)
+                i2_off, i2_lo, i2_hi, i2_null = read_wf(I2, s1 - e2)
+                d2_off, d2_lo, d2_hi, d2_null = read_wf(D2, s1 - e2)
+                lims += [lim(op2_lo, op2_hi, op2_null, 1),
+                         lim(i2_lo, i2_hi, i2_null, 1),
+                         lim(d2_lo, d2_hi, d2_null, 1)]
+                all_null = all_null & op2_null & i2_null & d2_null
+                ins2, i2_ext = gap(op2_off, i2_off, -1)
+                del2, d2_ext = gap(op2_off, d2_off, +1)
+                gaps += (ins2, del2)
+                gap_prods += (~(op2_null & i2_null), ~(op2_null & d2_null))
+                # M by the packed (value << 3) | prio max:
+                # X(5) > D2(4) > D1(3) > I2(2) > I1(1)
+                cands = ((mis, 5, MSRC_X), (del2, 4, MSRC_D2),
+                         (del1, 3, MSRC_D1), (ins2, 2, MSRC_I2),
+                         (ins1, 1, MSRC_I1))
+                ext_bits = ((i1_ext.to(i32) << 3) | (d1_ext.to(i32) << 4)
+                            | (i2_ext.to(i32) << 5) | (d2_ext.to(i32) << 6))
+            else:
+                # X(5) > D1(3) > I1(1)
+                cands = ((mis, 5, MSRC_X), (del1, 3, MSRC_D1),
+                         (ins1, 1, MSRC_I1))
+                ext_bits = (i1_ext.to(i32) << 3) | (d1_ext.to(i32) << 4)
+            lo_n = functools.reduce(torch.minimum, [l for l, _ in lims])
+            hi_n = functools.reduce(torch.maximum, [h for _, h in lims])
+            pm = functools.reduce(torch.maximum,
+                                  [pack(v, p) for v, p, _ in cands])
+            raw = functools.reduce(torch.maximum, [v for v, _, _ in cands])
+            pr = pm & 7
+            msrc = torch.full_like(pm, MSRC_NONE)
+            for _, p, src in cands:
+                msrc = torch.where((pm >= 0) & (pr == p), src, msrc)
+            choice = msrc | ext_bits
+            # an all-invalid cell keeps the largest raw candidate, which
+            # the bounds check nulls
+            mvals = torch.where(pm < 0, raw, pm >> 3)
+        if not edit_like:
+            nnull = torch.where(active & all_null, nnull + 1,
+                                torch.where(active, 0, nnull))
         v_ = mvals - karr
         bad = (mvals < 0) | (mvals > tlen) | (v_ < 0) | (v_ > plen)
         mvals = torch.where(bad, NULL, mvals)
@@ -350,9 +472,10 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
         bandn = band_mask(lo_n, hi_n)
         band_n = bandn & write
 
-        vals = (mvals, ins1, del1)
-        prods = (write, write & ~(op_null & i1_null),
-                 write & ~(op_null & d1_null))
+        # M is written on every non-null step; a gap component only when
+        # one of its sources exists
+        vals = (mvals,) + gaps
+        prods = (write,) + tuple(write & p for p in gap_prods)
         for c in range(NC):
             arr = torch.where(band_n & prods[c], vals[c], NULL)
             v3 = arr - karr
@@ -366,6 +489,10 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
                 (karr >= tlo) & (karr <= thi), arr, NULL)
             lo[c * scope + slot1] = tlo
             hi[c * scope + slot1] = thi
+            if c == M and edit_like:
+                # an empty wavefront ends the pair at the next probe:
+                # edit and indel count no null steps
+                nnull = torch.where(active & (tlo > thi), 2**30, nnull)
         if record:
             choices[s1] = torch.where(band_n, choice, 0).to(torch.uint8)
 

@@ -179,7 +179,7 @@ def test_golden_cases_match_jax_backend(name):
     (dict(heuristic="adaptive"), "queue 1 item 5"),
     (dict(heuristic="X-drop"), "queue 1 item 5"),
     (dict(wildcard="N"), "queue 1 item 5"),
-    (dict(distance="affine2p"), "queue 1 item 5"),
+    (dict(distance="affine2p", match_classes="iupac"), "queue 1 item 5"),
     (dict(match=-1), "queue 2 item 7"),
 ])
 def test_off_slice_raises_naming_roadmap(kw, item):

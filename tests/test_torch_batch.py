@@ -6,6 +6,8 @@ loop's plain version, host finish, escalation) and must equal
 `pywfa_tpu.batch.align_pairs` and the scalar oracle on every BatchResult
 field, on both spans and in both scopes. Tolerance: zero.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -16,6 +18,8 @@ from pywfa_tpu.oracle import OracleAligner
 from pywfa_tpu.utils.encode import pack2bits
 from pywfa_tpu_torch import BatchWavefrontAligner
 from pywfa_tpu_torch import batch as PB
+from pywfa_tpu_torch import native as port_native
+from pywfa_tpu_torch.ops import config as C
 from tests.corpus import random_pairs
 from tests.test_torch_engine import README_PAIRS, window_pairs
 
@@ -124,8 +128,9 @@ def test_batch_aligner_stream_and_empty_batches():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(distance="affine2p"), dict(span="ends-free", match=-1),
-    dict(distance="linear"),
+    dict(distance="affine2p", heuristic="X-drop"),
+    dict(span="ends-free", match=-1),
+    dict(distance="linear", wildcard="N"),
     dict(heuristic="adaptive"), dict(memory_mode="low"),
     dict(wildcard="N"),
 ])
@@ -162,7 +167,10 @@ def test_attributes_match_reference_aligner():
               span="end-to-end", max_steps=77)
     port = BatchWavefrontAligner(device="cpu", **kw)._attr
     ref = WavefrontAligner(backend="numpy", **kw)._attributes()
-    assert port == ref
+    # the port keeps its own attribute classes: carried across field by
+    # field, the reference's attributes are the port's
+    assert port == C.attributes_from_reference(ref)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
 # name: (pairs, aligner kwargs); every span but the last is pywfa's
@@ -244,6 +252,7 @@ def test_python_fill_appends_trailing_free_ops(monkeypatch, case):
     attr = WavefrontAligner(backend="numpy", **kw)._attributes()
     want = _ref_oracle(attr, pairs)
     monkeypatch.setattr(native, "lib", lambda: None)
+    monkeypatch.setattr(port_native, "lib", lambda: None)
     port = PB.align_pairs(attr, [p for p, _ in pairs],
                           [t for _, t in pairs], device="cpu")
     assert _fields(port) == _fields(want)
@@ -255,9 +264,37 @@ def test_default_batch_aligner_matches_reference():
     txts = [t.decode() for _, t in README_PAIRS]
     port = BatchWavefrontAligner(device="cpu")
     ref = BT.BatchWavefrontAligner()
-    assert port._attr == ref._api._attributes()
+    assert port._attr == C.attributes_from_reference(ref._api._attributes())
     assert _fields(port.align(pats, txts)) == _fields(ref.align(pats, txts))
     packed = ([pack2bits(p.encode()) for p in pats], [len(p) for p in pats],
               [pack2bits(t.encode()) for t in txts], [len(t) for t in txts])
     assert _fields(port.align_packed2bits(*packed)) == _fields(
         ref.align_packed2bits(*packed))
+
+
+def test_oracle_fallbacks_count_a_loop_that_writes_wrong_choices(monkeypatch):
+    """A fused loop whose choice record is wrong (here: blanked) still
+    yields right results, because inconsistent walks go to the oracle; the
+    counter is what shows that the host did the work."""
+    from pywfa_tpu_torch.ops import fused_loop as TFL
+    pairs = CASES["div2"]
+    attr = C.attributes_from_reference(_attr())
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    zero = dict.fromkeys(PB.oracle_fallbacks, 0)
+    PB.oracle_fallbacks.update(zero)
+    want = PB.align_pairs(attr, pats, txts, device="cpu")
+    assert PB.oracle_fallbacks == zero
+    loop = TFL.align_batch_fused_loop
+
+    def blank(*args, **kw):
+        out = loop(*args, **kw)
+        out["choices"].zero_()
+        return out
+
+    monkeypatch.setattr(TFL, "align_batch_fused_loop", blank)
+    got = PB.align_pairs(attr, pats, txts, device="cpu")
+    assert _fields(got) == _fields(want)
+    n_moved = sum(r.wf_score > 0 for r in want)
+    assert n_moved > 0
+    assert PB.oracle_fallbacks == dict(zero, **{"inconsistent walk": n_moved})

@@ -1,8 +1,8 @@
 """The CUDA fused-loop kernel against its plain torch version, on the card.
 
-Every variant (end-to-end or ends-free span, full-CIGAR or score-only
-scope) is held against the plain version, and the API paths against the
-scalar oracle.
+Every variant (each of the five distance metrics, end-to-end or ends-free
+span, full-CIGAR or score-only scope) is held against the plain version,
+and the API paths against the scalar oracle.
 
 Runs only where a CUDA device is present (marker `cuda`; skipped
 elsewhere). The file imports no jax, so on a GPU host without jax run it
@@ -20,11 +20,11 @@ import pytest
 import torch
 
 import pywfa_tpu_torch
-from pywfa_tpu.align import WavefrontAligner as RefAligner
-from pywfa_tpu.attributes import AlignerAttributes, AlignmentForm
-from pywfa_tpu.constants import AlignmentSpan
-from pywfa_tpu.oracle import OracleAligner
 from pywfa_tpu_torch import batch as PB
+from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
+from pywfa_tpu_torch.attributes import AlignerAttributes, AlignmentForm
+from pywfa_tpu_torch.constants import AlignmentSpan
+from pywfa_tpu_torch.oracle import OracleAligner
 from pywfa_tpu_torch.ops import config as C
 from pywfa_tpu_torch.ops import engine as TE
 from pywfa_tpu_torch.ops import fused_loop
@@ -176,3 +176,116 @@ def test_wavefront_aligner_on_cuda_matches_oracle(dev, scope):
             assert (got.pattern_start, got.pattern_end, got.text_start,
                     got.text_end) == (want.pattern_start, want.pattern_end,
                                       want.text_start, want.text_end)
+
+
+METRICS = ("affine2p", "linear", "levenshtein", "indel")
+
+
+def _metric_attr(metric, span="end-to-end", scope="full", **frees):
+    return RefAligner(backend="numpy", distance=metric, span=span,
+                      scope=scope, **frees)._attributes()
+
+
+@pytest.mark.parametrize("span,record,caps,frees_row", [
+    ("end-to-end", True, "rung1", (0, 0, 0, 0)),
+    ("end-to-end", True, "full", (0, 0, 0, 0)),
+    ("end-to-end", False, "rung1", (0, 0, 0, 0)),
+    ("ends-free", True, "rung1", (8, 8, 20, 20)),
+    ("ends-free", True, "full", (8, 8, 20, 20)),
+    ("ends-free", False, "rung1", (8, 8, 20, 20)),
+    # an undersized band: ST_OVERFLOW_W
+    ("end-to-end", True, 128, (0, 0, 0, 0)),
+])
+@pytest.mark.parametrize("metric", METRICS)
+def test_metric_variants_match_plain_version(dev, metric, span, record, caps,
+                                             frees_row):
+    """Each new metric's kernel, at the first rung the batch path derives
+    for these lengths, at the terminal rung and at an undersized band."""
+    attr = _metric_attr(metric, span)
+    pairs = (_window_pairs(64, 40, 120, 20)
+             + random_pairs(65, 24, 20, 150, 0.1, 0.05, unrelated=0.3,
+                            as_bytes=True))
+    if caps == "rung1":
+        W = C._round_up(PB._band_for_score(attr, 96, 192, 192), 128)
+        cfg = C.full_config(attr, 192, 192, W=W, S_cap=96,
+                            record_choices=record)
+    elif caps == "full":
+        cfg = C.full_config(attr, 192, 192, record_choices=record)
+    else:
+        cfg = C.full_config(attr, 192, 192, W=caps, record_choices=record)
+    args = _inputs(cfg, pairs, dev, frees_row)
+    name = fused_loop.variant(cfg)
+    before = fused_loop.variant_launches[name]
+    got = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    assert fused_loop.variant_launches[name] == before + 1
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
+    torch.cuda.synchronize()
+    keys = KEYS if record else KEYS[:4]
+    assert set(got) == set(want) and ("choices" in got) == record
+    for k in keys:
+        assert torch.equal(got[k], want[k]), k
+    assert (got["status"] == C.ST_END_REACHED).any()
+    if caps == 128:
+        assert (got["status"] == C.ST_OVERFLOW_W).any()
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_metric_max_steps_matches_plain_version(dev, metric):
+    cfg = C.full_config(_metric_attr(metric), 160, 160)
+    pairs = random_pairs(66, 32, 20, 150, 0.1, 0.05, unrelated=0.2,
+                         as_bytes=True)
+    args = _inputs(cfg, pairs, dev)
+    got = fused_loop.align_batch_fused_loop(cfg, *args, 7)
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 7)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+    assert (got["status"] == C.ST_MAX_STEPS).any()
+
+
+def test_affine2p_terminal_rung_fits_shared_memory(dev):
+    """150 bp reads at affine2p's terminal rung: W 512, a scope of 26, a
+    ring of 36 rows in 73 KB of shared memory."""
+    cfg = C.full_config(_metric_attr("affine2p"), 160, 160)
+    assert (cfg.W, cfg.S_cap, cfg.scope) == (512, 649, 26)
+    assert 48 * 1024 < fused_loop.smem_bytes(cfg) < 80 * 1024
+    pairs = random_pairs(67, 32, 100, 150, 0.1, 0.05, unrelated=0.25,
+                         as_bytes=True)
+    args = _inputs(cfg, pairs, dev)
+    got = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+    assert (got["status"] == C.ST_END_REACHED).all()
+
+
+@pytest.mark.parametrize("scope", ["full", "score"])
+@pytest.mark.parametrize("span", ["end-to-end", "ends-free"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_metric_api_paths_on_cuda_match_oracle(dev, metric, span, scope):
+    """align_pairs (with pairs that escalate) and WavefrontAligner under
+    each new metric on the card, against the scalar oracle; no pair may
+    reach the oracle through an inconsistent walk."""
+    frees = ({} if span == "end-to-end" else
+             dict(pattern_begin_free=4, pattern_end_free=5,
+                  text_begin_free=20, text_end_free=20))
+    attr = _metric_attr(metric, span, scope, **frees)
+    pairs = (random_pairs(68, 24, 30, 150, 0.15, 0.05, unrelated=0.2,
+                          as_bytes=True) + _window_pairs(69, 8, 100, 20))
+    PB.oracle_fallbacks.update(dict.fromkeys(PB.oracle_fallbacks, 0))
+    res = PB.align_pairs(attr, [p for p, _ in pairs], [t for _, t in pairs],
+                         device=dev)
+    assert PB.oracle_fallbacks["inconsistent walk"] == 0
+    for (p, t), r in zip(pairs, res):
+        o = PB._oracle_one(attr, p, t)
+        assert (r.status, r.score, r.ops) == (o.status, o.score, o.ops)
+    a = pywfa_tpu_torch.WavefrontAligner(distance=metric, span=span,
+                                         scope=scope, device=dev, **frees)
+    o = RefAligner(distance=metric, span=span, scope=scope, backend="numpy",
+                   **frees)
+    for p, t in pairs[:12] + pairs[-4:]:
+        a(t.decode(), p.decode())
+        o(t.decode(), p.decode())
+        assert (a.status, a.score, a.cigarstring, a.locations) == (
+            o.status, o.score, o.cigarstring, o.locations), (p, t)

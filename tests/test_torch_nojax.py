@@ -1,12 +1,16 @@
-"""The port runs with jax absent, as it must on a GPU host without it.
+"""The port stands on its own: it runs with jax absent, as it must on a
+GPU host without it, and imports nothing of the JAX package `pywfa_tpu`.
 
-A subprocess installs an import hook that refuses `jax` and `jaxlib`,
-imports pywfa_tpu_torch, aligns 8 pairs on the CPU through the batch API
-and through `WavefrontAligner` with pywfa's defaults (ends-free, both
-scopes), checks them against the scalar oracle, and asserts that jax
-never entered sys.modules.
+A subprocess installs an import hook that refuses `jax`, `jaxlib` and
+`pywfa_tpu`, imports pywfa_tpu_torch, aligns 8 pairs on the CPU through
+the batch API (two distance metrics) and through `WavefrontAligner` with
+pywfa's defaults (ends-free, both scopes), checks them against the port's
+scalar oracle, and asserts that neither jax nor `pywfa_tpu` entered
+sys.modules. A scan of the sources holds the same for every file that
+runs on the card.
 """
 import os
+import re
 import subprocess
 import sys
 
@@ -15,7 +19,7 @@ import sys
 
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "pywfa_tpu"):
             raise ImportError(f"{name} is blocked")
         return None
 
@@ -24,7 +28,7 @@ sys.meta_path.insert(0, _NoJax())
 import torch
 torch.set_num_threads(1)
 import pywfa_tpu_torch
-from pywfa_tpu.oracle import OracleAligner
+from pywfa_tpu_torch.oracle import OracleAligner
 from tests.corpus import random_pairs
 
 pairs = random_pairs(41, 8, 20, 90, 0.05, 0.05, as_bytes=True)
@@ -33,6 +37,12 @@ aligner = pywfa_tpu_torch.BatchWavefrontAligner(span="end-to-end",
 res = aligner.align([p for p, _ in pairs], [t for _, t in pairs])
 for (p, t), r in zip(pairs, res):
     o = OracleAligner(aligner._attr).align(p, t)
+    assert (r.status, r.score, r.ops) == (o.status, o.score, o.ops), (p, t)
+aligner2 = pywfa_tpu_torch.BatchWavefrontAligner(
+    distance="affine2p", span="end-to-end", device="cpu")
+for (p, t), r in zip(pairs, aligner2.align([p for p, _ in pairs],
+                                           [t for _, t in pairs])):
+    o = OracleAligner(aligner2._attr).align(p, t)
     assert (r.status, r.score, r.ops) == (o.status, o.score, o.ops), (p, t)
 for scope in ("full", "score"):
     a = pywfa_tpu_torch.WavefrontAligner(scope=scope, device="cpu")
@@ -43,6 +53,9 @@ for scope in ("full", "score"):
         assert (a.status, a.score, a.cigarstring, a.locations) == (
             o.status, o.score, o.cigarstring, o.locations), (p, t)
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
+assert pywfa_tpu_torch.native.lib() is not None
+assert not [m for m in sys.modules
+            if m == "pywfa_tpu" or m.startswith("pywfa_tpu.")]
 print("OK", len(res))
 """
 
@@ -65,3 +78,27 @@ def test_port_sources_never_import_jax():
                 with open(os.path.join(dirpath, name)) as fh:
                     src = fh.read()
                 assert "import jax" not in src and "from jax" not in src, name
+
+
+IMPORTS_REFERENCE = re.compile(r"^\s*(from|import)\s+pywfa_tpu(\.|\s|$)",
+                               re.MULTILINE)
+
+
+def test_sources_that_run_on_the_card_never_import_the_jax_package():
+    """Nothing under pywfa_tpu_torch/, nor the scripts and the tests that
+    run on the card, imports `pywfa_tpu` or a module of it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(root, "chip_smoke.py"),
+             os.path.join(root, "profile_torch.py"),
+             os.path.join(root, "tests", "test_torch_cuda.py")]
+    for dirpath, _, files in os.walk(os.path.join(root, "pywfa_tpu_torch")):
+        paths += [os.path.join(dirpath, n) for n in files
+                  if n.endswith(".py")]
+    assert len(paths) > 15
+    for path in paths:
+        with open(path) as fh:
+            found = IMPORTS_REFERENCE.search(fh.read())
+        assert found is None, (path, found and found.group(0))
+    assert IMPORTS_REFERENCE.search("from pywfa_tpu.oracle import X")
+    assert IMPORTS_REFERENCE.search("    import pywfa_tpu")
+    assert not IMPORTS_REFERENCE.search("from pywfa_tpu_torch import batch")
