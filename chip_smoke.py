@@ -7,9 +7,11 @@ Phases (any failure raises and exits nonzero; nothing falls back):
 
 1. Device: the card's name and power limit from nvidia-smi, whether the
    native host library built and loaded; exits nonzero without CUDA.
-2. Build: compiles the fused-loop CUDA kernel (20 variants: 5 distance
-   metrics x 2 spans x 2 scopes) from the checkout; prints ptxas'
-   registers and spills per variant.
+2. Build: compiles the fused-loop CUDA kernel (52 variants: 5 distance
+   metrics x 2 spans x 2 scopes, each with and without the heuristic
+   cascade, plus the seeded ends-free span of the 3 metrics with a match
+   weight) from the checkout; prints ptxas' registers and spills per
+   variant.
 3. Each kernel variant against its plain torch version on the card, byte
    for byte, at the main paths' shapes. Gap-affine: end to end with the choice
    record, 4096 pairs of 150 bp at 2% divergence at the first rung
@@ -23,7 +25,14 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    and indel: the main pairs at each metric's first rung (W=384, 128, 256,
    256) with the record and score only, affine2p at its terminal rung
    (W=512, S_cap=649), the windows under affine2p and edit, and one
-   WavefrontAligner call a metric in both scopes. Both times by CUDA
+   WavefrontAligner call a metric in both scopes. The heuristic and
+   seeded variants: gap-affine at the first rung on the pairs of streams
+   A, B and C below (wf-adaptive, z-drop, match -1 in windows, and
+   wf-adaptive on those windows with and without the match bonus), with
+   the record and score only, and under wf-adaptive at the terminal
+   rung; affine2p under wf-adaptive at its first rung; and one
+   WavefrontAligner call for every heuristic or seeded variant of every
+   metric. Both times by CUDA
    events; beside them the bound, the least time the card could take: the
    eq words read once plus the choice levels these pairs write over 3.35
    TB/s, or the cells these pairs compute times an operation count a cell
@@ -42,7 +51,7 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    README / reference-test golden pairs, in the full and the score scope;
    every result equals the reference's numpy oracle on score, status,
    CIGAR and start/end. Prints the median ms per call.
-6. Four timed streams of 8 x 4096 pairs, alignments/s, 512 sampled pairs
+6. Four timed streams of 4 x 4096 pairs, alignments/s, 512 sampled pairs
    each equal to the oracle: gap-affine ends-free reads in windows (text
    frees of 50); gap-affine end-to-end score-only; affine2p end to end
    with full CIGARs, one pair in eight carrying a 30-60 bp indel (what
@@ -51,6 +60,24 @@ Phases (any failure raises and exits nonzero; nothing falls back):
 7. Per new metric, a probe batch that escalates to the terminal rung,
    every pair against the oracle, and WavefrontAligner on 64 single pairs
    in both scopes (48 with pywfa's defaults, 16 end to end).
+8. Four timed streams of 8 x 4096 pairs of this slice, alignments/s, 512
+   sampled pairs each equal to the oracle in every field: A, gap-affine
+   end to end under wf-adaptive 10/50/1 with one pair in eight at 15-20%
+   divergence; B, gap-affine end to end under z-drop 100 with one text in
+   eight ending in 50 unrelated bases (partial results, assembled from
+   the card's walk: with pywfa's penalties the drop mostly falls on
+   sparse wavefronts between two mismatches, on about a fifth of all
+   reads, not on the chimeric tails); C, ends-free windows with match -1 (the boundary
+   seeded at every score); D, wildcard N with 1% of bases N (the
+   token-row push).
+9. A probe batch under each of the six heuristics, escalating, every pair
+   against the oracle; and WavefrontAligner one pair a call, both scopes,
+   with heuristic="adaptive" end to end, heuristic="X-drop" on the
+   default span (edit and indel, which take no drop: "adaptive"),
+   match=-1 with and without a heuristic (the three metrics with a match
+   weight), under every metric, and wildcard="N" and
+   WF-extension under gap-affine: every heuristic and seeded variant
+   launches.
 
 Each main-path phase zeroes the kernels' launch counts and the count of
 pairs sent to the host oracle just before it and reads them just after; it
@@ -77,7 +104,13 @@ DIV = 0.02
 N_BATCHES = 8
 WINDOW = 200
 WINDOW_FREE = 50
-N_NEW_BATCHES = 8
+N_NEW_BATCHES = 4
+N_SLICE_BATCHES = 8
+N_SLICE_API = 12
+ZDROP = 100
+XDROP = 20
+CHIMERA_TAIL = 50
+N_RATE = 0.01
 N_API = 256
 N_METRIC_API = 64
 MAXS = 2**31 - 1
@@ -144,6 +177,43 @@ def make_gap_pairs(rng, n, length, divergence, share=0.125):
     return pats, txts
 
 
+def make_divergent_mix(rng, n, length, divergence, share=0.125):
+    """make_pairs, with one pair in 1/share at 15-20% divergence instead
+    (substitutions), which pass the first rung's score cap."""
+    pats, txts = make_pairs(rng, n, length, divergence)
+    for i in np.flatnonzero(rng.random(n) < share):
+        _, t = make_pairs(rng, 1, length, float(rng.uniform(0.15, 0.20)))
+        pats[i] = _[0]
+        txts[i] = t[0]
+    return pats, txts
+
+
+def make_chimeras(rng, n, length, divergence, share=0.125,
+                  tail=CHIMERA_TAIL):
+    """make_pairs, with one text in 1/share ending in `tail` bases that
+    have nothing to do with the read (a chimeric read)."""
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pats, txts = make_pairs(rng, n, length, divergence)
+    for i in np.flatnonzero(rng.random(n) < share):
+        txts[i] = (txts[i][:length - tail]
+                   + alphabet[rng.integers(0, 4, tail)].tobytes())
+    return pats, txts
+
+
+def make_n_pairs(rng, n, length, divergence, rate=N_RATE):
+    """make_pairs with a share `rate` of all bases, on both sides,
+    replaced by N."""
+    pats, txts = make_pairs(rng, n, length, divergence)
+
+    def with_n(seqs):
+        arr = np.frombuffer(b"".join(seqs), dtype=np.uint8).reshape(
+            n, length).copy()
+        arr[rng.random(arr.shape) < rate] = ord("N")
+        return [arr[i].tobytes() for i in range(n)]
+
+    return with_n(pats), with_n(txts)
+
+
 def reset_counts():
     """Zero the fused loop's launch counts, by variant, and the count of
     pairs sent to the host oracle, by reason."""
@@ -181,13 +251,36 @@ def check_fallbacks(phase, timed):
     return fb
 
 
-def metric_attr(metric, **kw):
-    """(attributes, prefix of the kernel variants' names) of a metric."""
+def metric_attr(metric, params=None, **kw):
+    """(attributes, prefix of the kernel variants' names) of a metric;
+    `params` is a HeuristicParams that replaces the attributes' own."""
     from pywfa_tpu_torch.align import WavefrontAligner
     from pywfa_tpu_torch.ops import fused_loop
     attr = WavefrontAligner(backend="numpy", distance=metric,
                             **kw)._attributes()
+    if params is not None:
+        attr = dataclasses.replace(attr, heuristic=params)
     return attr, fused_loop.METRIC_PREFIX[attr.penalties.distance_metric]
+
+
+def heuristics():
+    """The six heuristics, by name: WFA2-lib's default wf-adaptive
+    10/50/1, and parameters at which each of the others acts on 150 bp
+    reads."""
+    from pywfa_tpu_torch.attributes import HeuristicParams
+    from pywfa_tpu_torch.constants import HeuristicStrategy as HS
+    return {
+        "wfadaptive": HeuristicParams(strategy=HS.WFADAPTIVE),
+        "wfmash": HeuristicParams(strategy=HS.WFMASH,
+                                  max_distance_threshold=30),
+        "xdrop": HeuristicParams(strategy=HS.XDROP, xdrop=XDROP),
+        "zdrop": HeuristicParams(strategy=HS.ZDROP, zdrop=ZDROP),
+        "banded_static": HeuristicParams(strategy=HS.BANDED_STATIC,
+                                         min_k=-20, max_k=20),
+        "banded_adaptive": HeuristicParams(strategy=HS.BANDED_ADAPTIVE,
+                                           min_k=-15, max_k=15,
+                                           steps_between_cutoffs=2),
+    }
 
 
 def mutate(rng, p, sub, ind):
@@ -274,13 +367,15 @@ def phase_build():
     cuda_build.load()
     log(f"build: {time.perf_counter() - t0:.2f} s ({path})")
     if cuda_build.last_build is not None:
-        # one line a kernel: template arguments <metric, ends-free, record>
+        # one line a kernel: template arguments <metric, span, record,
+        # heuristic>
         name = "?"
         spills = ""
         for line in cuda_build.last_build[1].splitlines():
-            m = re.search(r"fused_loopILi(\d)ELb([01])ELb([01])E", line)
+            m = re.search(r"fused_loopILi(\d)ELi(\d)ELb([01])ELb([01])E",
+                          line)
             if m and "Compiling" in line:
-                name = "<{}, {}, {}>".format(*m.groups())
+                name = "<{}, {}, {}, {}>".format(*m.groups())
             elif "spill" in line:
                 spills = line.strip()
             elif "registers" in line:
@@ -307,7 +402,7 @@ def _device_inputs(cfg, pats, txts, dev, frees_row=(0, 0, 0, 0)):
     return bits, lens[0], lens[1], PB._to_device(frees, dev)
 
 
-def rung1_config(attr, pats, txts):
+def rung1_config(attr, pats, txts, wildcard=None):
     """The first rung the batch path picks for these pairs."""
     from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch.attributes import validate_alignment
@@ -316,7 +411,7 @@ def rung1_config(attr, pats, txts):
     attr0 = validate_alignment(attr, maxLp, maxLt)
     _, cfg, _ = PB._derive_config(attr0, PB._bucket_len(maxLp),
                                   PB._bucket_len(maxLt), min(maxLp, maxLt),
-                                  None, None, False)
+                                  None, None, False, wildcard)
     return cfg
 
 
@@ -421,6 +516,7 @@ def phase_kernel_vs_plain(attr, dev):
             m_def, _ = metric_attr(metric, scope=scope)
             shapes.append((prefix + "api_single" + tag,)
                           + api_single_inputs(m_def, *single) + (zero,))
+    shapes += slice_shapes(rng, main, term, windows, single)
     records = {}
     for name, (pats, txts), cfg, frees_row in shapes:
         args = _device_inputs(cfg, pats, txts, dev, frees_row)
@@ -462,8 +558,81 @@ def phase_kernel_vs_plain(attr, dev):
             raise AssertionError(f"{name}: kernel differs from plain version")
         records[name] = dict(variant=fused_loop.variant(cfg), err=err,
                              ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by)
+                             bound_by=b_by, B=len(pats))
     return records
+
+
+def slice_api_configs(metric):
+    """WavefrontAligner's arguments that reach the heuristic and seeded
+    kernel variants of a metric (and, under gap-affine, the wildcard and
+    WF-extension paths), by name."""
+    from pywfa_tpu_torch.constants import DistanceMetric
+    from pywfa_tpu_torch.ops import fused_loop
+    configs = {"adaptive_e2e": dict(heuristic="adaptive", span="end-to-end")}
+    seeded = [fused_loop.METRIC_PREFIX[m] for m in fused_loop.SEEDED_METRICS]
+    if metric_attr(metric)[1] in seeded:
+        configs["xdrop"] = dict(heuristic="X-drop", xdrop=XDROP)
+        configs["match"] = dict(match=-1)
+        configs["match_adaptive"] = dict(match=-1, heuristic="adaptive")
+    else:
+        # the drops do not go with edit and indel
+        configs["adaptive"] = dict(heuristic="adaptive")
+    if metric_attr(metric)[0].penalties.distance_metric == \
+            DistanceMetric.GAP_AFFINE:
+        configs["wildcard"] = dict(wildcard="N")
+        configs["extension"] = dict(extension=True)
+    return configs
+
+
+def slice_shapes(rng, main, term, windows, single):
+    """The shapes at which the heuristic and seeded variants are held
+    against the plain version: (name, pairs, config, frees row)."""
+    from pywfa_tpu_torch.ops import config as C
+    heur = heuristics()
+    zero = (0, 0, 0, 0)
+    wfree = (0, 0, WINDOW_FREE, WINDOW_FREE)
+    free_kw = dict(text_begin_free=WINDOW_FREE, text_end_free=WINDOW_FREE)
+    mix = make_divergent_mix(rng, B_MAIN, L, DIV)
+    chimeras = make_chimeras(rng, B_MAIN, L, DIV)
+    shapes = []
+
+    def both_scopes(name, pairs, cfg, frees_row):
+        shapes.append((name, pairs, cfg, frees_row))
+        shapes.append((name + "_score", pairs,
+                       dataclasses.replace(cfg, record_choices=False),
+                       frees_row))
+
+    adaptive, _ = metric_attr("affine", heur["wfadaptive"], span="end-to-end")
+    both_scopes("heur_wfadaptive_rung1", mix, rung1_config(adaptive, *mix),
+                zero)
+    zdrop, _ = metric_attr("affine", heur["zdrop"], span="end-to-end")
+    both_scopes("heur_zdrop_rung1", chimeras, rung1_config(zdrop, *chimeras),
+                zero)
+    shapes.append(("heur_wfadaptive_terminal", term,
+                   C.full_config(adaptive, 160, 160), zero))
+    seeded, _ = metric_attr("affine", match=-1, **free_kw)
+    both_scopes("seed_window", windows, rung1_config(seeded, *windows), wfree)
+    ef_heur, _ = metric_attr("affine", heur["wfadaptive"], **free_kw)
+    both_scopes("heur_endsfree_window", windows,
+                rung1_config(ef_heur, *windows), wfree)
+    seed_heur, _ = metric_attr("affine", heur["wfadaptive"], match=-1,
+                               **free_kw)
+    both_scopes("heur_seed_window", windows,
+                rung1_config(seed_heur, *windows), wfree)
+    a2p, prefix = metric_attr("affine2p", heur["wfadaptive"],
+                              span="end-to-end")
+    both_scopes(prefix + "heur_wfadaptive_rung1", mix,
+                rung1_config(a2p, *mix), zero)
+    for metric in ("affine",) + METRICS:
+        prefix = metric_attr(metric)[1]
+        for cname, kw in slice_api_configs(metric).items():
+            if cname in ("wildcard", "extension"):
+                continue  # no kernel variant of their own
+            for scope, tag in (("full", ""), ("score", "_score")):
+                attr, _ = metric_attr(metric, scope=scope, **kw)
+                shapes.append((f"{prefix}api_{cname}{tag}",)
+                              + api_single_inputs(attr, *single) + (zero,))
+    return shapes
 
 
 def phase_stream(dev):
@@ -824,6 +993,170 @@ def phase_metrics(dev):
     return total
 
 
+def slice_streams(rng, dev, n_batches):
+    """The four streams of this slice: (name, kernel variant, aligner or
+    attributes, wildcard byte, batches)."""
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    zdrop, _ = metric_attr("affine", heuristics()["zdrop"], span="end-to-end")
+    wild = BatchWavefrontAligner(span="end-to-end", wildcard="N", device=dev)
+    return [
+        ("A wfadaptive", "e2e_heur",
+         BatchWavefrontAligner(span="end-to-end", heuristic="adaptive",
+                               device=dev)._attr, None,
+         [make_divergent_mix(rng, B_MAIN, L, DIV) for _ in range(n_batches)]),
+        ("B zdrop chimeras", "e2e_heur", zdrop, None,
+         [make_chimeras(rng, B_MAIN, L, DIV) for _ in range(n_batches)]),
+        ("C windows match -1", "endsfreeseed",
+         BatchWavefrontAligner(match=-1, text_begin_free=WINDOW_FREE,
+                               text_end_free=WINDOW_FREE, device=dev)._attr,
+         None,
+         [make_windows(rng, B_MAIN, L, WINDOW, DIV)
+          for _ in range(n_batches)]),
+        ("D wildcard N", "e2e", wild._attr, wild._wildcard,
+         [make_n_pairs(rng, B_MAIN, L, DIV) for _ in range(n_batches)]),
+    ]
+
+
+def run_stream(attr, wildcard, batches, dev, depth=3):
+    from pywfa_tpu_torch import align_pairs_stream
+    return list(align_pairs_stream(attr, iter(batches), wildcard=wildcard,
+                                   depth=depth, device=dev))
+
+
+RESULT_FIELDS = ("status", "score", "ops", "end_v", "end_h", "dropped")
+
+
+def _result_fields(r):
+    return tuple(getattr(r, f) for f in RESULT_FIELDS)
+
+
+def phase_slice_streams(dev):
+    """Streams A-D through align_pairs_stream, 8 x 4096 pairs each: no
+    pair may go to the host oracle (dropped pairs are assembled from the
+    card's walk), every pair completes or comes back partial, 512 sampled
+    pairs equal the oracle in every field."""
+    from pywfa_tpu_torch import batch as PB
+    rng = np.random.default_rng(SEED + 6)
+    counts = collections.Counter()
+    for name, variant, attr, wildcard, batches in slice_streams(
+            rng, dev, N_SLICE_BATCHES):
+        run_stream(attr, wildcard, batches[:1], dev, depth=1)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = run_stream(attr, wildcard, batches, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        check_fallbacks(f"stream {name}", timed=True)
+        n = N_SLICE_BATCHES * B_MAIN
+        flat = [r for rs in results for r in rs]
+        partial = sum(r.status == 1 for r in flat)
+        dropped = sum(r.dropped for r in flat)
+        log(f"stream [{name}]: {N_SLICE_BATCHES} batches, {n} pairs in "
+            f"{wall:.3f} s = {n / wall:.0f} alignments/s "
+            f"({1e3 * wall / N_SLICE_BATCHES:.2f} ms/batch); {partial} "
+            f"partial, {dropped} dropped; launches {launched(c)}")
+        if c[variant] < N_SLICE_BATCHES:
+            raise AssertionError(f"stream {name} launched {variant} "
+                                 f"{c[variant]} times")
+        if len(flat) != n or any(r.status not in (0, 1) for r in flat):
+            raise AssertionError(f"stream {name}: not every pair completed "
+                                 "or came back partial")
+        if name.startswith("B") and dropped < n // 16:
+            raise AssertionError(f"stream {name}: {dropped} dropped pairs; "
+                                 "the stream must hold partial results")
+        if not name.startswith("B") and partial:
+            raise AssertionError(f"stream {name}: {partial} partial results")
+        pats = [p for b in batches for p in b[0]]
+        txts = [t for b in batches for t in b[1]]
+        for i in sorted(rng.choice(n, 512, replace=False).tolist()):
+            want = _result_fields(PB._oracle_one(attr, pats[i], txts[i],
+                                                 wildcard))
+            if _result_fields(flat[i]) != want:
+                raise AssertionError(f"stream {name} pair {i}: {flat[i]} vs "
+                                     f"oracle {want}")
+        log(f"oracle: stream [{name}]: 512 sampled pairs equal")
+        counts.update(c)
+    return counts
+
+
+def phase_slice_api(dev):
+    """A probe batch under each heuristic, every pair against the oracle;
+    then WavefrontAligner one pair a call under every metric with the
+    arguments of slice_api_configs, both scopes, against the numpy
+    oracle."""
+    import pywfa_tpu_torch
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
+    rng = np.random.default_rng(SEED + 7)
+    total = collections.Counter()
+    for hname, h in heuristics().items():
+        attr, _ = metric_attr("affine", h, span="end-to-end")
+        probe = make_probe(rng)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = PB.align_pairs(attr, *probe, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        fb = check_fallbacks(f"probe {hname}", timed=False)
+        if c["e2e_heur"] < 2:
+            raise AssertionError(f"probe {hname}: {c['e2e_heur']} launches; "
+                                 "the batch must escalate")
+        for i, (p, t, r) in enumerate(zip(*probe, res)):
+            want = _result_fields(PB._oracle_one(attr, p, t))
+            if _result_fields(r) != want:
+                raise AssertionError(f"probe {hname} pair {i}: {r} vs "
+                                     f"oracle {want}")
+        log(f"probe [{hname}]: {len(res)} pairs equal to the oracle in "
+            f"{1e3 * wall:.1f} ms; {c['e2e_heur']} launches; "
+            f"{sum(r.status == 1 for r in res)} partial; "
+            f"{sum(fb.values())} pairs answered by the host oracle")
+        total.update(c)
+
+    pats, txts = make_pairs(rng, N_SLICE_API // 2, L, DIV)
+    singles = list(zip(pats, txts))
+    for _ in range(N_SLICE_API - len(singles) - 2):
+        p = bytes(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, L)])
+        singles.append((p, mutate(rng, p, DIV, 0.01)))
+    # a read in a window, and a chimeric read
+    singles.append(tuple(s[0] for s in make_windows(rng, 1, 100, 140, DIV)))
+    singles.append(tuple(s[0] for s in make_chimeras(rng, 1, L, DIV, 1.0)))
+    singles = [(p.decode(), t.decode()) for p, t in singles]
+    for metric in ("affine",) + METRICS:
+        prefix = metric_attr(metric)[1]
+        reset_counts()
+        times = collections.defaultdict(list)
+        n_calls = 0
+        for cname, kw in slice_api_configs(metric).items():
+            for scope in ("full", "score"):
+                port = pywfa_tpu_torch.WavefrontAligner(
+                    distance=metric, scope=scope, device=dev, **kw)
+                ref = RefAligner(distance=metric, scope=scope,
+                                 backend="numpy", **kw)
+                for p, t in singles:
+                    if cname == "wildcard":
+                        p = p[:40] + "N" + p[41:]
+                    t0 = time.perf_counter()
+                    got = _api_fields(port(t, p))
+                    times[cname, scope].append(time.perf_counter() - t0)
+                    want = _api_fields(ref(t, p))
+                    if got != want:
+                        raise AssertionError(
+                            f"WavefrontAligner({metric}, {scope}, {kw}) "
+                            f"{p} / {t}: {got} vs oracle {want}")
+                    n_calls += 1
+        c = read_counts()
+        check_fallbacks(f"slice api {metric}", timed=True)
+        med = ", ".join(f"{cn} {sc}={1e3 * float(np.median(v)):.3f}"
+                        for (cn, sc), v in times.items())
+        log(f"slice api [{metric}]: {n_calls} calls equal to the oracle; "
+            f"median ms/call {med}; launches {launched(c)}")
+        total.update(c)
+    return total
+
+
 def main():
     phase_device()
     dev = torch.device("cuda", 0)
@@ -834,7 +1167,8 @@ def main():
     # launches of the main paths only: each phase zeroes the counts before
     # its path and reads them after it
     launches = collections.Counter()
-    for phase in (phase_stream, phase_api, phase_new_streams, phase_metrics):
+    for phase in (phase_stream, phase_api, phase_new_streams, phase_metrics,
+                  phase_slice_streams, phase_slice_api):
         launches.update(phase(dev))
     nvidia_smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -854,32 +1188,36 @@ def kernel_records(records, launches):
     held at against its plain version."""
     from pywfa_tpu_torch.ops import fused_loop
     pallas = "pywfa_tpu/ops/pallas/fused_loop.py"
-    # the Pallas lines each variant replaces: the kernel body and the
-    # score-only call for gap-affine, the metric's branch for the others
+    # the Pallas lines each variant replaces: the heuristic cascade, the
+    # ends-free match seeding, else the kernel body and the score-only
+    # call for gap-affine and the metric's branch for the others
     branch = {"": None, "affine2p_": 640, "linear_": 590, "edit_": 569,
               "indel_": 569}
-    # the shape whose times stand for the variant: the largest it was held
-    # at on a main path's inputs
-    timed_order = ("rung1", "endsfree_window", "score_rung1",
-                   "score_endsfree_window", "api_single", "api_single_score")
     kernels = []
     for variant in fused_loop.VARIANTS:
         if launches[variant] == 0:
             raise AssertionError(f"no main path launched {variant}")
         prefix = next(p for p in sorted(branch, key=len, reverse=True)
                       if variant.startswith(p))
-        held = {n: r for n, r in records.items() if r["variant"] == variant}
+        held = [r for r in records.values() if r["variant"] == variant]
         if not held:
             raise AssertionError(f"{variant} was not held against its plain "
                                  "version")
-        timed = next(held[prefix + n] for n in timed_order
-                     if prefix + n in held)
-        line = branch[prefix] or (919 if variant.endswith("_score") else 197)
+        # the shape whose times stand for the variant: the first of the
+        # largest batches it was held at on a main path's inputs
+        timed = max(held, key=lambda r: r["B"])
+        if "_heur" in variant:
+            line = 397
+        elif "endsfreeseed" in variant:
+            line = 720
+        else:
+            line = branch[prefix] or (919 if variant.endswith("_score")
+                                      else 197)
         kernels.append({
             "name": f"fused_loop_{variant}", "route": "cuda",
             "source": "pywfa_tpu_torch/csrc/fused_loop.cu",
             "replaces": f"{pallas}:{line}", "launches": launches[variant],
-            "max_abs_err": max(r["err"] for r in held.values()),
+            "max_abs_err": max(r["err"] for r in held),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": None})

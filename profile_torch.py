@@ -9,10 +9,14 @@ time unless they synchronise) and runs:
 
 - pywfa_tpu_torch.WavefrontAligner(device="cuda") with pywfa's defaults,
   one 150 bp pair per call, full and score scope (128 calls each);
-- BatchWavefrontAligner.align_stream, depth 3, 8 x 4096 pairs, twice
+- BatchWavefrontAligner.align_stream, depth 3, 4 x 4096 pairs, twice
   each: gap-affine ends-free reads in 200 bp windows (text frees 50) and
   end-to-end score-only; affine2p end to end with full CIGARs and a
-  long-gap share; levenshtein end-to-end score-only.
+  long-gap share; levenshtein end-to-end score-only;
+- align_pairs_stream, depth 3, 4 x 4096 pairs, twice each, over
+  chip_smoke.py's streams A-D: wf-adaptive with a divergent share, z-drop
+  with chimeric reads (partial results), ends-free windows with match -1,
+  wildcard N.
 
 Prints, per path, the wall per unit (call or batch) and each stage's ms
 per unit, then the device busy share of one more pass under
@@ -31,7 +35,7 @@ import torch
 
 from chip_smoke import (B_MAIN, DIV, L, N_NEW_BATCHES, SEED, WINDOW,
                         WINDOW_FREE, make_gap_pairs, make_pairs, make_windows,
-                        mutate)
+                        mutate, run_stream, slice_streams)
 
 N_CALLS = 128
 N_PROFILED_CALLS = 64
@@ -163,6 +167,15 @@ def main():
             for _ in aligner.align_stream(iter(batches), depth=3):
                 pass
 
+        for rep in range(2):
+            report(f"stream {name} rep {rep}, per {B_MAIN}-pair batch", run,
+                   len(batches))
+        busy_share(f"{len(batches)} batches", run)
+
+    for name, _, attr, wildcard, batches in slice_streams(rng, dev,
+                                                          N_NEW_BATCHES):
+        run_stream(attr, wildcard, batches[:1], dev, depth=1)
+        run = functools.partial(run_stream, attr, wildcard, batches, dev)
         for rep in range(2):
             report(f"stream {name} rep {rep}, per {B_MAIN}-pair batch", run,
                    len(batches))

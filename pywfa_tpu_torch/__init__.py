@@ -9,9 +9,11 @@ use).
 
 Covered so far: pywfa's `WavefrontAligner` and the batch and stream API
 for all five distance metrics (gap-affine, gap-affine 2-piece,
-gap-linear, edit, indel), end-to-end or ends-free (match == 0), full
-CIGAR or score only, without heuristics. Other configurations raise
-NotImplementedError naming their ROADMAP item.
+gap-linear, edit, indel), end-to-end or ends-free with or without a match
+bonus, WF-extension mode, full CIGAR or score only, with every heuristic,
+wildcards and match classes: every configuration of a short-read call
+that `pywfa_tpu` answers. Memory modes other than high and pairs past
+256 bp raise NotImplementedError naming their ROADMAP item.
 """
 from .align import (
     AlignmentResult,

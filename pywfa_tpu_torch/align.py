@@ -258,8 +258,9 @@ class WavefrontAligner:
     Extra (non-pywfa) kwargs: `backend` ("auto", "torch" or "numpy", the
     scalar oracle) and `device` ("cuda" by default, which raises when CUDA
     is absent; "cpu" runs the kernels' plain torch versions).
-    Configurations off the ported slice raise NotImplementedError naming
-    their ROADMAP item when aligning.
+    What is off the ported slice (memory modes other than high, pairs past
+    256 bp) raises NotImplementedError naming its ROADMAP item when
+    aligning.
     """
 
     def __init__(self,

@@ -7,9 +7,12 @@ device, pull one packed output array, then assemble CIGARs with the native
 match-fill (or translate scores, in the score-only scope) and escalate the
 pairs that overflowed the rung.
 
-Covered: all five distance metrics, end-to-end span or ends-free span
-with match == 0, full-CIGAR or score-only scope, exact matching, no
-heuristic, high memory mode. Every other configuration raises
+Covered: all five distance metrics, end-to-end or ends-free span with or
+without a match bonus, WF-extension mode, full-CIGAR or score-only scope,
+exact, wildcard and match-class matching, every heuristic (dropped and
+dead-end pairs come back as partial alignments assembled from the card's
+walk), high memory mode. What is left (the other memory modes, a choices
+record past the device budget, bands wider than one thread block) raises
 NotImplementedError naming its ROADMAP item. Pairs the device does not
 answer (an inconsistent walk, an overflow at the terminal rung's caps) go
 to the scalar oracle on the host and are counted in `oracle_fallbacks`.
@@ -36,6 +39,7 @@ from .attributes import (
     AlignerAttributes,
     classic_score,
     classic_score_batch,
+    match_class_table,
     validate_alignment,
 )
 from .cigar import (
@@ -67,9 +71,9 @@ TEXT_SENTINEL = C.TEXT_PAD
 
 # pairs that align_pairs_finish sent to the scalar oracle on the host, by
 # reason: a walk over the choice record that did not hold together, a pair
-# still overflowing at the terminal rung's caps, or a dropped pair with an
-# end cell (heuristics only). Callers zero it and read it to see how much of
-# a batch the device did not answer.
+# still overflowing at the terminal rung's caps, or a dropped pair whose
+# walk did not hold together. Callers zero it and read it to see how much
+# of a batch the device did not answer.
 oracle_fallbacks = {"inconsistent walk": 0, "overflow at full caps": 0,
                     "dropped": 0}
 
@@ -148,29 +152,49 @@ def _encode_side(seqs, L, chunk, sentinel, lens):
 
 
 def _match_fill(pattern: bytes, text: bytes, ops_fwd: np.ndarray,
-                k_start: int, plen: int, tlen: int) -> str:
+                k_start: int, plen: int, tlen: int,
+                wildcard: Optional[int] = None, cap_h: Optional[int] = None,
+                mtbl: Optional[np.ndarray] = None) -> str:
     """Expand a (sparse, forward-order) walk-op stream into per-base ops,
     re-deriving each match run by greedy forward extension (exact, since
     stored offsets are maximally extended). The pure-Python twin of the
-    native match-fill, used when the native library is unavailable."""
+    native match-fill, used when the native library is unavailable and
+    with match classes (`mtbl`, the class-mask table: two bytes match when
+    their masks intersect). `wildcard` matches any byte.
+
+    cap_h: for a dropped pair's partial walk the FINAL run is forced to
+    max(0, cap_h - h) match ops with no equality check, as the reference
+    backtraces from the recorded historic-maximum offset, which may be
+    stale against the drop score's wavefront."""
     pa = np.frombuffer(pattern, dtype=np.uint8)
     ta = np.frombuffer(text, dtype=np.uint8)
     v, h = (0, int(k_start)) if k_start >= 0 else (-int(k_start), 0)
     parts: List[str] = ["I" * h, "D" * v]
 
-    def extend() -> None:
+    def extend(final: bool) -> None:
         nonlocal v, h
-        n = min(plen - v, tlen - h)
-        if n <= 0:
-            return
-        eq = pa[v: v + n] == ta[h: h + n]
-        run = n if eq.all() else int(np.argmin(eq))
+        if final and cap_h is not None:
+            run = max(0, cap_h - h)
+        else:
+            n = min(plen - v, tlen - h)
+            if n <= 0:
+                return
+            a, b = pa[v: v + n], ta[h: h + n]
+            if mtbl is not None:
+                eq = (mtbl[a] & mtbl[b]) != 0
+            else:
+                eq = a == b
+                if wildcard is not None:
+                    eq = eq | (a == wildcard) | (b == wildcard)
+            run = n if eq.all() else int(np.argmin(eq))
         parts.append("M" * run)
         v += run
         h += run
 
-    extend()  # start-cell extension
-    for tok in ops_fwd[ops_fwd != 0].tolist():
+    toks = ops_fwd[ops_fwd != 0].tolist()
+    last_i = len(toks) - 1
+    extend(last_i < 0)  # start-cell extension
+    for i, tok in enumerate(toks):
         op = tok & 3
         if op == C.WOP_X:
             parts.append("X")
@@ -183,15 +207,19 @@ def _match_fill(pattern: bytes, text: bytes, ops_fwd: np.ndarray,
             parts.append("D")
             v += 1
         if tok & C.WOP_MFLAG:
-            extend()
+            extend(i == last_i)
     return "".join(parts)
 
 
-def _native_fill(clean_idx, pat_np, txt_np, plens, tlens, end_k, end_off,
-                 ops_fwd, k_start) -> dict:
-    """Batched C++ match-fill for the clean pairs; {} if the native library
-    is unavailable."""
-    if native.lib() is None:
+def _native_fill(cfg, clean_idx, pat_np, txt_np, plens, tlens, end_k,
+                 end_off, ops_fwd, k_start, wildcard,
+                 capped: bool = False) -> dict:
+    """Batched C++ match-fill for the given pairs; {} if the native library
+    is unavailable or the config matches by classes (the native fill
+    compares raw bytes and the wildcard only). capped=True forces each
+    pair's final run to its recorded end offset (dropped pairs' partial
+    walks; see _match_fill's cap_h)."""
+    if native.lib() is None or cfg.match_classes:
         return {}
     idx = np.asarray(clean_idx)
     if len(idx) == pat_np.shape[0]:
@@ -209,7 +237,9 @@ def _native_fill(clean_idx, pat_np, txt_np, plens, tlens, end_k, end_off,
         sel(pat_np).view(np.uint8), sel(plens).astype(np.int64),
         sel(txt_np).view(np.uint8), sel(tlens).astype(np.int64),
         (sel(tlens) - eh).astype(np.int64),
-        (sel(plens) - ev).astype(np.int64), -1)
+        (sel(plens) - ev).astype(np.int64),
+        int(wildcard) if wildcard is not None else -1,
+        caps=(eh if capped else None))
     if res is None:
         return {}
     out, out_lens = res
@@ -260,21 +290,24 @@ def _clamp_frees(attr: AlignerAttributes, plen: int, tlen: int
         text_end_free=min(f.text_end_free, tlen)))
 
 
-def _oracle_one(attr: AlignerAttributes, pattern: bytes, text: bytes
-                ) -> BatchResult:
+def _oracle_one(attr: AlignerAttributes, pattern: bytes, text: bytes,
+                wildcard: Optional[int] = None) -> BatchResult:
     """Exact oracle fallback for one pair, with its ends-free slack
     clamped to its own lengths."""
     attr = _clamp_frees(attr, len(pattern), len(text))
-    r = OracleAligner(attr).align(pattern, text)
+    r = OracleAligner(attr, wildcard).align(pattern, text)
     return BatchResult(r.status, r.score, r.ops, r.end_v, r.end_h,
                        r.wf_score, r.dropped)
 
 
 def _unreachable_result(pen, scope_full: bool, wf_s: int, end_k: int,
-                        end_off: int) -> BatchResult:
-    """Result of an infeasible pair. Without a heuristic no end position is
-    recorded and no walk runs: the score-only scope reports the score of
-    the null end cell, the full scope an empty, max-trimmed partial."""
+                        end_off: int, ops: str) -> BatchResult:
+    """Result of a dropped or unreachable pair. A z-dropped pair carries
+    the historic maximum's end position; a heuristic dead end carries none
+    (the null diagonal and offset stand in). `ops` is the match-filled op
+    string of the walk ('' when no walk ran). The score-only scope reports
+    the score of the end cell; the full scope trims the ops to their
+    best-scoring prefix and is always a partial alignment."""
     if end_off <= OFFSET_NULL // 2:
         end_k, end_off = DIAGONAL_NULL, OFFSET_NULL
     if not scope_full:
@@ -282,16 +315,28 @@ def _unreachable_result(pen, scope_full: bool, wf_s: int, end_k: int,
         return BatchResult(STATUS_ALG_PARTIAL,
                            classic_score(pen, ev, end_off, wf_s), "", ev,
                            end_off, wf_s, True)
-    cig = Cigar(ops="")
+    cig = Cigar(ops=ops)
     cigar_maxtrim(cig, pen)
     return BatchResult(STATUS_ALG_PARTIAL, cig.score, cig.ops, cig.end_v,
                        cig.end_h, wf_s, True)
 
 
+def _maxtrim_result(pen, sc: int, ops: str, ev: int, eh: int, wf_s: int
+                    ) -> BatchResult:
+    """WF-extension mode: a completed alignment is trimmed to its
+    best-scoring prefix; trimmed, it is a partial alignment."""
+    cig = Cigar(ops=ops, score=sc, end_v=ev, end_h=eh)
+    trimmed = cigar_maxtrim(cig, pen)
+    status = STATUS_ALG_PARTIAL if trimmed else STATUS_ALG_COMPLETED
+    return BatchResult(status, cig.score, cig.ops, cig.end_v, cig.end_h,
+                       wf_s, False)
+
+
 def _build_frees(attr0, B: int, plens: np.ndarray, tlens: np.ndarray
                  ) -> np.ndarray:
     """Per-pair ends-free slack [B, 4] (pattern_begin, pattern_end,
-    text_begin, text_end), clamped to each pair's lengths."""
+    text_begin, text_end), clamped to each pair's lengths. WF-extension
+    mode presets every pair: begin 0, end = its length."""
     form = attr0.form
     if form.span != AlignmentSpan.ENDS_FREE:
         return np.zeros((B, 4), dtype=np.int32)
@@ -316,7 +361,11 @@ def _band_for_score(attr, S: int, maxLp: int, maxLt: int) -> int:
     """Band width sufficient for any alignment of score <= S: the band
     grows at most one diagonal per side per gap-extension step, plus the
     target-diagonal offset, padded like full_config. Undersized bands are
-    safe: overflow reports ST_OVERFLOW_W and the pair escalates."""
+    safe: overflow reports ST_OVERFLOW_W and the pair escalates. A
+    band-limiting heuristic bounds the live band whatever the score, and
+    the kernel's step costs what the static W costs, so W is capped by the
+    heuristic's own bound. Ends-free begin frees seed [-pattern_begin_free,
+    text_begin_free], a floor on the band (WF-extension has none)."""
     pen = attr.penalties
     pad = pen.max_score_scope + 4
     m = pen.distance_metric
@@ -366,26 +415,8 @@ def _bucket_B(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def _check_slice(attr0: AlignerAttributes, wildcard) -> None:
+def _check_slice(attr0: AlignerAttributes) -> None:
     """Raise NotImplementedError for configurations off the ported slice."""
-    pen = attr0.penalties
-    form = attr0.form
-    if form.span == AlignmentSpan.ENDS_FREE and form.extension:
-        raise NotImplementedError(
-            "WF-extension mode is not ported yet (ROADMAP queue 1 item 5)")
-    if form.span == AlignmentSpan.ENDS_FREE and pen.match != 0:
-        raise NotImplementedError(
-            "ends-free alignment with a match bonus seeds the boundary at "
-            "every score (ef_seeding) and is not ported yet (ROADMAP queue "
-            "2 item 7)")
-    if int(attr0.heuristic.strategy) != 0:
-        raise NotImplementedError(
-            "heuristics are not ported yet (ROADMAP queue 1 item 5, "
-            "queue 2 item 6)")
-    if wildcard is not None or attr0.match_classes:
-        raise NotImplementedError(
-            "wildcards and match classes are not ported yet (ROADMAP "
-            "queue 1 item 5)")
     if attr0.memory_mode != MemoryMode.HIGH:
         raise NotImplementedError(
             "memory modes other than high are not ported yet (ROADMAP "
@@ -394,7 +425,7 @@ def _check_slice(attr0: AlignerAttributes, wildcard) -> None:
 
 @functools.lru_cache(maxsize=512)
 def _derive_config(attr0, Lp: int, Lt: int, min_len: int, W, S_cap,
-                   escalated: bool):
+                   escalated: bool, wildcard: Optional[int] = None):
     """(full_probe, cfg, at_full_caps) of one rung: the optimistic first
     rung scaled to the read length, or the caps the escalation asked for,
     with the compacted op output below the terminal rung in the full-CIGAR
@@ -407,8 +438,9 @@ def _derive_config(attr0, Lp: int, Lt: int, min_len: int, W, S_cap,
         S_cap = min(S0, full_probe.S_cap)
         W = min(full_probe.W,
                 C._round_up(_band_for_score(attr0, S_cap, Lp, Lt), 128))
-    cfg = C.full_config(attr0, Lp, Lt, W=W, S_cap=S_cap,
-                        record_choices=scope_full)
+    cfg = C.full_config(attr0, Lp, Lt,
+                        wildcard=-1 if wildcard is None else wildcard,
+                        W=W, S_cap=S_cap, record_choices=scope_full)
     at_full_caps = cfg.S_cap >= full_probe.S_cap and cfg.W >= full_probe.W
     if scope_full and not at_full_caps:
         # pairs with more ops than ops_out re-run at the next rung, where
@@ -423,7 +455,8 @@ class _Inflight:
     """A dispatched batch: device work enqueued, host assembly pending."""
 
     __slots__ = ("results", "attr", "attr0", "cfg", "full_probe",
-                 "patterns", "texts", "plens", "tlens", "pat_np", "txt_np",
+                 "patterns", "texts", "wildcard", "plens", "tlens", "pat_np",
+                 "txt_np",
                  "max_steps_i", "scope_full", "at_full_caps", "Lp", "Lt",
                  "maxLp", "maxLt", "B", "B0", "device", "out_host", "event",
                  "packed_np")
@@ -499,12 +532,12 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
     # mixed-length batches pass; _build_frees clamps it per pair
     attr = _clamp_frees(attr, maxLp, maxLt)
     attr0 = validate_alignment(attr, maxLp, maxLt)
-    _check_slice(attr0, wildcard)
+    _check_slice(attr0)
     scope_full = attr0.scope == AlignmentScope.COMPUTE_ALIGNMENT
     Lp = max(Lp or 0, _bucket_len(maxLp))
     Lt = max(Lt or 0, _bucket_len(maxLt))
     full_probe, cfg, at_full_caps = _derive_config(
-        attr0, Lp, Lt, min(maxLp, maxLt), W, S_cap, _escalated)
+        attr0, Lp, Lt, min(maxLp, maxLt), W, S_cap, _escalated, wildcard)
     if scope_full and cfg.S_cap * B * cfg.W > CHOICES_BYTES_CAP:
         raise NotImplementedError(
             f"the choices record ({cfg.S_cap}x{B}x{cfg.W} bytes) exceeds "
@@ -546,7 +579,7 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
     else:
         h.out_host = out_d
     h.attr, h.attr0, h.cfg, h.full_probe = attr, attr0, cfg, full_probe
-    h.patterns, h.texts = patterns, texts
+    h.patterns, h.texts, h.wildcard = patterns, texts, wildcard
     h.plens, h.tlens, h.pat_np, h.txt_np = plens, tlens, pat_np, txt_np
     h.max_steps_i = max_steps_i
     h.scope_full, h.at_full_caps = scope_full, at_full_caps
@@ -569,8 +602,9 @@ def align_pairs_pull(h: _Inflight) -> _Inflight:
 def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
     """Phase 2: decode the packed output, assemble CIGARs (native
     match-fill) or, in the score-only scope, translate the scores;
-    escalate the pairs that overflowed the rung and send inconsistent
-    walks to the oracle."""
+    assemble dropped and dead-end pairs as partial alignments from their
+    walk; escalate the pairs that overflowed the rung and send
+    inconsistent walks to the oracle."""
     if h.results is not None:
         return h.results
     packed = align_pairs_pull(h).packed_np
@@ -601,11 +635,27 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
         status, final_s, end_k, end_off, n_ops, k_start = meta[:6]
         fb = meta[6] != 0
 
+    wildcard = h.wildcard
+    mtbl = (match_class_table(cfg.match_classes) if cfg.match_classes
+            else None)
     clean_np = (status == C.ST_END_REACHED) & ~fb
-    clean_idx = np.flatnonzero(clean_np).tolist()
-    native_ops = (_native_fill(clean_idx, h.pat_np, h.txt_np, plens, tlens,
-                               end_k, end_off, ops_fwd, k_start)
-                  if clean_idx and scope_full else {})
+    native_ops: dict = {}
+    if scope_full:
+        clean_idx = np.flatnonzero(clean_np).tolist()
+        if clean_idx:
+            native_ops = _native_fill(cfg, clean_idx, h.pat_np, h.txt_np,
+                                      plens, tlens, end_k, end_off, ops_fwd,
+                                      k_start, wildcard)
+        # dropped pairs with a walked backtrace: the same batched fill,
+        # the final run forced to the recorded historic-maximum offset
+        part_idx = np.flatnonzero(
+            (status == C.ST_END_UNREACHABLE) & ~fb
+            & (end_off > C.NULL_THRESHOLD) & ((end_off - end_k) > 0)
+            & (end_off > 0)).tolist()
+        if part_idx:
+            native_ops.update(_native_fill(
+                cfg, part_idx, h.pat_np, h.txt_np, plens, tlens, end_k,
+                end_off, ops_fwd, k_start, wildcard, capped=True))
     ev_a = end_off - end_k
     eh_a = end_off
     if scope_full:
@@ -616,7 +666,9 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
     ev_l = ev_a.tolist()
     eh_l = eh_a.tolist()
 
-    if scope_full and len(native_ops) == B and bool(clean_np.all()):
+    extension = h.attr0.form.extension
+    if (scope_full and not extension and len(native_ops) == B
+            and bool(clean_np.all())):
         # the common batch: every pair completed and was filled natively
         return [BatchResult(STATUS_ALG_COMPLETED, sc, native_ops[b], ev, eh,
                             s, False)
@@ -640,14 +692,19 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
             ops = native_ops.get(b)
             if ops is None:
                 ops = _match_fill(h.patterns[b], h.texts[b], ops_fwd[b],
-                                  int(k_start[b]), plens_l[b], tlens_l[b])
+                                  int(k_start[b]), plens_l[b], tlens_l[b],
+                                  wildcard, mtbl=mtbl)
                 # ends-free: the trailing free ops, the I block first
                 if eh < tlens_l[b]:
                     ops += "I" * (tlens_l[b] - eh)
                 if ev < plens_l[b]:
                     ops += "D" * (plens_l[b] - ev)
-            results[b] = BatchResult(STATUS_ALG_COMPLETED, sc_a[b], ops,
-                                     ev, eh, final_s_l[b], False)
+            if extension:
+                results[b] = _maxtrim_result(pen, sc_a[b], ops, ev, eh,
+                                             final_s_l[b])
+            else:
+                results[b] = BatchResult(STATUS_ALG_COMPLETED, sc_a[b], ops,
+                                         ev, eh, final_s_l[b], False)
         elif st == C.ST_MAX_STEPS:
             results[b] = BatchResult(STATUS_MAX_STEPS_REACHED,
                                      -h.max_steps_i, "", 0, 0,
@@ -656,15 +713,40 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
               and not h.at_full_caps):
             escalate_idx.append(b)
         elif st == C.ST_END_UNREACHABLE and (
-                not scope_full
-                or (not fb_l[b] and int(end_off[b]) <= OFFSET_NULL // 2)):
+                not fb_l[b] or (scope_full and int(n_ops[b]) == 0)):
+            # a dropped pair (z-drop) or a heuristic dead end, assembled
+            # from the card's walk
+            eoff = eh_l[b]
+            ops = ""
+            if scope_full and eoff > C.NULL_THRESHOLD:
+                ev, eh = ev_l[b], eh_l[b]
+                if fb_l[b] or ev <= 0 or eh <= 0:
+                    # the end cell lies on the matrix boundary, or every
+                    # backtrace candidate was null at the end cell itself:
+                    # the reference's loop leaves at once and writes the
+                    # forced beginning fill
+                    nm = min(ev, eh)
+                    ops = ("I" * (eh - nm) + "D" * (ev - nm) + "M" * nm
+                           + "I" * (tlens_l[b] - eh)
+                           + "D" * (plens_l[b] - ev))
+                elif b in native_ops:
+                    ops = native_ops[b]
+                else:
+                    ops = _match_fill(h.patterns[b], h.texts[b], ops_fwd[b],
+                                      int(k_start[b]), plens_l[b],
+                                      tlens_l[b], wildcard, cap_h=eh,
+                                      mtbl=mtbl)
+                    if eh < tlens_l[b]:
+                        ops += "I" * (tlens_l[b] - eh)
+                    if ev < plens_l[b]:
+                        ops += "D" * (plens_l[b] - ev)
             results[b] = _unreachable_result(pen, scope_full, final_s_l[b],
-                                             int(end_k[b]), int(end_off[b]))
+                                             int(end_k[b]), eoff, ops)
         else:
             # -> exact oracle, counted by reason
             if st in (C.ST_OVERFLOW_W, C.ST_OVERFLOW_S):
                 oracle_fallbacks["overflow at full caps"] += 1
-            elif st == C.ST_END_UNREACHABLE and not fb_l[b]:
+            elif st == C.ST_END_UNREACHABLE:
                 oracle_fallbacks["dropped"] += 1
             else:
                 oracle_fallbacks["inconsistent walk"] += 1
@@ -681,19 +763,21 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
         if next_S >= h.full_probe.S_cap:
             next_W, next_S = None, None  # terminal rung: worst-case caps
         else:
-            # at least 2x band growth per rung, so W-overflow pairs never
+            # at least 2x band growth per rung: a heuristic-capped band
+            # does not grow with the score, and W-overflow pairs must not
             # re-run at an unchanged width
             next_W = min(h.full_probe.W, C._round_up(
                 max(_band_for_score(h.attr0, next_S, h.maxLp, h.maxLt),
                     cfg.W * 2), 128))
         sub = align_pairs(h.attr, [h.patterns[b] for b in escalate_idx],
-                          [h.texts[b] for b in escalate_idx],
+                          [h.texts[b] for b in escalate_idx], wildcard,
                           W=next_W, S_cap=next_S, Lp=h.Lp, Lt=h.Lt,
                           device=h.device, _escalated=True)
         for b, r in zip(escalate_idx, sub):
             results[b] = r
     for b in oracle_idx:
-        results[b] = _oracle_one(h.attr, h.patterns[b], h.texts[b])
+        results[b] = _oracle_one(h.attr, h.patterns[b], h.texts[b],
+                                 wildcard)
     return results[:h.B0]  # type: ignore[return-value]
 
 
@@ -702,8 +786,10 @@ class BatchWavefrontAligner:
 
     Configuration kwargs are those of `WavefrontAligner`, with its pywfa
     defaults (gap-affine 0/4/6/2, ends-free span with zero frees, full
-    scope); configurations off the ported slice raise NotImplementedError
-    naming their ROADMAP item when aligning. `device` defaults to "cuda"
+    scope), heuristics, wildcard, match classes and WF-extension mode
+    included; what is still off the ported slice (memory modes other than
+    high, pairs past 256 bp) raises NotImplementedError naming its ROADMAP
+    item when aligning. `device` defaults to "cuda"
     and raises when CUDA is absent; "cpu" runs the plain torch versions of
     the kernels. W and S_cap pin the first rung's band and score cap.
     """
@@ -753,5 +839,5 @@ class BatchWavefrontAligner:
         bp = [unpack2bits(p, n)
               for p, n in zip(packed_patterns, pattern_lengths)]
         bt = [unpack2bits(t, n) for t, n in zip(packed_texts, text_lengths)]
-        return align_pairs(self._attr, bp, bt, W=self._W, S_cap=self._S_cap,
-                           device=self._device)
+        return align_pairs(self._attr, bp, bt, wildcard=self._wildcard,
+                           W=self._W, S_cap=self._S_cap, device=self._device)

@@ -1,11 +1,13 @@
 // Fused whole-alignment WFA score loop for Hopper (sm_90a): all five
 // distance metrics (gap-affine, gap-affine 2-piece, gap-linear, edit,
-// indel), end-to-end or ends-free span (match == 0), full-CIGAR choice
-// recording or score only, no heuristic.
+// indel), end-to-end or ends-free span (with a match bonus too: the
+// boundary is then seeded at every score divisible by -match), full-CIGAR
+// choice recording or score only, and the heuristic cascade (wf-adaptive,
+// wfmash, x-drop, z-drop, banded static and adaptive).
 //
 // Replaces pywfa_tpu/ops/pallas/fused_loop.py::_kernel (every metric's
-// branch, without heuristics or ends-free match seeding) and both of its
-// pallas_calls: the recording one and the score-only one. The plain torch
+// branch, the heuristic cascade and the ends-free match seeding) and both
+// of its pallas_calls: the recording one and the score-only one. The plain torch
 // version of the same program is
 // pywfa_tpu_torch/ops/fused_loop.py::align_batch_fused_loop_ref; both
 // produce byte-identical status, final_s, end_k, end_off and choices.
@@ -25,19 +27,33 @@
 // warp reductions plus a shared-memory pass over the warps' partials.
 // Each block leaves its loop as soon as its own pair is done.
 //
-// Three template parameters select the variant. kMetric picks the step:
+// Four template parameters select the variant. kMetric picks the step:
 // gap-affine computes M, I1, D1 from M at s+1-x and s+1-(o+e) and I1/D1 at
 // s+1-e; the 2-piece metric adds I2, D2 with their own distances and the
 // five-way priority X > D2 > D1 > I2 > I1, with extend bits 5-6 in the
 // choice byte; gap-linear has M alone, mismatch from s+1-x and both gaps
 // from s+1-indel; edit and indel have M alone and take every candidate
 // from s (indel has no mismatch), and end a pair whose wavefront came out
-// empty at the next step instead of counting null steps. kEndsFree seeds
-// WF0 with the begin-free diagonals [-pattern_begin_free, text_begin_free]
-// and ends at the lowest diagonal whose cell reached an end-free boundary:
-// each warp ballots its hits, __ffs picks the warp's lowest, and a pass over
-// the warps' partials in shared memory picks the block's. kRecord = false
-// is the score-only scope: no choice bytes, no choices pointer.
+// empty at the next step instead of counting null steps. kSpan is the
+// span: end to end; ends-free with match == 0, which seeds WF0 with the
+// begin-free diagonals [-pattern_begin_free, text_begin_free]; or
+// ends-free with a match bonus, where WF0 is the single cell k = 0 and
+// every score s with s % -match == 0 seeds the cells k = s / -match and
+// k = -s / -match while the begin frees reach that far, as a wavefront of
+// the seeds alone on a null step. Both ends-free spans end at the lowest
+// diagonal whose cell reached an end-free boundary: each warp ballots its
+// hits, __ffs picks the warp's lowest, and a pass over the warps' partials
+// in shared memory picks the block's. kRecord = false is the score-only
+// scope: no choice bytes, no choices pointer. kHeur compiles the heuristic
+// cascade in, between the termination and the compute of s + 1: the
+// strategy bits and parameters are kernel arguments, and since one block
+// is one pair every branch of the cascade is uniform over the block, so
+// its block reductions (a warp reduction, one partial a warp in shared
+// memory, a barrier, a fold) sit behind branches that most steps skip.
+// The cascade prunes the band of M at score s in registers, then installs
+// it in the ring and cuts every gap component's row of score s to it; the
+// bands of those rows are kept in registers, so the install reads no
+// shared lo/hi pair that another thread writes.
 //
 // What bounds it: the per-step __syncthreads latency (two barriers per
 // score step, a few hundred steps at most), not bytes. The choices record
@@ -66,6 +82,20 @@ constexpr int kEdit = 3;
 constexpr int kIndel = 4;
 constexpr int kMaxComps = 5;  // M, I1, D1, I2, D2
 
+// kSpan values (pywfa_tpu_torch/ops/fused_loop.py::SPANS)
+constexpr int kEndToEnd = 0;
+constexpr int kEndsFreeWf0 = 1;  // match == 0: the begin frees seed WF0
+constexpr int kSeeded = 2;       // match != 0: seeds at every -match score
+
+// HeuristicStrategy bits
+constexpr int kBandedStatic = 1;
+constexpr int kBandedAdaptive = 2;
+constexpr int kWfAdaptive = 4;
+constexpr int kXdrop = 8;
+constexpr int kZdrop = 16;
+constexpr int kWfMash = 32;
+constexpr int kHeurReductions = 7;  // partial rows of the cascade
+
 __host__ __device__ constexpr int n_comps(int metric) {
   return metric == kAffine ? 3 : (metric == kAffine2p ? 5 : 1);
 }
@@ -82,6 +112,7 @@ constexpr int MSRC_I1 = 2;
 constexpr int MSRC_D1 = 3;
 constexpr int MSRC_I2 = 4;
 constexpr int MSRC_D2 = 5;
+constexpr int MSRC_SEED = 7;
 
 constexpr int M = 0;
 constexpr int I1 = 1;
@@ -97,6 +128,13 @@ struct Params {
   uint8_t* choices;      // [S_cap, B, W], zero on entry; unused unless kRecord
   int32_t* res;          // [4, B]: status, final_s, end_k, end_off
   int B, W, NQ, S_cap, scope, max_steps;
+  // the heuristic cascade (read when kHeur): HeuristicStrategy bits and
+  // their parameters; swg_match is the match weight of the drop
+  // heuristics' Smith-Waterman score
+  int strategy, min_wf_len, max_dist, steps_between, xdrop, zdrop;
+  int band_min_k, band_max_k, swg_match;
+  // ends-free match seeding: -match (read when kSpan == kSeeded)
+  int seed_div;
   // score distances from s + 1 back to the source wavefronts: M for a
   // mismatch; M opening and I1/D1 extending gap piece 1 (gap-linear: its
   // indel penalty, nothing extends); the same for piece 2
@@ -171,10 +209,47 @@ __device__ __forceinline__ int one_comp_source(int pm) {
                                                           : MSRC_NONE));
 }
 
-template <int kMetric, bool kEndsFree, bool kRecord>
+// Block reductions of the cascade: every thread posts its value (each
+// warp's lane 0 writes the warp's partial into a row of 32 ints that the
+// reduction owns), the caller places one __syncthreads, and every thread
+// folds the row.
+__device__ __forceinline__ void post_min(int* row, int v, int lane,
+                                         int warp) {
+  v = __reduce_min_sync(0xFFFFFFFFu, v);
+  if (lane == 0) row[warp] = v;
+}
+
+__device__ __forceinline__ void post_max(int* row, int v, int lane,
+                                         int warp) {
+  v = __reduce_max_sync(0xFFFFFFFFu, v);
+  if (lane == 0) row[warp] = v;
+}
+
+__device__ __forceinline__ int fold_min(const int* row, int nwarps) {
+  int r = row[0];
+  for (int i = 1; i < nwarps; ++i) r = min(r, row[i]);
+  return r;
+}
+
+__device__ __forceinline__ int fold_max(const int* row, int nwarps) {
+  int r = row[0];
+  for (int i = 1; i < nwarps; ++i) r = max(r, row[i]);
+  return r;
+}
+
+// wfmash's length-normalised distance, float32 in a fixed order: divide,
+// multiply, truncate (saturating, NaN to 0); nothing contracts
+__device__ __forceinline__ int mash_dist(int left, int len, float mfactor) {
+  return __float2int_rz(__fmul_rn(
+      __fdiv_rn(__int2float_rn(left), __int2float_rn(len)), mfactor));
+}
+
+template <int kMetric, int kSpan, bool kRecord, bool kHeur>
 __global__ void fused_loop(Params p) {
   constexpr int kComps = n_comps(kMetric);
   constexpr bool kEditLike = kMetric == kEdit || kMetric == kIndel;
+  constexpr bool kEndsFree = kSpan != kEndToEnd;
+  constexpr bool kSeeding = kSpan == kSeeded;
   extern __shared__ int smem[];
   const int W = p.W;
   const int scope = p.scope;
@@ -182,6 +257,7 @@ __global__ void fused_loop(Params p) {
   int* lohi = off + p.rows * W;           // [rows][2]
   int* red = lohi + p.rows * 2;           // [2 * kComps][32] trim partials
   int* term = red + 2 * kComps * 32;      // [32] ends-free hit partials
+  int* hred = term + 32;  // [kHeurReductions][32] cascade partials (kHeur)
 
   const int w = threadIdx.x;
   const int b = blockIdx.x;
@@ -201,13 +277,19 @@ __global__ void fused_loop(Params p) {
   // WF0: M at score 0 holds the begin-free seeds, diagonals
   // [-pattern_begin_free, text_begin_free] at offset max(k, 0); without
   // the ends-free span only k = 0, offset 0
-  int wf0_lo = 0, wf0_hi = 0, pef = 0, tef = 0;
+  // with a match bonus (kSeeding) WF0 is k = 0 alone and the begin frees
+  // seed later scores
+  int wf0_lo = 0, wf0_hi = 0, pbf = 0, pef = 0, tbf = 0, tef = 0;
   if (kEndsFree) {
     const int32_t* fr = p.frees + 4 * static_cast<size_t>(b);
-    wf0_lo = -fr[0];
+    pbf = fr[0];
     pef = fr[1];
-    wf0_hi = fr[2];
+    tbf = fr[2];
     tef = fr[3];
+    if (!kSeeding) {
+      wf0_lo = -pbf;
+      wf0_hi = tbf;
+    }
   }
   for (int i = 0; i < p.rows; ++i) off[i * W + w] = kNull;
   off[w] = (k >= wf0_lo && k <= wf0_hi) ? max(k, 0) : kNull;  // M, score 0
@@ -221,9 +303,22 @@ __global__ void fused_loop(Params p) {
   int s = 0, status = 0, final_s = 0, end_k = 0, end_off = kNull;
   int nnull = 0;
   // seeds past the band: the pair escalates before its first step
-  bool done = kEndsFree && (wf0_lo < kmin + 2 || wf0_hi > kmin + W - 3);
+  bool done = kSpan == kEndsFreeWf0 &&
+              (wf0_lo < kmin + 2 || wf0_hi > kmin + W - 3);
   if (done) status = ST_OVERFLOW_W;
   int m_lo = wf0_lo, m_hi = wf0_hi;  // band of M at score s
+  // bands of the gap components' rows of score s (read by the cascade)
+  int g_lo[kComps], g_hi[kComps];
+#pragma unroll
+  for (int c = 0; c < kComps; ++c) {
+    g_lo[c] = 1;
+    g_hi[c] = -1;
+  }
+  // the cascade's carry: steps to the next cutoff, and the historic
+  // maximum of the drop heuristics (its score, diagonal, offset)
+  int h_wait = p.steps_between;
+  int hm_sw = 0, hm_k = 0, hm_off = kNull;
+  bool hm_valid = false;
   // each component's ring slot of score s (s % depth, without the modulo)
   int slot[kComps];
 #pragma unroll
@@ -292,6 +387,163 @@ __global__ void fused_loop(Params p) {
         end_off = tlen;
         done = true;
         break;
+      }
+    }
+
+    // --- heuristic cascade: prune the band of M[s] before the compute
+    // reads it. Every condition below is uniform over the block. ---
+    if constexpr (kHeur) {
+      if (!m_null) {
+        --h_wait;
+        int cur_lo = m_lo, cur_hi = m_hi;
+        const int st = p.strategy;
+        if ((st & (kWfAdaptive | kWfMash)) && h_wait <= 0 &&
+            cur_hi - cur_lo + 1 >= p.min_wf_len) {
+          // wf-adaptive / wfmash: keep the diagonals within max_dist of
+          // the least distance to the end, cutting from below up to the
+          // end diagonal and from above down to it
+          const bool hband = k >= cur_lo && k <= cur_hi;
+          int dist = -kNull;
+          if (m_off >= 0) {
+            const int v = m_off - k;
+            if (st & kWfMash) {
+              const float mfactor =
+                  __fdiv_rn(__int2float_rn(plen + tlen), 2.0f);
+              dist = max(mash_dist(plen - v, plen, mfactor),
+                         mash_dist(tlen - m_off, tlen, mfactor));
+            } else {
+              dist = max(plen - v, tlen - m_off);
+            }
+          }
+          post_min(hred, hband ? dist : max(plen, tlen), lane, warp);
+          __syncthreads();
+          const int mind = fold_min(hred, nwarps);
+          const bool keep = hband && dist - mind <= p.max_dist;
+          const int ak = tlen - plen;
+          const int top_limit = min(ak, cur_hi);
+          // the highest kept diagonal above ak is the highest above
+          // max(ak, new lo) too, if any is
+          post_min(hred + 32, keep && k < top_limit ? w : W, lane, warp);
+          post_max(hred + 64, keep && k > ak ? w : -1, lane, warp);
+          __syncthreads();
+          const int first = fold_min(hred + 32, nwarps);
+          const int last = fold_max(hred + 64, nwarps);
+          const int lo_red = first < W ? first + kmin : max(top_limit, cur_lo);
+          const int new_lo = max(lo_red, cur_lo);
+          const int bot_limit = max(ak, new_lo);
+          const int hi_red = (last >= 0 && last + kmin > bot_limit)
+                                 ? last + kmin
+                                 : min(bot_limit, cur_hi);
+          cur_hi = min(hi_red, cur_hi);
+          cur_lo = new_lo;
+          h_wait = p.steps_between;
+        }
+        if ((st & (kXdrop | kZdrop)) && h_wait <= 0) {
+          // the Smith-Waterman score of each cell, its maximum and the
+          // first diagonal that attains it; x-drop wins over z-drop
+          const bool validc = k >= cur_lo && k <= cur_hi && m_off >= 0;
+          // (C division truncates, as the reference's does)
+          const int sw =
+              validc ? (p.swg_match * (m_off - k + m_off) - s) / 2 : -kBig;
+          post_max(hred + 96, sw, lane, warp);
+          __syncthreads();
+          const int cmax = fold_max(hred + 96, nwarps);
+          post_min(hred + 128, sw == cmax ? w : W, lane, warp);
+          const bool xd = (st & kXdrop) != 0;
+          if (xd) {
+            const bool keepx = validc && hm_sw - sw < p.xdrop;
+            post_min(hred + 160, keepx ? w : W, lane, warp);
+            post_max(hred + 192, keepx ? w : -1, lane, warp);
+          }
+          __syncthreads();
+          const int cidx = fold_min(hred + 128, nwarps);
+          const bool improved = !hm_valid || cmax > hm_sw;
+          if (xd) {
+            if (hm_valid) {
+              const int firstx = fold_min(hred + 160, nwarps);
+              const int lastx = fold_max(hred + 192, nwarps);
+              // in sequence: the new hi reads the new lo
+              cur_lo = firstx < W ? firstx + kmin : cur_hi + 1;
+              cur_hi = firstx < W ? lastx + kmin : cur_lo - 1;
+            }
+            if (improved) {
+              hm_sw = cmax;
+              hm_k = cidx + kmin;
+            }
+          } else {
+            const bool zdropped =
+                hm_valid && !improved && hm_sw - cmax > p.zdrop;
+            if (improved) {
+              hm_sw = cmax;
+              hm_k = cidx + kmin;
+              hm_off = m_row[cidx];
+            }
+            if (zdropped) {
+              // the pair ends at the historic maximum's cell
+              status = ST_END_UNREACHABLE;
+              final_s = s;
+              end_k = hm_k;
+              end_off = hm_off;
+              done = true;
+              break;
+            }
+          }
+          hm_valid = true;
+          h_wait = p.steps_between;
+        }
+        if (st & kBandedStatic) {
+          // no wait gate
+          cur_lo = max(cur_lo, p.band_min_k);
+          cur_hi = min(cur_hi, p.band_max_k);
+        } else if (st & kBandedAdaptive) {
+          const int wf_len = cur_hi - cur_lo + 1;
+          const int max_len = p.band_max_k - p.band_min_k + 1;
+          // the wait resets whenever the wavefront has 4 diagonals, even
+          // with nothing to cut
+          if (h_wait <= 0 && wf_len >= 4) {
+            if (wf_len > max_len) {
+              // move the window of max_len diagonals toward the end whose
+              // sampled cells are nearer the alignment's end
+              auto dist_at = [&](int kq) {
+                const int o = m_row[min(max(kq - kmin, 0), W - 1)];
+                return o >= 0 ? max(plen - (o - kq), tlen - o) : -kNull;
+              };
+              const int leeway = (wf_len - max_len) / 2;
+              const int quarter = wf_len / 4;
+              const int d0 = dist_at(cur_lo);
+              const int d1 = dist_at(cur_lo + quarter);
+              const int d2 = dist_at(cur_lo + 2 * quarter);
+              const int d3 = dist_at(cur_hi);
+              const int new_lo0 = cur_lo + (d0 > d3 ? leeway : 0) +
+                                  (d1 > d2 ? leeway : 0);
+              cur_hi = min(new_lo0 + max_len - 1, cur_hi);
+              cur_lo = max(new_lo0, cur_lo);
+            }
+            h_wait = p.steps_between;
+          }
+        }
+        if (cur_lo != m_lo || cur_hi != m_hi) {
+          // install M's pruned band, cut every gap component's row of
+          // score s to it (a null row stays null), and let the compute
+          // of s + 1 see both
+          if (k < cur_lo || k > cur_hi) m_row[w] = kNull;
+          if (w == 0) {
+            lohi[2 * slot[M]] = cur_lo;
+            lohi[2 * slot[M] + 1] = cur_hi;
+          }
+#pragma unroll
+          for (int c = 1; c < kComps; ++c) {
+            const int row = p.base[c] + slot[c];
+            g_lo[c] = max(g_lo[c], cur_lo);
+            g_hi[c] = min(g_hi[c], cur_hi);
+            if (k < g_lo[c] || k > g_hi[c]) off[row * W + w] = kNull;
+            if (w == 0) {
+              lohi[2 * row] = g_lo[c];
+              lohi[2 * row + 1] = g_hi[c];
+            }
+          }
+          __syncthreads();
+        }
       }
     }
 
@@ -406,9 +658,34 @@ __global__ void fused_loop(Params p) {
     if (mval < 0 || mval > tlen || mval - k < 0 || mval - k > plen) {
       mval = kNull;
     }
+    // ends-free with a match bonus: seed the boundary at the scores
+    // divisible by -match while the pair has any begin-free slack; on a
+    // null step the wavefront is the seeds alone (and is not trimmed)
+    bool null_step = all_null, seeded_null = false;
+    if constexpr (kSeeding) {
+      if (s1 % p.seed_div == 0 && (pbf > 0 || tbf > 0)) {
+        const int ek = s1 / p.seed_div;
+        const bool seed_t = tbf >= ek, seed_p = pbf >= ek;
+        if (seed_t && k == ek && mval <= ek) {
+          mval = ek;
+          choice = MSRC_SEED;
+        } else if (seed_p && k == -ek && mval <= 0) {
+          mval = 0;
+          choice = MSRC_SEED;
+        }
+        if (seed_p) lo_n = min(lo_n, -ek);
+        if (seed_t) hi_n = max(hi_n, ek);
+        if (all_null) {
+          lo_n = seed_p ? -ek : (seed_t ? ek : 0);
+          hi_n = seed_t ? ek : (seed_p ? -ek : 0);
+          seeded_null = true;
+        }
+        null_step = false;
+      }
+    }
     arr[M] = mval;
 
-    const bool write = !all_null;
+    const bool write = !null_step;
     const int klo = kmin + 2, khi = kmin + W - 3;
     const bool overflow = write && (lo_n < klo || hi_n > khi);
     lo_n = min(max(lo_n, klo), khi);
@@ -443,8 +720,12 @@ __global__ void fused_loop(Params p) {
         last = max(last, red[(kComps + c) * 32 + i]);
       }
       const bool keep = prod[c] && first < W;
-      const int tlo = keep ? first + kmin : 1;
-      const int thi = keep ? last + kmin : -1;
+      int tlo = keep ? first + kmin : 1;
+      int thi = keep ? last + kmin : -1;
+      if (kSeeding && c == M && seeded_null) {
+        tlo = lo_n;
+        thi = hi_n;
+      }
       const int row = p.base[c] + slot1[c];
       off[row * W + w] = (k >= tlo && k <= thi) ? arr[c] : kNull;
       if (w == 0) {
@@ -452,6 +733,8 @@ __global__ void fused_loop(Params p) {
         lohi[2 * row + 1] = thi;
       }
       slot[c] = slot1[c];
+      g_lo[c] = tlo;
+      g_hi[c] = thi;
       if (c == M) {
         m_lo = tlo;
         m_hi = thi;
@@ -486,30 +769,48 @@ __global__ void fused_loop(Params p) {
   }
 }
 
-template <int kMetric, bool kEndsFree, bool kRecord>
+template <int kMetric, int kSpan, bool kRecord, bool kHeur>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(p.rows) * p.W + p.rows * 2 +
-                       (2 * n_comps(kMetric) + 1) * 32) *
-                      sizeof(int);
+  const size_t smem =
+      (static_cast<size_t>(p.rows) * p.W + p.rows * 2 +
+       (2 * n_comps(kMetric) + 1 + (kHeur ? kHeurReductions : 0)) * 32) *
+      sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_loop<kMetric, kEndsFree, kRecord>,
+        fused_loop<kMetric, kSpan, kRecord, kHeur>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fused_loop<kMetric, kEndsFree, kRecord><<<p.B, p.W, smem, stream>>>(p);
+  fused_loop<kMetric, kSpan, kRecord, kHeur><<<p.B, p.W, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kMetric>
-int launch_metric(const Params& p, bool ends_free, bool record,
-                  cudaStream_t stream) {
-  if (ends_free) {
-    return record ? launch<kMetric, true, true>(p, stream)
-                  : launch<kMetric, true, false>(p, stream);
+template <int kMetric, int kSpan>
+int launch_span(const Params& p, bool record, bool heur,
+                cudaStream_t stream) {
+  if (heur) {
+    return record ? launch<kMetric, kSpan, true, true>(p, stream)
+                  : launch<kMetric, kSpan, false, true>(p, stream);
   }
-  return record ? launch<kMetric, false, true>(p, stream)
-                : launch<kMetric, false, false>(p, stream);
+  return record ? launch<kMetric, kSpan, true, false>(p, stream)
+                : launch<kMetric, kSpan, false, false>(p, stream);
+}
+
+template <int kMetric>
+int launch_metric(const Params& p, int span, bool record, bool heur,
+                  cudaStream_t stream) {
+  if (span == kEndToEnd) {
+    return launch_span<kMetric, kEndToEnd>(p, record, heur, stream);
+  }
+  if (span == kEndsFreeWf0) {
+    return launch_span<kMetric, kEndsFreeWf0>(p, record, heur, stream);
+  }
+  // edit and indel carry no match weight: nothing to seed
+  if constexpr (kMetric == kEdit || kMetric == kIndel) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return launch_span<kMetric, kSeeded>(p, record, heur, stream);
+  }
 }
 
 }  // namespace
@@ -518,20 +819,26 @@ extern "C" {
 
 // Launch the loop for B pairs on `stream`; returns the cudaError_t of the
 // launch (0 on success). All pointers are device pointers; `frees` is
-// read only when ends_free, `choices` written only when record. `metric`
-// is one of the kMetric codes; x, o1, e1, o2, e2 are the score distances
-// of Params (an unused one is 0); `depths` is a host array of the ring's
-// rows per component of the metric, M first
-// (pywfa_tpu_torch/ops/fused_loop.py::ring_depths).
+// read only on an ends-free span, `choices` written only when record.
+// `metric` is one of the kMetric codes and `span` one of the kSpan codes;
+// x, o1, e1, o2, e2 are the score distances of Params (an unused one is
+// 0); `depths` is a host array of the ring's rows per component of the
+// metric, M first (pywfa_tpu_torch/ops/fused_loop.py::ring_depths);
+// `heur` is a host array of the cascade's nine parameters
+// (::heuristic_params), whose first, the strategy bits, is 0 for the
+// exact loop; seed_div is -match, read on the seeded span.
 int wfa_fused_loop(const void* bits, const void* plen, const void* tlen,
                    const void* frees, void* choices, void* res,
                    const int* depths, int B, int W, int NQ, int S_cap,
                    int scope, int x, int o1, int e1, int o2, int e2,
-                   int max_steps, int metric, int ends_free, int record,
-                   void* stream) {
+                   int max_steps, int metric, int span, int record,
+                   const int* heur, int seed_div, void* stream) {
   if (B == 0) return 0;
-  if ((ends_free && frees == nullptr) || (record && choices == nullptr) ||
-      depths == nullptr || metric < kAffine || metric > kIndel) {
+  if ((span != kEndToEnd && frees == nullptr) ||
+      (record && choices == nullptr) || depths == nullptr ||
+      heur == nullptr || metric < kAffine || metric > kIndel ||
+      span < kEndToEnd || span > kSeeded ||
+      (span == kSeeded && seed_div <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -552,6 +859,16 @@ int wfa_fused_loop(const void* bits, const void* plen, const void* tlen,
   p.e1 = e1;
   p.o2 = o2;
   p.e2 = e2;
+  p.strategy = heur[0];
+  p.min_wf_len = heur[1];
+  p.max_dist = heur[2];
+  p.steps_between = heur[3];
+  p.xdrop = heur[4];
+  p.zdrop = heur[5];
+  p.band_min_k = heur[6];
+  p.band_max_k = heur[7];
+  p.swg_match = heur[8];
+  p.seed_div = seed_div;
   p.rows = 0;
   for (int c = 0; c < kMaxComps; ++c) {
     p.base[c] = p.rows;
@@ -559,17 +876,18 @@ int wfa_fused_loop(const void* bits, const void* plen, const void* tlen,
     p.rows += p.depth[c];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool heuristic = p.strategy != 0;
   switch (metric) {
     case kAffine:
-      return launch_metric<kAffine>(p, ends_free, record, st);
+      return launch_metric<kAffine>(p, span, record, heuristic, st);
     case kAffine2p:
-      return launch_metric<kAffine2p>(p, ends_free, record, st);
+      return launch_metric<kAffine2p>(p, span, record, heuristic, st);
     case kLinear:
-      return launch_metric<kLinear>(p, ends_free, record, st);
+      return launch_metric<kLinear>(p, span, record, heuristic, st);
     case kEdit:
-      return launch_metric<kEdit>(p, ends_free, record, st);
+      return launch_metric<kEdit>(p, span, record, heuristic, st);
     default:
-      return launch_metric<kIndel>(p, ends_free, record, st);
+      return launch_metric<kIndel>(p, span, record, heuristic, st);
   }
 }
 

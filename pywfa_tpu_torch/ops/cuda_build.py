@@ -75,7 +75,8 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.wfa_fused_loop.argtypes = ([vp] * 6 + [ctypes.POINTER(ci)]
-                                       + [ci] * 14 + [vp])
+                                       + [ci] * 14
+                                       + [ctypes.POINTER(ci), ci, vp])
         lib.wfa_fused_loop.restype = ci
         lib.wfa_cuda_error_string.argtypes = [ci]
         lib.wfa_cuda_error_string.restype = ctypes.c_char_p

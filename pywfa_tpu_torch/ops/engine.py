@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..attributes import match_class_table
 from ..constants import DistanceMetric
 from . import fused_loop
 from .config import (
@@ -94,12 +95,23 @@ def build_eq_bits(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor
     little-endian int32 word, and the diagonal order is flipped back.
     Words are built in groups that bound the temporaries to about 2^28
     elements.
+
+    With cfg.wildcard >= 0 that byte matches any real character on either
+    side, and never a sentinel (the extension would run past a sequence's
+    end). With cfg.match_classes both rows are mapped through the
+    registered class-mask table first and two cells match when their masks
+    intersect; the sentinels, and any byte absent from the table, map to
+    0 and match nothing.
     """
-    if cfg.wildcard >= 0 or cfg.match_classes:
-        raise NotImplementedError(
-            "wildcard and match-class equality bits are not ported yet "
-            "(ROADMAP queue 1 item 5)")
     dev = pat.device
+    classes = bool(cfg.match_classes)
+    pad = PATTERN_PAD
+    if classes:
+        tbl = torch.from_numpy(match_class_table(cfg.match_classes)
+                               .astype(np.int32)).to(dev)
+        pat = tbl[pat.view(torch.uint8).long()]
+        txt = tbl[txt.view(torch.uint8).long()]
+        pad = 0
     B, Lpp = pat.shape
     Ltp = txt.shape[1]
     W, kmin = cfg.W, cfg.kmin
@@ -109,7 +121,7 @@ def build_eq_bits(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor
     lead = max(0, kmin + W - 1)
     first = lead - (kmin + W - 1)
     tail = max(0, first + W - 1 + H - lead - Lpp)
-    patpad = torch.nn.functional.pad(pat, (lead, tail), value=PATTERN_PAD)
+    patpad = torch.nn.functional.pad(pat, (lead, tail), value=pad)
     wins = patpad.unfold(1, H, 1)[:, first:first + W]          # [B, W, H]
     txtp = torch.nn.functional.pad(txt, (0, H - Ltp))
     in_text = torch.arange(H, device=dev) < Ltp
@@ -118,7 +130,15 @@ def build_eq_bits(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor
     words = torch.empty((NQ, B, W), dtype=torch.int32, device=dev)
     for q0 in range(0, NQ, G):
         hs = slice(q0 * 32, min(NQ, q0 + G) * 32)
-        eq = (wins[:, :, hs] == txtp[:, None, hs]) & in_text[hs]
+        pk, tk = wins[:, :, hs], txtp[:, None, hs]
+        if classes:
+            eq = (pk & tk) != 0
+        else:
+            eq = pk == tk
+            if cfg.wildcard >= 0:
+                eq = ((eq | (pk == cfg.wildcard) | (tk == cfg.wildcard))
+                      & (pk != PATTERN_PAD) & (tk != TEXT_PAD))
+        eq = eq & in_text[hs]
         byte = (eq.view(torch.uint8).reshape(B, W, -1, 8) * weights
                 ).sum(-1, dtype=torch.uint8)                    # [B, W, 4g]
         words[q0:q0 + G] = byte.view(torch.int32).flip(1).permute(2, 0, 1)

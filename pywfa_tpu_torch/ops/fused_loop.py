@@ -1,11 +1,15 @@
 """The fused whole-alignment score loop: all five distance metrics
 (gap-affine, gap-affine 2-piece, gap-linear, edit, indel), end-to-end or
-ends-free span, full-CIGAR or score-only scope.
+ends-free span (with a match bonus too: the boundary is then seeded at
+every score divisible by -match), full-CIGAR or score-only scope, and the
+heuristic cascade (wf-adaptive, wfmash, x-drop, z-drop, banded static and
+adaptive, and their combinations).
 
 The twin of `pywfa_tpu/ops/pallas/fused_loop.py`. For every pair it runs
-the whole WFA score loop -- extend, terminate, compute s+1, trim, record
-one choice byte per cell unless the scope is score-only -- and returns the
-same dict as the reference's `align_batch_pallas`.
+the whole WFA score loop -- extend, terminate, prune the wavefront by the
+heuristics, compute s+1, seed, trim, record one choice byte per cell
+unless the scope is score-only -- and returns the same dict as the
+reference's `align_batch_pallas`.
 
 `align_batch_fused_loop` is the entry point. On CUDA tensors it launches
 the hand-written kernel in `csrc/fused_loop.cu`; on CPU tensors it runs
@@ -14,8 +18,8 @@ kernel's own array program over [B, W] with a Python loop over scores.
 
 One deliberate difference from the Pallas kernel: a band that outgrows W
 reports ST_OVERFLOW_W, as the XLA engine does, instead of being clamped
-silently; so do ends-free WF0 seeds past the band. The escalation ladder
-re-runs such pairs at a wider band.
+silently; so do ends-free seeds past the band, at WF0 or at a later
+score. The escalation ladder re-runs such pairs at a wider band.
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ import functools
 
 import torch
 
-from ..constants import AlignmentSpan, DistanceMetric
+from ..constants import AlignmentSpan, DistanceMetric, HeuristicStrategy
 from .config import (
-    D1, D2, I1, I2, M, MSRC_D1, MSRC_D2, MSRC_I1, MSRC_I2, MSRC_NONE, MSRC_X,
+    D1, D2, I1, I2, M, MSRC_D1, MSRC_D2, MSRC_I1, MSRC_I2, MSRC_NONE,
+    MSRC_SEED, MSRC_X,
     NULL, NULL_THRESHOLD, ST_END_REACHED, ST_END_UNREACHABLE, ST_MAX_STEPS,
     ST_OVERFLOW_S, ST_OVERFLOW_W, EngineConfig,
 )
@@ -40,9 +45,24 @@ METRIC_PREFIX = {DistanceMetric.GAP_AFFINE: "",
                  DistanceMetric.GAP_AFFINE_2P: "affine2p_",
                  DistanceMetric.GAP_LINEAR: "linear_",
                  DistanceMetric.EDIT: "edit_", DistanceMetric.INDEL: "indel_"}
-VARIANTS = tuple(prefix + span + scope
-                 for prefix in METRIC_PREFIX.values()
-                 for span in ("e2e", "endsfree") for scope in ("", "_score"))
+# the kernel's span codes: end to end; ends-free with the begin-free seeds
+# in WF0 (match == 0); ends-free with WF0 the single cell k = 0 and the
+# boundary seeded at every score divisible by -match (match != 0, only
+# for the three metrics that carry a match weight)
+SPANS = ("e2e", "endsfree", "endsfreeseed")
+SEEDED_METRICS = (DistanceMetric.GAP_AFFINE, DistanceMetric.GAP_AFFINE_2P,
+                  DistanceMetric.GAP_LINEAR)
+VARIANTS = tuple(METRIC_PREFIX[metric] + span + heur + scope
+                 for metric in METRIC_PREFIX
+                 for span in SPANS
+                 if span != "endsfreeseed" or metric in SEEDED_METRICS
+                 for heur in ("", "_heur") for scope in ("", "_score"))
+
+# the heuristic strategies of the cascade
+STRATEGIES = int(HeuristicStrategy.WFADAPTIVE | HeuristicStrategy.WFMASH
+                 | HeuristicStrategy.XDROP | HeuristicStrategy.ZDROP
+                 | HeuristicStrategy.BANDED_STATIC
+                 | HeuristicStrategy.BANDED_ADAPTIVE)
 
 # kernel launches made by align_batch_fused_loop (plain version excluded),
 # by variant (see `variant`)
@@ -70,38 +90,50 @@ def ring_depths(cfg: EngineConfig) -> tuple:
     return (cfg.scope,)
 
 
+# per-warp partials of the heuristic cascade's block reductions (32 each)
+HEUR_REDUCTIONS = 7
+
+
 def smem_bytes(cfg: EngineConfig) -> int:
     """Dynamic shared memory of one block: the offsets ring, its lo/hi
-    pairs and the per-warp partials of the two trim reductions a component
-    and of the ends-free termination."""
+    pairs and the per-warp partials of the two trim reductions a component,
+    of the ends-free termination and, with a heuristic, of the cascade's
+    reductions."""
     depths = ring_depths(cfg)
     rows = sum(depths)
-    return (rows * cfg.W + rows * 2 + (2 * len(depths) + 1) * 32) * 4
+    partials = 2 * len(depths) + 1 + (HEUR_REDUCTIONS if cfg.strategy else 0)
+    return (rows * cfg.W + rows * 2 + partials * 32) * 4
 
 
 def _ends_free(cfg: EngineConfig) -> bool:
     return cfg.span == AlignmentSpan.ENDS_FREE
 
 
+def span_code(cfg: EngineConfig) -> int:
+    """Index into SPANS of the config's span (see SPANS)."""
+    if not _ends_free(cfg):
+        return 0
+    return 1 if cfg.match == 0 else 2
+
+
 def variant(cfg: EngineConfig) -> str:
     """The kernel variant a config launches: the metric's prefix (none for
-    gap-affine), the span, then "_score" for the score-only scope."""
-    return (METRIC_PREFIX[cfg.metric]
-            + ("endsfree" if _ends_free(cfg) else "e2e")
+    gap-affine), the span, "_heur" with any heuristic, then "_score" for
+    the score-only scope."""
+    return (METRIC_PREFIX[cfg.metric] + SPANS[span_code(cfg)]
+            + ("_heur" if cfg.strategy else "")
             + ("" if cfg.record_choices else "_score"))
 
 
 def supported(cfg: EngineConfig) -> bool:
     """The slice this module covers: every distance metric, end-to-end or
-    ends-free span (ends-free only with match == 0, whose WF0 seeding is
-    static), full-CIGAR or score-only scope, exact matching, no heuristic,
-    one thread per diagonal."""
+    ends-free span, with or without a match bonus, every heuristic of the
+    cascade, full-CIGAR or score-only scope, one thread per diagonal.
+    Wildcards and match classes live in the equality bits and need nothing
+    here."""
     return (cfg.metric in METRIC_CODE
-            and (cfg.span == AlignmentSpan.END_TO_END
-                 or (_ends_free(cfg) and cfg.match == 0))
-            and cfg.strategy == 0
-            and cfg.wildcard < 0
-            and not cfg.match_classes
+            and (span_code(cfg) != 2 or cfg.metric in SEEDED_METRICS)
+            and (cfg.strategy & ~STRATEGIES) == 0
             and cfg.W % 32 == 0 and cfg.W <= MAX_THREADS
             and smem_bytes(cfg) <= SMEM_LIMIT)
 
@@ -109,10 +141,10 @@ def supported(cfg: EngineConfig) -> bool:
 def _check(cfg: EngineConfig, bits, plen, tlen, frees):
     if not supported(cfg):
         raise NotImplementedError(
-            "the fused loop covers end-to-end alignment, or ends-free with "
-            "match == 0, without heuristics, wildcards or "
-            f"match classes, with W <= {MAX_THREADS} (got {cfg}); the rest "
-            "waits in ROADMAP queue 2")
+            "the fused loop runs one thread per diagonal with its ring in "
+            f"shared memory: W a multiple of 32, W <= {MAX_THREADS} and "
+            f"at most {SMEM_LIMIT} bytes (got {cfg}); wider bands wait for "
+            "the long-read path (ROADMAP queue 1 item 6)")
     if bits.dim() != 3 or bits.shape[2] != cfg.W:
         raise ValueError(f"bits must be [NQ, B, {cfg.W}], got "
                          f"{tuple(bits.shape)}")
@@ -167,6 +199,7 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     res = torch.empty((4, B), dtype=torch.int32, device=dev)
     x, o1, e1, o2, e2 = score_distances(cfg)
     depths = ring_depths(cfg)
+    heur = heuristic_params(cfg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wfa_fused_loop(
@@ -174,8 +207,8 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
             frees.data_ptr(), choices.data_ptr() if record else None,
             res.data_ptr(), (ctypes.c_int * len(depths))(*depths), B, W, NQ,
             cfg.S_cap, cfg.scope, x, o1, e1, o2, e2, max_steps,
-            METRIC_CODE[cfg.metric], int(_ends_free(cfg)), int(record),
-            stream)
+            METRIC_CODE[cfg.metric], span_code(cfg), int(record),
+            (ctypes.c_int * len(heur))(*heur), -cfg.match, stream)
     if rc != 0:
         raise RuntimeError("fused loop kernel launch failed: "
                            + cuda_build.error_string(rc))
@@ -205,6 +238,25 @@ def score_distances(cfg: EngineConfig) -> tuple:
             cfg.gap_opening2 + cfg.gap_extension2, cfg.gap_extension2)
 
 
+def heuristic_params(cfg: EngineConfig) -> tuple:
+    """The cascade's parameters as the kernel takes them: the strategy
+    bits (HeuristicStrategy), min_wavefront_length, max_distance_threshold,
+    steps_between_cutoffs, xdrop, zdrop, band_min_k, band_max_k, and the
+    match weight of the drop heuristics' Smith-Waterman score."""
+    return (cfg.strategy, cfg.min_wavefront_length,
+            cfg.max_distance_threshold, cfg.steps_between_cutoffs, cfg.xdrop,
+            cfg.zdrop, cfg.band_min_k, cfg.band_max_k,
+            -cfg.match if cfg.match != 0 else 1)
+
+
+def _f2i(x):
+    """float32 -> int32 as the kernel's cast does it: truncation toward
+    zero, saturation at the int32 range, NaN to 0."""
+    big = x >= 2147483648.0
+    y = torch.nan_to_num(x, nan=0.0).clamp(-2147483648.0, 2147483520.0)
+    return torch.where(big, 2**31 - 1, y.to(torch.int32))
+
+
 def _ctz32(m):
     """Count trailing zeros of int32 bit patterns (garbage where m == 0):
     isolate the lowest set bit, convert to float32 (exact for one bit) and
@@ -217,9 +269,10 @@ def _ctz32(m):
 def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
                                max_steps: int) -> dict:
     """The plain torch version: the Pallas kernel's array program (every
-    metric's branch, both spans, both scopes) over [B, W], all pairs as
-    one tile, with the band-overflow flag of the XLA engine. Its ring has
-    `scope` rows for every component. Runs on any device."""
+    metric's branch, both spans, the match seeding, the heuristic cascade,
+    both scopes) over [B, W], all pairs as one tile, with the
+    band-overflow flag of the XLA engine. Its ring has `scope` rows for
+    every component. Runs on any device."""
     NQ, B, W = bits.shape
     dev = bits.device
     i32 = torch.int32
@@ -237,12 +290,27 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
     tlen = tlen.to(i32)[:, None]
     ends_free = _ends_free(cfg)
     record = cfg.record_choices
+    # ends-free with a match bonus: WF0 is the single cell k = 0 and the
+    # boundary is seeded at every score divisible by -match
+    seeding = span_code(cfg) == 2
+    ST = HeuristicStrategy
+    use_heur = cfg.strategy != 0
+    wfadaptive = bool(cfg.strategy & (ST.WFADAPTIVE | ST.WFMASH))
+    wfmash = bool(cfg.strategy & ST.WFMASH)
+    xdrop = bool(cfg.strategy & ST.XDROP)
+    zdrop = not xdrop and bool(cfg.strategy & ST.ZDROP)  # x-drop wins
+    banded_static = bool(cfg.strategy & ST.BANDED_STATIC)
+    banded_adaptive = (not banded_static
+                       and bool(cfg.strategy & ST.BANDED_ADAPTIVE))
+    swg_match = heuristic_params(cfg)[-1]
+    steps_between = cfg.steps_between_cutoffs
 
     # --- WF0 (the Pallas kernel's `:270-290`) ---
     if ends_free:
         frees = frees.to(i32)
         pbf, pef = frees[:, 0:1], frees[:, 1:2]
         tbf, tef = frees[:, 2:3], frees[:, 3:4]
+    if ends_free and not seeding:
         wf0_lo, wf0_hi = -pbf, tbf
         off0 = torch.where((karr >= 0) & (karr <= wf0_hi), karr.clamp(min=0),
                            torch.where((karr < 0) & (karr >= wf0_lo), 0,
@@ -316,6 +384,11 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
     status = torch.where(overflow0, ST_OVERFLOW_W, col())
     final_s, end_k, nnull = col(), col(), col()
     end_off = col() + NULL
+    # the cascade's carry: steps to the next cutoff, and the historic
+    # maximum of the drop heuristics (its score, diagonal, offset)
+    h_wait = col() + steps_between
+    hm_sw, hm_k, hm_valid = col(), col(), col().bool()
+    hm_off = col() + NULL
     while bool((~done).any()) and s < S_cap - 1:
         active = ~done
         slot = s % scope
@@ -370,6 +443,145 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
         end_off = torch.where(hit, t_off, end_off)
         done = done | hit
         active = active & ~hit
+
+        # --- heuristic cascade: prune the band of M[s] before the compute
+        # reads it (the Pallas kernel's `:397-557`) ---
+        if use_heur:
+            eligible = active & ~m_null
+            h_wait = torch.where(eligible, h_wait - 1, h_wait)
+            cur_lo, cur_hi = m_lo, m_hi
+        if wfadaptive:
+            do_h = (eligible & (h_wait <= 0)
+                    & ((cur_hi - cur_lo + 1) >= cfg.min_wavefront_length))
+            hband = band_mask(cur_lo, cur_hi)
+            v_h = m_off - karr
+            if wfmash:
+                # length-normalised distance, in float32 in this order
+                mfactor = (plen + tlen).float() / 2
+                lv = _f2i((plen - v_h).float() / plen.float() * mfactor)
+                lh = _f2i((tlen - m_off).float() / tlen.float() * mfactor)
+                dist = torch.maximum(lv, lh)
+            else:
+                dist = torch.maximum(plen - v_h, tlen - m_off)
+            dist = torch.where(m_off >= 0, dist, -NULL)
+            mind = torch.where(hband, dist, torch.maximum(plen, tlen)).amin(
+                1, keepdim=True)
+            keep = (dist - mind) <= cfg.max_distance_threshold
+            ak_h = tlen - plen
+            # from below over [lo, min(ak, hi)), then from above over
+            # (max(ak, new lo), hi]
+            top_limit = torch.minimum(ak_h, cur_hi)
+            stop_bot = hband & (karr < top_limit) & keep
+            first_keep = torch.where(stop_bot, iota, W).amin(
+                1, keepdim=True) + kmin
+            lo_red = torch.where(stop_bot.any(1, keepdim=True), first_keep,
+                                 torch.maximum(top_limit, cur_lo))
+            new_lo = torch.where(do_h, torch.maximum(lo_red, cur_lo), cur_lo)
+            bot_limit = torch.maximum(ak_h, new_lo)
+            stop_top = hband & (karr > bot_limit) & keep
+            last_keep = torch.where(stop_top, iota, -1).amax(
+                1, keepdim=True) + kmin
+            hi_red = torch.where(stop_top.any(1, keepdim=True), last_keep,
+                                 torch.minimum(bot_limit, cur_hi))
+            new_hi = torch.where(do_h, torch.minimum(hi_red, cur_hi), cur_hi)
+            h_wait = torch.where(do_h, steps_between, h_wait)
+            cur_lo, cur_hi = new_lo, new_hi
+        if xdrop or zdrop:
+            # the wait is read again: a cutoff above skips this stage
+            do_d = eligible & (h_wait <= 0)
+            num = swg_match * (m_off - karr + m_off) - s
+            sw = torch.div(num, 2, rounding_mode="trunc")
+            validc = band_mask(cur_lo, cur_hi) & (m_off >= 0)
+            swm = torch.where(validc, sw, -2**30)
+            cmax = swm.amax(1, keepdim=True)
+            # the first diagonal that attains the maximum
+            cidx = torch.where(swm == cmax, iota, W).amin(1, keepdim=True)
+            cmax_off = m_off.gather(1, cidx.long())
+            if xdrop:
+                prune = do_d & hm_valid
+                keepx = validc & ((hm_sw - sw) < cfg.xdrop)
+                any_keep = keepx.any(1, keepdim=True)
+                firstx = torch.where(keepx, iota, W).amin(
+                    1, keepdim=True) + kmin
+                lastx = torch.where(keepx, iota, -1).amax(
+                    1, keepdim=True) + kmin
+                # in sequence: the new hi reads the new lo
+                cur_lo = torch.where(
+                    prune, torch.where(any_keep, firstx, cur_hi + 1), cur_lo)
+                cur_hi = torch.where(
+                    prune, torch.where(any_keep, lastx, cur_lo - 1), cur_hi)
+                upd = do_d & (~hm_valid | (cmax > hm_sw))
+                hm_sw = torch.where(upd, cmax, hm_sw)
+                hm_k = torch.where(upd, cidx + kmin, hm_k)
+                hm_valid = hm_valid | do_d
+                h_wait = torch.where(do_d, steps_between, h_wait)
+            else:
+                improved = cmax > hm_sw
+                zdropped = (do_d & hm_valid & ~improved
+                            & ((hm_sw - cmax) > cfg.zdrop))
+                upd = do_d & (~hm_valid | improved)
+                hm_sw = torch.where(upd, cmax, hm_sw)
+                hm_k = torch.where(upd, cidx + kmin, hm_k)
+                hm_off = torch.where(upd, cmax_off, hm_off)
+                hm_valid = hm_valid | do_d
+                h_wait = torch.where(do_d & ~zdropped, steps_between, h_wait)
+                # the pair ends at the historic maximum's cell
+                status = torch.where(zdropped, ST_END_UNREACHABLE, status)
+                final_s = torch.where(zdropped, s, final_s)
+                end_k = torch.where(zdropped, hm_k, end_k)
+                end_off = torch.where(zdropped, hm_off, end_off)
+                done = done | zdropped
+                active = active & ~zdropped
+        if banded_static:
+            # no wait gate
+            cur_lo = torch.where(eligible, cur_lo.clamp(min=cfg.band_min_k),
+                                 cur_lo)
+            cur_hi = torch.where(eligible, cur_hi.clamp(max=cfg.band_max_k),
+                                 cur_hi)
+        elif banded_adaptive:
+            wf_len = cur_hi - cur_lo + 1
+            max_len = cfg.band_max_k - cfg.band_min_k + 1
+            # the wait resets whenever the wavefront has 4 diagonals, even
+            # with nothing to cut
+            ticked = eligible & (h_wait <= 0) & (wf_len >= 4)
+            do_b = ticked & (wf_len > max_len)
+
+            def dist_at(kq):
+                o = m_off.gather(1, (kq - kmin).clamp(0, W - 1).long())
+                d = torch.maximum(plen - (o - kq), tlen - o)
+                return torch.where(o >= 0, d, -NULL)
+
+            leeway = (wf_len - max_len) // 2
+            quarter = wf_len // 4
+            d0 = dist_at(cur_lo)
+            d1 = dist_at(cur_lo + quarter)
+            d2 = dist_at(cur_lo + 2 * quarter)
+            d3 = dist_at(cur_hi)
+            new_lo0 = (cur_lo + torch.where(d0 > d3, leeway, 0)
+                       + torch.where(d1 > d2, leeway, 0))
+            nlo = torch.maximum(new_lo0, cur_lo)
+            nhi = torch.minimum(new_lo0 + max_len - 1, cur_hi)
+            cur_lo = torch.where(do_b, nlo, cur_lo)
+            cur_hi = torch.where(do_b, nhi, cur_hi)
+            h_wait = torch.where(ticked, steps_between, h_wait)
+        if use_heur:
+            # install M's pruned band and cut every gap component of
+            # score s to it
+            changed = eligible & ((cur_lo != m_lo) | (cur_hi != m_hi))
+            off[M * scope + slot] = torch.where(
+                changed & ~band_mask(cur_lo, cur_hi), NULL, m_off)
+            lo[M * scope + slot] = torch.where(changed, cur_lo, m_lo)
+            hi[M * scope + slot] = torch.where(changed, cur_hi, m_hi)
+            for comp in range(1, NC):
+                i = comp * scope + slot
+                nlo = torch.where(changed, torch.maximum(lo[i], cur_lo),
+                                  lo[i])
+                nhi = torch.where(changed, torch.minimum(hi[i], cur_hi),
+                                  hi[i])
+                off[i] = torch.where(changed & ~band_mask(nlo, nhi), NULL,
+                                     off[i])
+                lo[i] = nlo
+                hi[i] = nhi
 
         # --- compute s+1 ---
         s1 = s + 1
@@ -464,6 +676,32 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
         mvals = torch.where(bad, NULL, mvals)
 
         null_step = all_null
+        seeded_null = None
+        if seeding:
+            # boundary seeds at the scores divisible by -match (the Pallas
+            # kernel's `:720-745`): a pair with any begin-free slack gets
+            # a wavefront at every such score, seeded at k = ek and k = -ek
+            # while the frees reach that far; on a null step it is a
+            # wavefront of the seeds alone, which keeps the heuristics'
+            # cadence ticking
+            ek = s1 // -cfg.match
+            need = (((pbf > 0) | (tbf > 0)) if s1 % -cfg.match == 0
+                    else ~true)
+            seed_t = need & (tbf >= ek)
+            seed_p = need & (pbf >= ek)
+            do_t = seed_t & (karr == ek) & (mvals <= ek)
+            do_p = seed_p & (karr == -ek) & (mvals <= 0)
+            mvals = torch.where(do_t, ek, mvals)
+            mvals = torch.where(do_p, 0, mvals)
+            choice = torch.where(do_t | do_p, MSRC_SEED, choice)
+            ns_lo = torch.where(seed_p, -ek, torch.where(seed_t, ek, 0))
+            ns_hi = torch.where(seed_t, ek, torch.where(seed_p, -ek, 0))
+            lo_n = torch.where(seed_p, lo_n.clamp(max=-ek), lo_n)
+            hi_n = torch.where(seed_t, hi_n.clamp(min=ek), hi_n)
+            seeded_null = null_step & need
+            lo_n = torch.where(seeded_null, ns_lo, lo_n)
+            hi_n = torch.where(seeded_null, ns_hi, hi_n)
+            null_step = null_step & ~need
         overflow = active & ~null_step & (
             (lo_n < kmin + 2) | (hi_n > kmin + W - 3))
         lo_n = lo_n.clamp(kmin + 2, kmin + W - 3)
@@ -485,6 +723,10 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
             keep = prods[c] & inb.any(1, keepdim=True)
             tlo = torch.where(keep, first, 1)
             thi = torch.where(keep, last, -1)
+            if c == M and seeding:
+                # a wavefront of the seeds alone is not trimmed
+                tlo = torch.where(seeded_null, lo_n, tlo)
+                thi = torch.where(seeded_null, hi_n, thi)
             off[c * scope + slot1] = torch.where(
                 (karr >= tlo) & (karr <= thi), arr, NULL)
             lo[c * scope + slot1] = tlo

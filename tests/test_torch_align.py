@@ -176,16 +176,70 @@ def test_golden_cases_match_jax_backend(name):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(heuristic="adaptive"), "queue 1 item 5"),
-    (dict(heuristic="X-drop"), "queue 1 item 5"),
-    (dict(wildcard="N"), "queue 1 item 5"),
-    (dict(distance="affine2p", match_classes="iupac"), "queue 1 item 5"),
-    (dict(match=-1), "queue 2 item 7"),
+    (dict(memory_mode="low"), "queue 1 item 6"),
+    (dict(memory_mode="medium", heuristic="adaptive"), "queue 1 item 6"),
+    (dict(memory_mode="biwfa", wildcard="N"), "queue 1 item 6"),
+    (dict(heuristic="X-drop", length=300), "queue 1 item 6"),
+    (dict(match=-1, length=280), "queue 1 item 6"),
 ])
 def test_off_slice_raises_naming_roadmap(kw, item):
-    a = _port("ACGTACGTAC", **kw)
+    """What is still refused: memory modes other than high, and pairs past
+    256 bp, whatever else the configuration asks for."""
+    kw = dict(kw)
+    reps = kw.pop("length", 10) // 10
+    a = _port("ACGTACGTAC" * reps, **kw)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        a("ACGTTCGTAC")
+        a("ACGTTCGTAC" * reps)
+
+
+# pywfa's arguments of this slice, each against the reference's backends
+NEW_CONFIGS = {
+    "adaptive": dict(heuristic="adaptive"),
+    "adaptive-tight": dict(heuristic="adaptive", min_wavefront_length=4,
+                           max_distance_threshold=6),
+    "xdrop": dict(heuristic="X-drop", xdrop=12),
+    "xdrop-2p-score": dict(heuristic="X-drop", xdrop=20,
+                           distance="affine2p", scope="score"),
+    "match": dict(match=-1),
+    "match-frees": dict(match=-2, mismatch=5, gap_opening=7, gap_extension=2,
+                        text_begin_free=12, text_end_free=12,
+                        pattern_begin_free=3),
+    "match-linear-score": dict(match=-1, distance="linear", scope="score",
+                               text_begin_free=9, text_end_free=9),
+    "wildcard": dict(wildcard="N"),
+    "wildcard-e2e": dict(wildcard="N", span="end-to-end",
+                         distance="levenshtein"),
+    "extension": dict(extension=True),
+    "extension-score": dict(extension=True, scope="score"),
+}
+NEW_PAIRS = [
+    ("TCTTTACTCGCGCGTTGGAGAAATACAATAGT", "TCTATACTGCGCGTTTGGAGAAATAAAATAGT"),
+    ("AAAAACCTTTTTAAAAAA", "GGCCAAAAACCAAAAAA"),
+    ("GGGGAAAAACCGGGGG", "CCCCCAAAAACCTTTTT"),
+    ("ACGTNACGTACGTTTGCANACG", "ACGTAACGTACCTTTGCATACG"),
+    ("AATTAATTTAAGTCTAGGCTACTTTCGGTACTTTGTTCTT" * 2,
+     "AATTTAAGTCTAGGCTACTTTCGGTACTTTCTT" + "GCATGCTAGCTAGGATCCGATCGGATTACA"),
+    ("ACGGTCATGCATGCAAGTCGATCGATGCTAGCTAGCTAGTCG",
+     "TTGCAGCTAGGCTTAGCGCGATATCGCGATTAGCGCTATAGC"),
+]
+
+
+@pytest.mark.parametrize("name", sorted(NEW_CONFIGS))
+def test_new_configurations_match_reference(name):
+    """heuristic=, match=, wildcard= and extension= through the card's
+    pipeline on the CPU device, against the reference's numpy backend and
+    its jax backend."""
+    kw = NEW_CONFIGS[name]
+    pywfa_tpu_torch.batch.oracle_fallbacks.update(
+        dict.fromkeys(pywfa_tpu_torch.batch.oracle_fallbacks, 0))
+    for pattern, text in NEW_PAIRS:
+        port = _port(pattern, **kw)
+        got = _snap(port, port(text))
+        assert got == _snap(*(lambda a: (a, a(text)))(
+            _ref("numpy")(pattern, **kw)))
+        assert got == _snap(*(lambda a: (a, a(text)))(
+            _ref("jax")(pattern, **kw)))
+    assert not any(pywfa_tpu_torch.batch.oracle_fallbacks.values())
 
 
 def test_property_setters_then_realign():

@@ -128,18 +128,47 @@ def test_batch_aligner_stream_and_empty_batches():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(distance="affine2p", heuristic="X-drop"),
-    dict(span="ends-free", match=-1),
-    dict(distance="linear", wildcard="N"),
-    dict(heuristic="adaptive"), dict(memory_mode="low"),
-    dict(wildcard="N"),
+    dict(memory_mode="medium"), dict(memory_mode="low"),
+    dict(memory_mode="biwfa"),
+    dict(memory_mode="low", distance="affine2p", heuristic="X-drop"),
+    dict(memory_mode="medium", span="ends-free", match=-1),
+    dict(memory_mode="biwfa", distance="linear", wildcard="N"),
 ])
 def test_off_slice_config_raises(kw):
+    """Memory modes other than high are what the batch path still refuses
+    by configuration, whatever else the configuration asks for."""
     pats = [p for p, _ in README_PAIRS]
     txts = [t for _, t in README_PAIRS]
     kw = dict(dict(span="end-to-end"), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         BatchWavefrontAligner(device="cpu", **kw).align(pats, txts)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(distance="affine2p", heuristic="X-drop"),
+    dict(span="ends-free", match=-1, text_begin_free=5, text_end_free=5),
+    dict(distance="linear", wildcard="N"),
+    dict(heuristic="adaptive"), dict(wildcard="N"),
+    dict(match_classes="iupac"),
+    dict(span="ends-free", extension=True),
+])
+def test_configurations_of_this_slice_run(kw):
+    """What used to raise runs: heuristics, a match bonus on the ends-free
+    span, wildcards, match classes and WF-extension, through the stream,
+    equal to the reference's batch path."""
+    pairs = README_PAIRS + random_pairs(35, 10, 30, 110, 0.1, 0.05,
+                                        unrelated=0.2, as_bytes=True)
+    pats = [p.decode() for p, _ in pairs]
+    txts = [t.decode() for _, t in pairs]
+    kw = dict(dict(span="end-to-end"), **kw)
+    from pywfa_tpu.batch import BatchWavefrontAligner as RefBatch
+    port = BatchWavefrontAligner(device="cpu", **kw)
+    PB.oracle_fallbacks.update(dict.fromkeys(PB.oracle_fallbacks, 0))
+    got = list(port.align_stream([(pats[:9], txts[:9]),
+                                  (pats[9:], txts[9:])]))
+    assert not any(PB.oracle_fallbacks.values())
+    want = RefBatch(**kw).align(pats, txts)
+    assert _fields(got[0] + got[1]) == _fields(want)
 
 
 @pytest.mark.parametrize("W,S_cap", [(1024, 300000), (1152, 2000)])

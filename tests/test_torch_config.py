@@ -71,3 +71,49 @@ def test_packed_layout_matches_reference(ops_out, S_cap):
     ref = dataclasses.replace(E.full_config(_attr(), 150, 150, S_cap=S_cap),
                               ops_out=ops_out)
     assert C.packed_layout(C.from_reference(ref)) == E.packed_layout(ref)
+
+
+HEURISTICS = [
+    HeuristicParams(strategy=HeuristicStrategy.WFADAPTIVE,
+                    min_wavefront_length=7, max_distance_threshold=33,
+                    steps_between_cutoffs=3),
+    HeuristicParams(strategy=HeuristicStrategy.WFMASH,
+                    min_wavefront_length=5, max_distance_threshold=12),
+    HeuristicParams(strategy=HeuristicStrategy.XDROP, xdrop=17),
+    HeuristicParams(strategy=HeuristicStrategy.ZDROP, zdrop=41,
+                    steps_between_cutoffs=2),
+    HeuristicParams(strategy=HeuristicStrategy.BANDED_STATIC, min_k=-7,
+                    max_k=19),
+    HeuristicParams(strategy=(HeuristicStrategy.BANDED_ADAPTIVE
+                              | HeuristicStrategy.XDROP), min_k=-30,
+                    max_k=4, xdrop=9),
+]
+
+
+@pytest.mark.parametrize("heur", HEURISTICS,
+                         ids=[str(int(h.strategy)) for h in HEURISTICS])
+@pytest.mark.parametrize("pen", PENALTIES[:2])
+def test_heuristic_fields_come_across(heur, pen):
+    """Every field of the cascade (strategy bits, the three cutoff
+    parameters, both drops, the static band, the gap-extension unit), the
+    match weight and the matching mode reach the port's config from the
+    reference's and from the port's own attributes."""
+    attr = dataclasses.replace(_attr(span="ends-free", **pen), heuristic=heur,
+                               match_classes="iupac")
+    ref = E.full_config(attr, 150, 150, W=256, S_cap=96)
+    port = C.from_reference(ref)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port == C.full_config(C.attributes_from_reference(attr), 150, 150,
+                                 W=256, S_cap=96)
+    assert (port.strategy, port.min_wavefront_length,
+            port.max_distance_threshold, port.steps_between_cutoffs,
+            port.xdrop, port.zdrop, port.band_min_k, port.band_max_k) == (
+        int(heur.strategy), heur.min_wavefront_length,
+        heur.max_distance_threshold, heur.steps_between_cutoffs, heur.xdrop,
+        heur.zdrop, heur.min_k, heur.max_k)
+    assert port.match == pen.get("match", 0)
+    assert port.match_classes == "iupac"
+    from pywfa_tpu_torch.ops import fused_loop as TFL
+    params = TFL.heuristic_params(port)
+    assert params[0] == int(heur.strategy)
+    assert params[-1] == (-port.match if port.match else 1)

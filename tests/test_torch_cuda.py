@@ -1,8 +1,9 @@
 """The CUDA fused-loop kernel against its plain torch version, on the card.
 
 Every variant (each of the five distance metrics, end-to-end or ends-free
-span, full-CIGAR or score-only scope) is held against the plain version,
-and the API paths against the scalar oracle.
+span, with or without a match bonus, with or without a heuristic,
+full-CIGAR or score-only scope) is held against the plain version, and
+the API paths against the scalar oracle.
 
 Runs only where a CUDA device is present (marker `cuda`; skipped
 elsewhere). The file imports no jax, so on a GPU host without jax run it
@@ -22,8 +23,10 @@ import torch
 import pywfa_tpu_torch
 from pywfa_tpu_torch import batch as PB
 from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
-from pywfa_tpu_torch.attributes import AlignerAttributes, AlignmentForm
+from pywfa_tpu_torch.attributes import (AlignerAttributes, AlignmentForm,
+                                        HeuristicParams)
 from pywfa_tpu_torch.constants import AlignmentSpan
+from pywfa_tpu_torch.constants import HeuristicStrategy as HS
 from pywfa_tpu_torch.oracle import OracleAligner
 from pywfa_tpu_torch.ops import config as C
 from pywfa_tpu_torch.ops import engine as TE
@@ -289,3 +292,205 @@ def test_metric_api_paths_on_cuda_match_oracle(dev, metric, span, scope):
         o(t.decode(), p.decode())
         assert (a.status, a.score, a.cigarstring, a.locations) == (
             o.status, o.score, o.cigarstring, o.locations), (p, t)
+
+
+HEURISTICS = {
+    "wfadaptive": HeuristicParams(
+        strategy=HS.WFADAPTIVE, min_wavefront_length=5,
+        max_distance_threshold=15, steps_between_cutoffs=1),
+    "wfadaptive_default": HeuristicParams(strategy=HS.WFADAPTIVE),
+    "wfmash": HeuristicParams(
+        strategy=HS.WFMASH, min_wavefront_length=5,
+        max_distance_threshold=12, steps_between_cutoffs=1),
+    "xdrop": HeuristicParams(strategy=HS.XDROP, xdrop=10,
+                             steps_between_cutoffs=1),
+    "zdrop": HeuristicParams(strategy=HS.ZDROP, zdrop=12,
+                             steps_between_cutoffs=2),
+    "banded_static": HeuristicParams(strategy=HS.BANDED_STATIC, min_k=-12,
+                                     max_k=12),
+    "banded_adaptive": HeuristicParams(strategy=HS.BANDED_ADAPTIVE,
+                                       min_k=-10, max_k=10,
+                                       steps_between_cutoffs=2),
+    "wfadaptive+zdrop": HeuristicParams(
+        strategy=HS.WFADAPTIVE | HS.ZDROP, min_wavefront_length=5,
+        max_distance_threshold=15, zdrop=15, steps_between_cutoffs=1),
+    "xdrop+banded": HeuristicParams(
+        strategy=HS.XDROP | HS.BANDED_ADAPTIVE, xdrop=14, min_k=-8, max_k=8,
+        steps_between_cutoffs=3),
+}
+# match bonus and the other penalties, by metric, for the seeded span
+BONUS = {
+    "affine": dict(match=-2, mismatch=5, gap_opening=7, gap_extension=2),
+    "affine2p": dict(match=-3, mismatch=4, gap_opening=6, gap_extension=2),
+    "linear": dict(match=-1, mismatch=4, gap_extension=3),
+}
+
+
+def _hard_pairs(seed, n=48):
+    """Divergent pairs with unrelated ones among them (the drops end
+    pairs, the cuts act), an empty text and an empty pattern."""
+    return (random_pairs(seed, n, 30, 90, 0.25, 0.12, unrelated=0.25,
+                         as_bytes=True)
+            + _window_pairs(seed + 1, 12, 60, 30)
+            + [(b"ACGTACGTACGTACGTACGT", b""), (b"", b"ACGTTGCATGCATGCA")])
+
+
+def _held(cfg, args, max_steps=2**31 - 1):
+    """Launch the kernel, run its plain version, compare every output."""
+    name = fused_loop.variant(cfg)
+    before = fused_loop.variant_launches[name]
+    got = fused_loop.align_batch_fused_loop(cfg, *args, max_steps)
+    assert fused_loop.variant_launches[name] == before + 1
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, max_steps)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    assert ("choices" in got) == cfg.record_choices
+    for k in (KEYS if cfg.record_choices else KEYS[:4]):
+        assert torch.equal(got[k], want[k]), (name, k)
+    return got
+
+
+@pytest.mark.parametrize("span", ["end-to-end", "ends-free", "seeded"])
+@pytest.mark.parametrize("metric", ["affine"] + list(METRICS))
+@pytest.mark.parametrize("name,record", [(n, True) for n in sorted(HEURISTICS)]
+                         + [(n, False) for n in ("wfadaptive", "zdrop",
+                                                 "xdrop+banded")])
+def test_heuristic_variants_match_plain_version(dev, name, record, metric,
+                                                span):
+    """The cascade in every metric's kernel, on every span (with the
+    choice record under every strategy, score only under three): full
+    caps, a first rung (overflows) and a step cap."""
+    kw = {}
+    frees_row = (0, 0, 0, 0)
+    if span == "seeded":
+        if metric not in BONUS:
+            pytest.skip("edit and indel carry no match weight")
+        kw = BONUS[metric]
+    if span != "end-to-end":
+        frees_row = (6, 6, 25, 25)
+    attr = dataclasses.replace(
+        RefAligner(backend="numpy", distance=metric,
+                   span="end-to-end" if span == "end-to-end" else "ends-free",
+                   **kw)._attributes(),
+        heuristic=HEURISTICS[name])
+    pairs = _hard_pairs(70 + len(name) + len(metric))
+    full = C.full_config(attr, 128, 128, record_choices=record)
+    assert fused_loop.variant(full).endswith(
+        {"end-to-end": "e2e", "ends-free": "endsfree",
+         "seeded": "endsfreeseed"}[span] + "_heur"
+        + ("" if record else "_score"))
+    got = _held(full, _inputs(full, pairs, dev, frees_row))
+    assert (got["status"] == C.ST_END_REACHED).any()
+    small = dataclasses.replace(full, W=128, S_cap=96)
+    _held(small, _inputs(small, pairs, dev, frees_row))
+    _held(full, _inputs(full, pairs, dev, frees_row), max_steps=25)
+
+
+@pytest.mark.parametrize("record", [True, False])
+@pytest.mark.parametrize("frees_row", [(0, 5, 0, 5), (4, 4, 8, 8),
+                                       (60, 6, 90, 6), (7, 0, 0, 3)])
+@pytest.mark.parametrize("metric", sorted(BONUS))
+def test_seeded_variants_match_plain_version(dev, metric, frees_row, record):
+    """Ends-free with a match bonus, no heuristic: begin frees of zero,
+    below the scores' reach and past it; at full caps and at a band the
+    seeds outgrow (ST_OVERFLOW_W)."""
+    attr = RefAligner(backend="numpy", distance=metric, **BONUS[metric]
+                      )._attributes()
+    pairs = _hard_pairs(90)
+    full = C.full_config(attr, 128, 128, record_choices=record)
+    got = _held(full, _inputs(full, pairs, dev, frees_row))
+    if record and frees_row[0] + frees_row[2] > 0:
+        assert (got["choices"] == C.MSRC_SEED).any()
+    small = dataclasses.replace(full, W=128)
+    got = _held(small, _inputs(small, pairs, dev, frees_row))
+    if frees_row[2] == 90:
+        assert (got["status"] == C.ST_OVERFLOW_W).any()
+
+
+def test_match_bonus_drop_end_to_end(dev):
+    """match = -1 on the end-to-end span: the drop heuristics score a
+    match with 1 over the transformed penalties."""
+    for name in ("zdrop", "xdrop"):
+        attr = dataclasses.replace(
+            RefAligner(backend="numpy", span="end-to-end", match=-1,
+                       mismatch=4, gap_opening=6, gap_extension=2
+                       )._attributes(), heuristic=HEURISTICS[name])
+        cfg = C.full_config(attr, 128, 128)
+        _held(cfg, _inputs(cfg, _hard_pairs(91), dev))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(wildcard="N"), dict(match_classes="iupac"),
+    dict(match_classes="iupac", distance="affine2p"),
+])
+def test_wildcard_and_classes_on_cuda_match_oracle(dev, kw):
+    """Wildcard and class equality live in the eq bits, built on the card;
+    the host fill repeats them."""
+    rng = random.Random(92)
+    pairs = []
+    for p, t in random_pairs(92, 32, 40, 150, 0.08, 0.04, as_bytes=True):
+        for _ in range(3):
+            i = rng.randrange(len(p))
+            p = p[:i] + rng.choice([b"N", b"R", b"Y"]) + p[i + 1:]
+            j = rng.randrange(len(t))
+            t = t[:j] + b"N" + t[j + 1:]
+        pairs.append((p, t))
+    api = RefAligner(backend="numpy", span="end-to-end", **kw)
+    attr = api._attributes()
+    wc = api._bwildcard if api._wildcard else None
+    PB.oracle_fallbacks.update(dict.fromkeys(PB.oracle_fallbacks, 0))
+    res = PB.align_pairs(attr, [p for p, _ in pairs], [t for _, t in pairs],
+                         wildcard=wc, device=dev)
+    assert not any(PB.oracle_fallbacks.values())
+    for (p, t), r in zip(pairs, res):
+        o = PB._oracle_one(attr, p, t, wc)
+        assert (r.status, r.score, r.ops) == (o.status, o.score, o.ops)
+
+
+@pytest.mark.parametrize("scope", ["full", "score"])
+@pytest.mark.parametrize("name", ["zdrop", "xdrop", "wfadaptive",
+                                  "wfadaptive+zdrop", "banded_adaptive"])
+def test_partial_results_on_cuda_match_oracle(dev, name, scope):
+    """Dropped and dead-end pairs are assembled from the card's walk: no
+    pair goes to the host oracle, and every field equals the oracle's."""
+    attr = dataclasses.replace(
+        RefAligner(backend="numpy", span="end-to-end", scope=scope
+                   )._attributes(), heuristic=HEURISTICS[name])
+    pairs = random_pairs(93, 64, 40, 150, 0.3, 0.12, unrelated=0.3,
+                         as_bytes=True)
+    PB.oracle_fallbacks.update(dict.fromkeys(PB.oracle_fallbacks, 0))
+    res = PB.align_pairs(attr, [p for p, _ in pairs], [t for _, t in pairs],
+                         device=dev)
+    assert not any(PB.oracle_fallbacks.values()), PB.oracle_fallbacks
+    oracle = OracleAligner(attr)
+    for (p, t), r in zip(pairs, res):
+        o = oracle.align(p, t)
+        assert (r.status, r.score, r.ops, r.end_v, r.end_h, r.dropped) == (
+            o.status, o.score, o.ops, o.end_v, o.end_h, o.dropped), (p, t)
+    if name in ("zdrop", "xdrop"):
+        assert sum(r.dropped for r in res) >= 4
+
+
+@pytest.mark.parametrize("scope", ["full", "score"])
+@pytest.mark.parametrize("kw", [
+    dict(heuristic="adaptive"), dict(heuristic="X-drop"), dict(match=-1),
+    dict(match=-1, text_begin_free=20, text_end_free=20),
+    dict(wildcard="N"), dict(extension=True),
+    dict(distance="affine2p", heuristic="adaptive", match=-1),
+])
+def test_wavefront_aligner_new_configurations_on_cuda(dev, kw, scope):
+    """pywfa's heuristic, match, wildcard and extension arguments through
+    the single-pair API on the card, against the numpy oracle."""
+    pairs = (random_pairs(94, 12, 30, 150, 0.1, 0.04, unrelated=0.25,
+                          as_bytes=True) + _window_pairs(95, 6, 100, 20))
+    a = pywfa_tpu_torch.WavefrontAligner(scope=scope, device=dev, **kw)
+    o = RefAligner(scope=scope, backend="numpy", **kw)
+    PB.oracle_fallbacks.update(dict.fromkeys(PB.oracle_fallbacks, 0))
+    for p, t in pairs:
+        if "wildcard" in kw:
+            p = p[:7] + b"N" + p[8:]
+        a(t.decode(), p.decode())
+        o(t.decode(), p.decode())
+        assert (a.status, a.score, a.cigarstring, a.locations) == (
+            o.status, o.score, o.cigarstring, o.locations), (p, t)
+    assert not any(PB.oracle_fallbacks.values()), PB.oracle_fallbacks

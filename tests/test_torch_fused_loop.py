@@ -176,8 +176,13 @@ def test_wrapper_routes_cpu_to_plain_version_and_rejects_others():
         TFL.align_batch_fused_loop(cfg, *(a.to("meta") for a in args), MAXS)
     with pytest.raises(TypeError):
         TFL.align_batch_fused_loop(cfg, bits, args[1].long(), *args[2:], MAXS)
+    # a band past one thread block is still refused
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        TFL.align_batch_fused_loop(dataclasses.replace(cfg, W=1152),
+                                   *args, MAXS)
+    # a strategy bit the cascade does not know
     with pytest.raises(NotImplementedError):
-        TFL.align_batch_fused_loop(dataclasses.replace(cfg, strategy=8),
+        TFL.align_batch_fused_loop(dataclasses.replace(cfg, strategy=64),
                                    *args, MAXS)
 
 
@@ -303,5 +308,18 @@ def test_supported_covers_the_slice():
     assert TFL.supported(score) and TFL.variant(score) == "endsfree_score"
     e2e = dataclasses.replace(score, span=AlignmentSpan.END_TO_END)
     assert TFL.variant(e2e) == "e2e_score"
-    assert not TFL.supported(dataclasses.replace(cfg, match=-1))
+    # a match bonus: the seeded span on ends-free, nothing new end to end
+    seeded = dataclasses.replace(cfg, match=-1)
+    assert TFL.supported(seeded) and TFL.variant(seeded) == "endsfreeseed"
     assert TFL.supported(dataclasses.replace(e2e, match=-1))
+    assert TFL.variant(dataclasses.replace(e2e, match=-1)) == "e2e_score"
+    heur = dataclasses.replace(seeded, strategy=4, record_choices=False)
+    assert TFL.supported(heur)
+    assert TFL.variant(heur) == "endsfreeseed_heur_score"
+    assert TFL.smem_bytes(heur) == TFL.smem_bytes(
+        dataclasses.replace(heur, strategy=0)) + 7 * 32 * 4
+    # wildcards and classes live in the eq bits
+    assert TFL.supported(dataclasses.replace(cfg, wildcard=78))
+    assert TFL.supported(dataclasses.replace(cfg, match_classes="iupac"))
+    # still off the slice: more diagonals than one thread block
+    assert not TFL.supported(dataclasses.replace(cfg, W=1152))

@@ -187,17 +187,11 @@ def test_wavefront_aligner_matches_reference_backends(metric, span, scope):
             assert port.locations == ref.locations
 
 
-@pytest.mark.parametrize("span", ["end-to-end", "ends-free"])
-@pytest.mark.parametrize("scope", ["full", "score"])
-@pytest.mark.parametrize("metric", ALL_METRICS)
-def test_supported_at_every_rung_of_the_ladder(metric, scope, span):
+def _ladder(attr, scope):
     """Every rung `_derive_config` and the escalation derive for 150 bp
-    reads, and the terminal rung of the API's 256 bp bucket, fits the
-    kernel: one thread a diagonal and the ring in shared memory (affine2p's
-    terminal rung, W 512 with a scope of 26, only with the ring's
-    per-component depth)."""
-    attr = PB.validate_alignment(
-        C.attributes_from_reference(_attr(metric, span, scope)), 150, 150)
+    reads under `attr` (the port's attributes), then the terminal rung of
+    the API's 256 bp bucket."""
+    attr = PB.validate_alignment(attr, 150, 150)
     Lp = Lt = PB._bucket_len(150)
     full_probe, cfg, _ = PB._derive_config(attr, Lp, Lt, 150, None, None,
                                            False)
@@ -218,6 +212,20 @@ def test_supported_at_every_rung_of_the_ladder(metric, scope, span):
     assert len(rungs) >= 2
     rungs.append(C.full_config(attr, 256, 256,
                                record_choices=scope == "full"))
+    return rungs
+
+
+@pytest.mark.parametrize("span", ["end-to-end", "ends-free"])
+@pytest.mark.parametrize("scope", ["full", "score"])
+@pytest.mark.parametrize("metric", ALL_METRICS)
+def test_supported_at_every_rung_of_the_ladder(metric, scope, span):
+    """Every rung `_derive_config` and the escalation derive for 150 bp
+    reads, and the terminal rung of the API's 256 bp bucket, fits the
+    kernel: one thread a diagonal and the ring in shared memory (affine2p's
+    terminal rung, W 512 with a scope of 26, only with the ring's
+    per-component depth)."""
+    rungs = _ladder(C.attributes_from_reference(_attr(metric, span, scope)),
+                    scope)
     for c in rungs:
         assert TFL.supported(c), (c.W, c.S_cap, TFL.smem_bytes(c))
         assert TFL.smem_bytes(c) <= TFL.SMEM_LIMIT
@@ -229,8 +237,39 @@ def test_supported_at_every_rung_of_the_ladder(metric, scope, span):
         assert 5 * 26 * 512 * 4 > TFL.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("scope", ["full", "score"])
+@pytest.mark.parametrize("kw", [
+    dict(heuristic="adaptive", span="end-to-end"), dict(heuristic="X-drop"),
+    dict(match=-1, text_begin_free=50, text_end_free=50),
+    dict(match=-1, heuristic="adaptive", pattern_begin_free=20),
+], ids=["adaptive", "xdrop", "seeded", "seeded-adaptive"])
+@pytest.mark.parametrize("metric", ["affine", "affine2p", "linear"])
+def test_new_variants_supported_at_every_rung(metric, kw, scope):
+    """The heuristic and seeded variants on the same ladders: the
+    cascade's reduction partials and, with a match bonus, the deeper ring
+    of the transformed penalties (affine2p at match -1: a scope of 53)
+    still fit one block; a heuristic's band cap keeps W at or under the
+    exact ladder's."""
+    api = pywfa_tpu_torch.WavefrontAligner(backend="numpy", distance=metric,
+                                           scope=scope, **kw)
+    rungs = _ladder(api._attributes(), scope)
+    exact = _ladder(dataclasses.replace(
+        api._attributes(), heuristic=type(api._attributes().heuristic)()),
+        scope)
+    for c, e in zip(rungs, exact):
+        assert TFL.supported(c), (c.W, c.S_cap, TFL.smem_bytes(c))
+        assert TFL.smem_bytes(c) <= TFL.SMEM_LIMIT
+        assert c.W <= e.W
+        suffix = "_heur" if "heuristic" in kw else ""
+        assert suffix in TFL.variant(c)
+        assert ("endsfreeseed" in TFL.variant(c)) == ("match" in kw)
+
+
 def test_variants_name_every_metric_span_and_scope():
-    assert len(TFL.VARIANTS) == 20 == len(set(TFL.VARIANTS))
+    """5 metrics x 2 spans x 2 scopes, each with and without a heuristic,
+    plus the seeded span (ends-free with a match bonus) for the three
+    metrics that carry a match weight."""
+    assert len(TFL.VARIANTS) == 52 == len(set(TFL.VARIANTS))
     assert set(TFL.variant_launches) == set(TFL.VARIANTS)
     seen = set()
     for metric in ALL_METRICS:
@@ -240,4 +279,13 @@ def test_variants_name_every_metric_span_and_scope():
                     _attr(metric, span, scope)), 64, 64,
                     record_choices=scope == "full")
                 seen.add(TFL.variant(cfg))
+                seen.add(TFL.variant(dataclasses.replace(cfg, strategy=8)))
+                if span == "ends-free" and TFL.supported(
+                        dataclasses.replace(cfg, match=-1)):
+                    for strategy in (0, 16):
+                        seen.add(TFL.variant(dataclasses.replace(
+                            cfg, match=-1, strategy=strategy)))
     assert seen == set(TFL.VARIANTS)
+    assert not TFL.supported(dataclasses.replace(
+        C.full_config(C.attributes_from_reference(
+            _attr("indel", "ends-free", "full")), 64, 64), match=-1))
