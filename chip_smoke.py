@@ -7,7 +7,8 @@ Phases (any failure raises and exits nonzero; nothing falls back):
 
 1. Device: the card's name and power limit from nvidia-smi, whether the
    native host library built and loaded; exits nonzero without CUDA.
-2. Build: compiles the fused-loop CUDA kernel (52 variants: 5 distance
+2. Build: compiles both CUDA sources side by side, the run-length table
+   (K3) and the fused-loop kernel (52 variants: 5 distance
    metrics x 2 spans x 2 scopes, each with and without the heuristic
    cascade, plus the seeded ends-free span of the 3 metrics with a match
    weight) from the checkout; prints ptxas' registers and spills per
@@ -32,7 +33,10 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    the record and score only, and under wf-adaptive at the terminal
    rung; affine2p under wf-adaptive at its first rung; and one
    WavefrontAligner call for every heuristic or seeded variant of every
-   metric. Both times by CUDA
+   metric. Each of these shapes launches the narrow kernel (one diagonal
+   a thread, no state); the general kernel, which a run that keeps a
+   state launches, is held against the same plain result and timed
+   beside it. All times by CUDA
    events; beside them the bound, the least time the card could take: the
    eq words read once plus the choice levels these pairs write over 3.35
    TB/s, or the cells these pairs compute times an operation count a cell
@@ -79,6 +83,33 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    WF-extension under gap-affine: every heuristic and seeded variant
    launches.
 
+10. Long reads (the segmented executor, the run-length table K3, bands
+   past 1024 diagonals). K3 against its plain version at the shapes the
+   paths give it: Ltp=176, B=4096, W=256 (uint8), the 1 kb segmented shape
+   of stream F (int16), one with a wildcard, one with B=16 and W=1152. The
+   fused loop's table variant against its plain version and against the
+   bits variant at that 1 kb shape, as the segments stream F runs (first
+   segment from WF0, then a later one from the stored state; the forward
+   scope without the record and the replay scope with it), with the times
+   of both extensions. The wide-band layouts against plain: W=2176 (a
+   thread owns several diagonals, the ring in shared memory) and the
+   second rung of 10 kb reads (the ring in global memory) with batch G's
+   16 pairs, a later segment from the kernel's own state, each with its
+   bound. Then stream E, 4 x 256 pairs of
+   1 kb, ONT-like (4% substitutions, 3% indels), gap-affine end to end,
+   full CIGAR, memory mode high: pairs escalate past the first rung;
+   stream F, the same pairs under memory_mode="biwfa": the escalated
+   rung's record passes the mode's budget, so the segmented executor runs,
+   launching K3 and the table variants, in more than one segment a run,
+   with results equal to E's pair for pair; batch G, 16 pairs of 10 kb at
+   5% divergence under memory_mode="low" (second rung segmented, on bits,
+   ring in global memory) equal to the same batch under high and, for two
+   pairs, to the oracle; resume: E's first batch with max_steps=200
+   through align_pairs_resumable, then align_pairs_resume, equal to the
+   fresh results; and WavefrontAligner(device="cuda") on single 1 kb and
+   5 kb pairs in both scopes. No pair of these phases may go to the host
+   oracle.
+
 Each main-path phase zeroes the kernels' launch counts and the count of
 pairs sent to the host oracle just before it and reads them just after; it
 fails unless its kernel variants launched, if a timed stream or an API
@@ -114,6 +145,15 @@ N_RATE = 0.01
 N_API = 256
 N_METRIC_API = 64
 MAXS = 2**31 - 1
+# long reads: streams E and F, batch G
+L_LONG = 1000
+B_LONG = 256
+N_LONG_BATCHES = 4
+ONT_SUB, ONT_IND = 0.04, 0.03
+L_G = 10000
+B_G = 16
+G_SUB, G_IND = 0.04, 0.025
+RESUME_STEPS = 200
 
 # the four metrics beside gap-affine, as WavefrontAligner's `distance`
 METRICS = ("affine2p", "linear", "levenshtein", "indel")
@@ -214,20 +254,46 @@ def make_n_pairs(rng, n, length, divergence, rate=N_RATE):
     return with_n(pats), with_n(txts)
 
 
+def make_ont_pairs(rng, n, length, sub, ind):
+    """n pairs: random ACGT patterns of `length` bp; each text copies its
+    pattern base by base, dropping a base with probability ind / 2,
+    inserting a random base before it with probability ind / 2, and
+    replacing it by a random base (itself included) with probability
+    sub."""
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pats, txts = [], []
+    for _ in range(n):
+        p = alphabet[rng.integers(0, 4, length)]
+        r = rng.random(length)
+        keep = r >= ind / 2
+        insert = keep & (r < ind)
+        base = np.where(rng.random(length) < sub,
+                        alphabet[rng.integers(0, 4, length)], p)
+        # each kept base, preceded by a random base where one is inserted
+        out = np.empty((length, 2), dtype=np.uint8)
+        out[:, 0] = alphabet[rng.integers(0, 4, length)]
+        out[:, 1] = base
+        take = np.stack([insert, keep], axis=1)
+        pats.append(p.tobytes())
+        txts.append(out[take].tobytes() or b"A")
+    return pats, txts
+
+
 def reset_counts():
-    """Zero the fused loop's launch counts, by variant, and the count of
-    pairs sent to the host oracle, by reason."""
+    """Zero the kernels' launch counts (the fused loop's by variant, the
+    run-length table's), the count of pairs sent to the host oracle, by
+    reason, and the segmented executor's counts."""
     from pywfa_tpu_torch import batch as PB
-    from pywfa_tpu_torch.ops import fused_loop
-    for k in fused_loop.variant_launches:
-        fused_loop.variant_launches[k] = 0
-    for k in PB.oracle_fallbacks:
-        PB.oracle_fallbacks[k] = 0
+    from pywfa_tpu_torch.ops import fused_loop, lcp_table
+    for counts in (fused_loop.variant_launches, lcp_table.launches,
+                   PB.oracle_fallbacks, PB.segmented_runs):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_counts():
-    from pywfa_tpu_torch.ops import fused_loop
-    return dict(fused_loop.variant_launches)
+    from pywfa_tpu_torch.ops import fused_loop, lcp_table
+    return dict(fused_loop.variant_launches, **lcp_table.launches)
 
 
 def launched(counts):
@@ -363,23 +429,30 @@ def phase_device():
 def phase_build():
     from pywfa_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    path = cuda_build.build()
-    cuda_build.load()
-    log(f"build: {time.perf_counter() - t0:.2f} s ({path})")
-    if cuda_build.last_build is not None:
-        # one line a kernel: template arguments <metric, span, record,
-        # heuristic>
+    paths = cuda_build.build()
+    for name in paths:
+        cuda_build.load(name)
+    log(f"build: {time.perf_counter() - t0:.2f} s, both sources side by "
+        f"side ({', '.join(sorted(paths.values()))})")
+    for lib, (seconds, output) in sorted(cuda_build.last_build.items()):
+        log(f"  nvcc {lib}.cu: done after {seconds:.2f} s")
+        # one line a kernel: the fused loop's template arguments <metric,
+        # span, record, heuristic>, the table's output type
         name = "?"
         spills = ""
-        for line in cuda_build.last_build[1].splitlines():
-            m = re.search(r"fused_loopILi(\d)ELi(\d)ELb([01])ELb([01])E",
-                          line)
+        for line in output.splitlines():
+            m = re.search(r"fused_loop(_narrow)?ILi(\d)ELi(\d)ELb([01])"
+                          r"ELb([01])E", line)
+            t = re.search(r"lcp_tableI(\w)E", line)
             if m and "Compiling" in line:
-                name = "<{}, {}, {}, {}>".format(*m.groups())
+                name = "{}<{}, {}, {}, {}>".format(m.group(1) or "",
+                                                   *m.groups()[1:])
+            elif t and "Compiling" in line:
+                name = "<uint8>" if t.group(1) == "h" else "<int16>"
             elif "spill" in line:
                 spills = line.strip()
             elif "registers" in line:
-                log(f"  ptxas fused_loop{name}: "
+                log(f"  ptxas {lib}{name}: "
                     f"{line.split(':', 1)[1].strip()}; {spills}")
 
 
@@ -436,7 +509,8 @@ def api_single_inputs(attr, pat, txt):
     return (pats, txts), cfg
 
 
-def kernel_bound(cfg, args, out, cells):
+def kernel_bound(cfg, args, out, cells, seg_base=0, state_bytes=0,
+                 ext_bytes=None):
     """(bound_ms, bound_by): the least time the card could take for this
     call. Bytes: every input read once (the eq words, the lengths, the
     frees on the ends-free span) and every output written once (the result
@@ -444,15 +518,18 @@ def kernel_bound(cfg, args, out, cells):
     each; the memset of the whole [S_cap, B, W] tensor is not counted)
     over the card's memory rate. Operations: the cells these pairs compute
     (the non-zero choice bytes of the recording run, plus WF0) times the
-    metric's count a cell, over the card's 32-bit rate."""
+    metric's count a cell, over the card's 32-bit rate. A segment from
+    score seg_base also moves state_bytes (its state, read and written),
+    and of the extension's input only ext_bytes, what its cells read."""
     from pywfa_tpu_torch.constants import AlignmentSpan
     bits = args[0]
     B = bits.shape[1]
-    nbytes = bits.numel() * 4 + B * 8 + B * 16
+    nbytes = (bits.numel() * 4 if ext_bytes is None else ext_bytes)
+    nbytes += B * 8 + B * 16 + state_bytes
     if cfg.span == AlignmentSpan.ENDS_FREE:
         nbytes += B * 16
     if cfg.record_choices:
-        nbytes += int(out["final_s"].clamp(min=0).sum()) * cfg.W
+        nbytes += int((out["final_s"] - seg_base).clamp(min=0).sum()) * cfg.W
     ops = cells * OPS_PER_CELL[cfg.n_comp]
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     t_ops = 1e3 * ops / PEAK_OPS_PER_S
@@ -536,9 +613,20 @@ def phase_kernel_vs_plain(attr, dev):
                 raise AssertionError(f"{name}: {key} {a.shape}/{a.dtype} vs "
                                      f"{b.shape}/{b.dtype}")
             err = max(err, int((a.long() - b.long()).abs().max()))
+        # the general kernel on the same inputs (a run that keeps a state
+        # launches it; without one these shapes launch the narrow kernel)
+        st = fused_loop.new_state(cfg, len(pats), dev)
+
+        def general():
+            return fused_loop.align_batch_fused_loop(cfg, *args, ms,
+                                                     state=st, fresh=True)
+
+        err = max(err, _max_err(name, general(), want, LOOP_KEYS))
         status = torch.bincount(got["status"].long(), minlength=6).tolist()
         k_ms = cuda_ms(lambda: fused_loop.align_batch_fused_loop(
             cfg, *args, ms), 20)
+        g_ms = cuda_ms(general, 20)
+        del st
         p_ms = cuda_ms(lambda: fused_loop.align_batch_fused_loop_ref(
             cfg, *args, ms), 2)
         rec = got if cfg.record_choices else fused_loop.align_batch_fused_loop(
@@ -551,11 +639,13 @@ def phase_kernel_vs_plain(attr, dev):
             f"Lt={cfg.Lt} NQ={args[0].shape[0]} "
             f"steps={int(got['steps'])} "
             f"status_counts={status} max_abs_err={err} "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f} "
+            f"kernel_ms={k_ms:.4f} general_kernel_ms={g_ms:.4f} "
+            f"plain_ms={p_ms:.2f} "
             f"bound_ms={b_ms:.3g} bound_by={b_by} cells={cells} "
             f"smem={fused_loop.smem_bytes(cfg)}")
         if err != 0:
-            raise AssertionError(f"{name}: kernel differs from plain version")
+            raise AssertionError(f"{name}: the narrow or the general kernel "
+                                 "differs from the plain version")
         records[name] = dict(variant=fused_loop.variant(cfg), err=err,
                              ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                              bound_by=b_by, B=len(pats))
@@ -1157,6 +1247,482 @@ def phase_slice_api(dev):
     return total
 
 
+def make_long_inputs():
+    """The pairs of the long-read phases, from the seed: streams E and F
+    (N_LONG_BATCHES batches of B_LONG ONT-like 1 kb pairs) and batch G
+    (B_G pairs of 10 kb at 5% divergence)."""
+    rng = np.random.default_rng(SEED + 8)
+    return dict(
+        ef=[make_ont_pairs(rng, B_LONG, L_LONG, ONT_SUB, ONT_IND)
+            for _ in range(N_LONG_BATCHES)],
+        g=make_ont_pairs(rng, B_G, L_G, G_SUB, G_IND))
+
+
+def rung2_config(attr, pats, txts, B):
+    """The second rung the batch path picks for the pairs that pass the
+    first (batch.align_pairs_finish's escalation): 4x the score cap, the
+    band sized to match, for a batch of B pairs."""
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.attributes import validate_alignment
+    from pywfa_tpu_torch.ops import config as C
+    maxLp, maxLt = max(map(len, pats)), max(map(len, txts))
+    attr0 = validate_alignment(attr, maxLp, maxLt)
+    Lp, Lt = PB._bucket_len(maxLp), PB._bucket_len(maxLt)
+    full, cfg, _ = PB._derive_config(attr0, Lp, Lt, min(maxLp, maxLt), None,
+                                     None, False, None)
+    next_S = min(cfg.S_cap * 4, full.S_cap)
+    next_W = min(full.W, C._round_up(
+        max(PB._band_for_score(attr0, next_S, maxLp, maxLt), cfg.W * 2),
+        128))
+    return PB._derive_config(attr0, Lp, Lt, min(maxLp, maxLt), next_W,
+                             next_S, True, None)[1]
+
+
+def _token_rows(cfg, pats, txts, dev):
+    """(pat, txt, plen, tlen, frees) on the card: the int8 token rows as
+    the segmented executor pushes them, zero frees."""
+    from pywfa_tpu_torch import batch as PB
+    plens = np.fromiter(map(len, pats), dtype=np.int32, count=len(pats))
+    tlens = np.fromiter(map(len, txts), dtype=np.int32, count=len(txts))
+    pat_np, _ = PB._encode_side(pats, cfg.Lp, cfg.extend_chunk,
+                                PB.PATTERN_SENTINEL, plens)
+    txt_np, _ = PB._encode_side(txts, cfg.Lt, cfg.extend_chunk,
+                                PB.TEXT_SENTINEL, tlens)
+    return (PB._to_device(pat_np, dev), PB._to_device(txt_np, dev),
+            PB._to_device(plens, dev), PB._to_device(tlens, dev),
+            torch.zeros((len(pats), 4), dtype=torch.int32, device=dev))
+
+
+def _max_err(name, got, want, keys):
+    err = 0
+    for key in keys:
+        if key not in want:
+            continue
+        a, b = got[key], want[key]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name}: {key} {a.shape}/{a.dtype} vs "
+                                 f"{b.shape}/{b.dtype}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+LOOP_KEYS = ("status", "final_s", "end_k", "end_off", "choices")
+
+
+def _state_err(name, got, want, running):
+    """Largest difference between two states over the pairs still
+    running (a done pair's ring is never read again)."""
+    return _max_err(name, {k: got[k][running] for k in ("ring", "lohi",
+                                                        "carry")},
+                    {k: want[k][running] for k in ("ring", "lohi", "carry")},
+                    ("ring", "lohi", "carry"))
+
+
+def phase_long_kernels(dev, long_inputs):
+    """K3, the table variants and the wide-band layouts against their
+    plain versions (see the module docstring, phase 10)."""
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.constants import MemoryMode
+    from pywfa_tpu_torch.ops import config as C
+    from pywfa_tpu_torch.ops import engine as TE
+    from pywfa_tpu_torch.ops import fused_loop, lcp_table
+    rng = np.random.default_rng(SEED + 9)
+    attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
+    records = {}
+    pats1k, txts1k = long_inputs["ef"][0]
+    cfg_f = rung2_config(attr, pats1k, txts1k, B_LONG)
+    # the segment length stream F runs this rung at
+    budget = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
+                 // PB.MEMORY_MODE_DIVISOR[MemoryMode.ULTRALOW])
+    K = max(64, budget // (B_LONG * cfg_f.W))
+    if cfg_f.S_cap * B_LONG * cfg_f.W <= budget or K >= cfg_f.S_cap:
+        raise AssertionError(f"stream F's second rung {cfg_f.S_cap}x{B_LONG}x"
+                             f"{cfg_f.W} would not run in segments")
+    cfg_f = dataclasses.replace(cfg_f, S_cap=K, record_choices=False)
+
+    # --- K3 against its plain version ---
+    main = make_pairs(rng, B_MAIN, L, DIV)
+    wild = make_n_pairs(rng, B_LONG, L, DIV)
+    mid = make_ont_pairs(rng, 16, 400, ONT_SUB, ONT_IND)
+    shapes = [
+        ("lcp_short_u8", main, C.full_config(attr, 160, 160, W=256), -1),
+        ("lcp_1kb_i16", (pats1k, txts1k), cfg_f, -1),
+        ("lcp_wildcard_u8", wild,
+         C.full_config(attr, 160, 160, W=256, wildcard=ord("N")), ord("N")),
+        ("lcp_w1152_i16", mid, C.full_config(attr, 512, 512, W=1152), -1),
+    ]
+    for name, (pats, txts), cfg, wildcard in shapes:
+        pat, txt, *_ = _token_rows(cfg, pats, txts, dev)
+
+        def kernel():
+            return lcp_table.build_lcp_table_hmajor(cfg.W, cfg.kmin, wildcard,
+                                                    pat, txt)
+
+        def plain():
+            return lcp_table.build_lcp_table_hmajor_ref(cfg.W, cfg.kmin,
+                                                        wildcard, pat, txt)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = _max_err(name, {"R": got}, {"R": want}, ("R",))
+        nbytes = got.numel() * got.element_size() + pat.numel() + txt.numel()
+        del got, want
+        k_ms, p_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
+        # a cell: the window index, two loads, the compare, the run, a store
+        t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+        t_ops = 1e3 * txt.shape[1] * len(pats) * cfg.W * 8 / PEAK_OPS_PER_S
+        log(f"kernel vs plain [{name}] kernel=lcp_table B={len(pats)} "
+            f"W={cfg.W} Lpp={pat.shape[1]} Ltp={txt.shape[1]} "
+            f"wildcard={wildcard} out_bytes={nbytes} max_abs_err={err} "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f} "
+            f"bound_ms={max(t_bytes, t_ops):.3g} "
+            f"bound_by={'bytes' if t_bytes >= t_ops else 'operations'}")
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from plain version")
+        records[name] = dict(
+            variant="lcp_table", err=err, ms=k_ms, plain_ms=p_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            B=len(pats))
+
+    # --- the table variant against plain and against the bits variant, as
+    # the segments of stream F: the forward scope and the replay scope ---
+    pat, txt, plen, tlen, frees = _token_rows(cfg_f, pats1k, txts1k, dev)
+    table = TE.build_extension(cfg_f, pat, txt)["table"]
+    bits = TE.build_eq_bits(cfg_f, pat, txt)
+    if table is None:
+        raise AssertionError("the 1 kb segmented shape must extend by table")
+    for record in (False, True):
+        cfg = dataclasses.replace(cfg_f, record_choices=record)
+        name = "table_1kb" + ("_replay" if record else "_forward")
+
+        def segment(fn, state, fresh, use_table=True):
+            return fn(cfg, None if use_table else bits, plen, tlen, frees,
+                      MAXS, table=table if use_table else None, state=state,
+                      fresh=fresh, seg_base=0 if fresh else K - 1)
+
+        states = {}
+        outs = {}
+        err = 0
+        for fresh in (True, False):
+            for tag, fn, use_table in (
+                    ("kernel", fused_loop.align_batch_fused_loop, True),
+                    ("plain", fused_loop.align_batch_fused_loop_ref, True),
+                    ("bits", fused_loop.align_batch_fused_loop, False)):
+                if fresh:
+                    states[tag] = fused_loop.new_state(cfg, B_LONG, dev)
+                outs[tag] = segment(fn, states[tag], fresh, use_table)
+            torch.cuda.synchronize()
+            running = outs["kernel"]["status"] == 5
+            for other in ("plain", "bits"):
+                err = max(err,
+                          _max_err(name, outs["kernel"], outs[other],
+                                   LOOP_KEYS),
+                          _state_err(name, states["kernel"], states[other],
+                                     running))
+            if fresh and not bool(running.any()):
+                raise AssertionError(f"{name}: no pair passes the first "
+                                     "segment")
+        status = torch.bincount(outs["kernel"]["status"].long(),
+                                minlength=6).tolist()
+        st = fused_loop.new_state(cfg, B_LONG, dev)
+        k_ms = cuda_ms(lambda: segment(fused_loop.align_batch_fused_loop, st,
+                                       True), 10)
+        b_ms = cuda_ms(lambda: segment(fused_loop.align_batch_fused_loop, st,
+                                       True, False), 10)
+        p_ms = cuda_ms(lambda: segment(fused_loop.align_batch_fused_loop_ref,
+                                       st, True), 1)
+        # the bound of the first segment: the table cells these pairs read
+        # (one load a cell a step), the state written once, the levels
+        first = fused_loop.align_batch_fused_loop(
+            dataclasses.replace(cfg, record_choices=True), None, plen, tlen,
+            frees, MAXS, table=table)
+        cells = int(torch.count_nonzero(first["choices"])) + B_LONG
+        state_bytes = sum(st[k].numel() * 4 for k in ("ring", "lohi",
+                                                      "carry"))
+        nbytes = (cells * table.element_size() + state_bytes + B_LONG * 40
+                  + (int(first["final_s"].clamp(min=0).sum()) * cfg.W
+                     if record else 0))
+        del first
+        t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+        t_ops = 1e3 * cells * OPS_PER_CELL[cfg.n_comp] / PEAK_OPS_PER_S
+        variant = fused_loop.variant(cfg, table=True)
+        log(f"kernel vs plain [{name}] variant={variant} B={B_LONG} "
+            f"W={cfg.W} K={K} Ltp={table.shape[0]} segments=2 "
+            f"status_counts={status} max_abs_err={err} "
+            f"kernel_ms={k_ms:.4f} bits_kernel_ms={b_ms:.4f} "
+            f"plain_ms={p_ms:.2f} bound_ms={max(t_bytes, t_ops):.3g} "
+            f"bound_by={'bytes' if t_bytes >= t_ops else 'operations'} "
+            f"cells={cells} threads={fused_loop.block_threads(cfg.W)}")
+        if err != 0:
+            raise AssertionError(f"{name}: the table variant differs from "
+                                 "its plain version or the bits variant")
+        records[name] = dict(
+            variant=variant, err=err, ms=k_ms, plain_ms=p_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", B=B_LONG)
+    del table, bits
+
+    # --- the wide-band layouts against plain ---
+    low = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
+    pats_g, txts_g = long_inputs["g"]
+    cfg_g = dataclasses.replace(rung2_config(low, pats_g, txts_g, B_G),
+                                record_choices=False)
+    wide = [
+        ("wide_2176_shared_ring",
+         (pats1k[:8], txts1k[:8]),
+         dataclasses.replace(C.full_config(attr, 1024, 1088, W=2176),
+                             S_cap=700), 0),
+        # the 10 kb rung at batch G's own B: the kernel runs 8 segments of
+        # 96 scores, then kernel and plain run one more from copies of
+        # that state (G's segments are longer: the plain version is one
+        # Python iteration a score)
+        ("wide_10kb_global_ring", (pats_g, txts_g),
+         dataclasses.replace(cfg_g, S_cap=96), 8),
+        ("wide_10kb_global_ring_replay", (pats_g, txts_g),
+         dataclasses.replace(cfg_g, S_cap=96, record_choices=True), 8),
+    ]
+    for name, (pats, txts), cfg, lead in wide:
+        pat, txt, plen, tlen, frees = _token_rows(cfg, pats, txts, dev)
+        bits = TE.build_eq_bits(cfg, pat, txt)
+        in_global = fused_loop.ring_in_global(cfg)
+        if in_global != ("global" in name):
+            raise AssertionError(f"{name}: ring_in_global={in_global}")
+        if lead == 0:
+            def kernel():
+                return fused_loop.align_batch_fused_loop(
+                    cfg, bits, plen, tlen, frees, MAXS)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = fused_loop.align_batch_fused_loop_ref(
+                cfg, bits, plen, tlen, frees, MAXS)
+            torch.cuda.synchronize()
+            p_ms = 1e3 * (time.perf_counter() - t0)
+            err = _max_err(name, got, want, LOOP_KEYS)
+            k_ms = cuda_ms(kernel, 5)
+            cells = int(torch.count_nonzero(got["choices"])) + len(pats)
+            b_ms, b_by = kernel_bound(cfg, (bits,), got, cells)
+        else:
+            fwd = dataclasses.replace(cfg, record_choices=False)
+            ext = dict(bits=bits, table=None)
+            out, state = TE.align_batch_start(fwd, ext, plen, tlen, frees,
+                                              MAXS)
+            for _ in range(lead - 1):
+                out, state = TE.align_batch_resume(fwd, ext, plen, tlen,
+                                                   frees, MAXS, state)
+            if not bool((out["status"] == 5).all()):
+                raise AssertionError(f"{name}: pairs ended in the lead")
+
+            def copy():
+                return {k: (v.clone() if torch.is_tensor(v) else v)
+                        for k, v in state.items()}
+
+            def kernel(st=None):
+                return fused_loop.align_batch_fused_loop(
+                    cfg, bits, plen, tlen, frees, MAXS, state=st or copy(),
+                    fresh=False, seg_base=state["s"])
+
+            sk, sp = copy(), copy()
+            got = kernel(sk)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = fused_loop.align_batch_fused_loop_ref(
+                cfg, bits, plen, tlen, frees, MAXS, state=sp, fresh=False,
+                seg_base=state["s"])
+            torch.cuda.synchronize()
+            p_ms = 1e3 * (time.perf_counter() - t0)
+            err = max(_max_err(name, got, want, LOOP_KEYS),
+                      _state_err(name, sk, sp, got["status"] == 5))
+            k_ms = cuda_ms(kernel, 5)  # with the state's copy
+            # the bound of this segment: the words its cells read, its
+            # state in and out, its levels
+            rec = got if cfg.record_choices else \
+                fused_loop.align_batch_fused_loop(
+                    dataclasses.replace(cfg, record_choices=True), bits,
+                    plen, tlen, frees, MAXS, state=copy(), fresh=False,
+                    seg_base=state["s"])
+            cells = int(torch.count_nonzero(rec["choices"]))
+            del rec
+            state_bytes = 2 * sum(state[k].numel() * 4
+                                  for k in ("ring", "lohi", "carry"))
+            b_ms, b_by = kernel_bound(cfg, (bits,), got, cells,
+                                      seg_base=state["s"],
+                                      state_bytes=state_bytes,
+                                      ext_bytes=cells * 4)
+        status = torch.bincount(got["status"].long(), minlength=6).tolist()
+        log(f"kernel vs plain [{name}] variant={fused_loop.variant(cfg)} "
+            f"B={len(pats)} W={cfg.W} S_cap={cfg.S_cap} Lt={cfg.Lt} "
+            f"NQ={bits.shape[0]} ring_in_global={in_global} "
+            f"threads={fused_loop.block_threads(cfg.W)} "
+            f"final_s_max={int(got['final_s'].max())} "
+            f"status_counts={status} max_abs_err={err} "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.1f} "
+            f"bound_ms={b_ms:.3g} bound_by={b_by} cells={cells}")
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from plain version")
+        records[name] = dict(variant=fused_loop.variant(cfg), err=err,
+                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, B=len(pats))
+        del bits
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_long_reads(dev, long_inputs):
+    """Streams E and F, batch G, resume and the single long pairs (see the
+    module docstring, phase 10)."""
+    import pywfa_tpu_torch
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
+    rng = np.random.default_rng(SEED + 10)
+    total = collections.Counter()
+    batches = long_inputs["ef"]
+    n = N_LONG_BATCHES * B_LONG
+
+    def stream(name, aligner):
+        list(aligner.align_stream(iter(batches[:1]), depth=1))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = list(aligner.align_stream(iter(batches), depth=3))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        seg = dict(PB.segmented_runs)
+        check_fallbacks(f"stream {name}", timed=True)
+        flat = [r for rs in results for r in rs]
+        if len(flat) != n or any(r.status != 0 for r in flat):
+            raise AssertionError(f"stream {name}: not every pair completed")
+        log(f"stream [{name}]: {N_LONG_BATCHES} batches, {n} pairs of "
+            f"{L_LONG} bp in {wall:.3f} s = {n / wall:.0f} alignments/s "
+            f"({1e3 * wall / N_LONG_BATCHES:.1f} ms/batch); segmented "
+            f"{seg}; launches {launched(c)}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        total.update(c)
+        return flat, c, seg
+
+    e_res, c, seg = stream("E 1 kb high", BatchWavefrontAligner(
+        span="end-to-end", device=dev))
+    if c["e2e"] < 2 * N_LONG_BATCHES or seg["runs"]:
+        raise AssertionError("stream E must escalate past its first rung in "
+                             f"one shot: launches {launched(c)}, {seg}")
+    pats = [p for b in batches for p in b[0]]
+    txts = [t for b in batches for t in b[1]]
+    attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
+    for i in sorted(rng.choice(n, 8, replace=False).tolist()):
+        want = _result_fields(PB._oracle_one(attr, pats[i], txts[i]))
+        if _result_fields(e_res[i]) != want:
+            raise AssertionError(f"stream E pair {i} differs from the oracle")
+    log("oracle: stream [E]: 8 sampled pairs equal")
+
+    f_res, c, seg = stream("F 1 kb biwfa", BatchWavefrontAligner(
+        span="end-to-end", memory_mode="biwfa", device=dev))
+    if (seg["runs"] < N_LONG_BATCHES or seg["segments"] <= seg["runs"]
+            or seg["replays"] <= seg["runs"]):
+        raise AssertionError(f"stream F must run in segments: {seg}")
+    for variant in ("lcp_table", "e2e_score_table", "e2e_table"):
+        if c[variant] < N_LONG_BATCHES:
+            raise AssertionError(f"stream F launched {variant} "
+                                 f"{c[variant]} times")
+    if list(map(_result_fields, f_res)) != list(map(_result_fields, e_res)):
+        raise AssertionError("stream F differs from stream E")
+    log(f"stream [F] equals stream [E] pair for pair ({n} pairs, every "
+        "field)")
+
+    # --- batch G: 10 kb under low against high and the oracle ---
+    pats_g, txts_g = long_inputs["g"]
+    g = {}
+    for mode in ("high", "low"):
+        aligner = BatchWavefrontAligner(span="end-to-end", memory_mode=mode,
+                                        device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        g[mode] = aligner.align(pats_g, txts_g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        seg = dict(PB.segmented_runs)
+        check_fallbacks(f"batch G {mode}", timed=True)
+        log(f"batch [G 10 kb {mode}]: {B_G} pairs of {L_G} bp in "
+            f"{wall:.3f} s; scores {min(r.score for r in g[mode])}.."
+            f"{max(r.score for r in g[mode])}; segmented {seg}; launches "
+            f"{launched(c)}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        if (mode == "low") != bool(seg["runs"]):
+            raise AssertionError(f"batch G {mode}: segmented runs {seg}")
+        if mode == "low" and (seg["segments"] <= seg["runs"]
+                              or c["lcp_table"] or c["e2e_score"] < 2):
+            raise AssertionError("batch G low must run in segments on the "
+                                 f"equality bits: {seg}, {launched(c)}")
+        total.update(c)
+    if list(map(_result_fields, g["low"])) != list(map(_result_fields,
+                                                       g["high"])):
+        raise AssertionError("batch G under low differs from high")
+    t0 = time.perf_counter()
+    for i in (0, B_G - 1):
+        want = _result_fields(PB._oracle_one(attr, pats_g[i], txts_g[i]))
+        if _result_fields(g["low"][i]) != want:
+            raise AssertionError(f"batch G pair {i} differs from the oracle")
+    log(f"batch [G] low equals high on {B_G} pairs, and the oracle on 2 "
+        f"(oracle: {time.perf_counter() - t0:.1f} s)")
+
+    # --- resume: E's first batch paused at RESUME_STEPS steps ---
+    small = dataclasses.replace(attr, system=dataclasses.replace(
+        attr.system, max_alignment_steps=RESUME_STEPS))
+    reset_counts()
+    t0 = time.perf_counter()
+    res, paused = PB.align_pairs_resumable(small, *batches[0], device=dev)
+    n_paused = sum(r.status == PB.STATUS_MAX_STEPS_REACHED for r in res)
+    if paused is None or n_paused < B_LONG // 2:
+        raise AssertionError(f"resume: {n_paused} pairs paused")
+    res, paused = PB.align_pairs_resume(paused, 10**6)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counts()
+    check_fallbacks("resume", timed=True)
+    if paused is not None or list(map(_result_fields, res)) != list(
+            map(_result_fields, e_res[:B_LONG])):
+        raise AssertionError("the resumed batch differs from the fresh one")
+    log(f"resume: {n_paused} of {B_LONG} pairs paused at {RESUME_STEPS} "
+        f"steps, resumed "
+        f"equal to the fresh results in {wall:.3f} s; segmented "
+        f"{dict(PB.segmented_runs)}; launches {launched(c)}")
+    total.update(c)
+
+    # --- WavefrontAligner on single long pairs, both scopes ---
+    reset_counts()
+    singles = [make_ont_pairs(rng, 1, length, ONT_SUB, ONT_IND)
+               for length in (1000, 5000)]
+    for (p,), (t,) in singles:
+        for scope in ("full", "score"):
+            for kw in ({}, {"span": "end-to-end"}):
+                port = pywfa_tpu_torch.WavefrontAligner(scope=scope,
+                                                        device=dev, **kw)
+                ref = RefAligner(scope=scope, backend="numpy", **kw)
+                t0 = time.perf_counter()
+                got = _api_fields(port(t.decode(), p.decode()))
+                ms = 1e3 * (time.perf_counter() - t0)
+                if got != _api_fields(ref(t.decode(), p.decode())):
+                    raise AssertionError(
+                        f"WavefrontAligner({scope}, {kw}) on a {len(p)} bp "
+                        "pair differs from the oracle")
+                log(f"api long [{len(p)} bp, {scope}, "
+                    f"{kw.get('span', 'ends-free')}]: equal to the oracle, "
+                    f"score {got[0]}, {ms:.1f} ms")
+    c = read_counts()
+    check_fallbacks("api long", timed=True)
+    log(f"api long: launches {launched(c)}")
+    total.update(c)
+    return total
+
+
 def main():
     phase_device()
     dev = torch.device("cuda", 0)
@@ -1166,10 +1732,13 @@ def main():
     records = phase_kernel_vs_plain(attr, dev)
     # launches of the main paths only: each phase zeroes the counts before
     # its path and reads them after it
+    long_inputs = make_long_inputs()
+    records.update(phase_long_kernels(dev, long_inputs))
     launches = collections.Counter()
     for phase in (phase_stream, phase_api, phase_new_streams, phase_metrics,
                   phase_slice_streams, phase_slice_api):
         launches.update(phase(dev))
+    launches.update(phase_long_reads(dev, long_inputs))
     nvidia_smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1194,7 +1763,25 @@ def kernel_records(records, launches):
     branch = {"": None, "affine2p_": 640, "linear_": 590, "edit_": 569,
               "indel_": 569}
     kernels = []
-    for variant in fused_loop.VARIANTS:
+    # the table variants the long-read paths launch: at least the forward
+    # and the replay scope of gap-affine end to end
+    table_variants = tuple(v for v in fused_loop.TABLE_VARIANTS
+                           if launches[v] or v in ("e2e_table",
+                                                   "e2e_score_table"))
+    if launches["lcp_table"] == 0:
+        raise AssertionError("no main path launched lcp_table")
+    held = [r for r in records.values() if r["variant"] == "lcp_table"]
+    # the shape stream F and the resume phase launch it at
+    timed = records["lcp_1kb_i16"]
+    kernels.append({
+        "name": "lcp_table", "route": "cuda",
+        "source": "pywfa_tpu_torch/csrc/lcp_table.cu",
+        "replaces": "pywfa_tpu/ops/pallas/lcp_table.py:86",
+        "launches": launches["lcp_table"],
+        "max_abs_err": max(r["err"] for r in held), "ms": timed["ms"],
+        "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"], "library_ms": None})
+    for variant in fused_loop.VARIANTS + table_variants:
         if launches[variant] == 0:
             raise AssertionError(f"no main path launched {variant}")
         prefix = next(p for p in sorted(branch, key=len, reverse=True)
@@ -1206,12 +1793,15 @@ def kernel_records(records, launches):
         # the shape whose times stand for the variant: the first of the
         # largest batches it was held at on a main path's inputs
         timed = max(held, key=lambda r: r["B"])
+        # (a table variant is its base variant's instantiation)
+        base = variant[:-len("_table")] if variant.endswith("_table") \
+            else variant
         if "_heur" in variant:
             line = 397
         elif "endsfreeseed" in variant:
             line = 720
         else:
-            line = branch[prefix] or (919 if variant.endswith("_score")
+            line = branch[prefix] or (919 if base.endswith("_score")
                                       else 197)
         kernels.append({
             "name": f"fused_loop_{variant}", "route": "cuda",

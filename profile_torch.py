@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Host and device breakdown of the PyTorch port's paths on one CUDA GPU.
 
-    python3 profile_torch.py
+    python3 profile_torch.py [api] [streams] [slice] [long]
+
+(every section when none is named)
 
 Wraps the port's stage functions with host timers (inclusive: nested
 stages add up to more than the wall; device stages show their enqueue
@@ -16,7 +18,17 @@ time unless they synchronise) and runs:
 - align_pairs_stream, depth 3, 4 x 4096 pairs, twice each, over
   chip_smoke.py's streams A-D: wf-adaptive with a divergent share, z-drop
   with chimeric reads (partial results), ends-free windows with match -1,
-  wildcard N.
+  wildcard N;
+- the long-read paths of chip_smoke.py: stream E (4 x 256 ONT-like pairs
+  of 1 kb, memory mode high: two one-shot rungs), stream F (the same under
+  memory_mode="biwfa": the second rung segmented, with the run-length
+  table) and batch G (16 pairs of 10 kb under high and under low), with
+  the segmented run's stages timed apart: the forward segments
+  (align_batch_start / align_batch_resume; they return at the enqueue, the
+  wait for a segment shows in _segments_pending), the snapshots
+  (_snapshot, _restore), the replays with their walks
+  (align_batch_start_walk / align_batch_replay_walk, walk_segment inside
+  them), the extension's input (build_extension) and the fill.
 
 Prints, per path, the wall per unit (call or batch) and each stage's ms
 per unit, then the device busy share of one more pass under
@@ -33,9 +45,10 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from chip_smoke import (B_MAIN, DIV, L, N_NEW_BATCHES, SEED, WINDOW,
-                        WINDOW_FREE, make_gap_pairs, make_pairs, make_windows,
-                        mutate, run_stream, slice_streams)
+from chip_smoke import (B_G, B_LONG, B_MAIN, DIV, L, L_G, L_LONG,
+                        N_NEW_BATCHES, SEED, WINDOW, WINDOW_FREE,
+                        make_gap_pairs, make_long_inputs, make_pairs,
+                        make_windows, mutate, run_stream, slice_streams)
 
 N_CALLS = 128
 N_PROFILED_CALLS = 64
@@ -65,10 +78,14 @@ def install_timers():
     from pywfa_tpu_torch.ops import fused_loop
     for name in ("align_pairs_dispatch", "align_pairs_pull",
                  "align_pairs_finish", "_encode_side", "_to_device",
-                 "_native_fill"):
+                 "_native_fill", "_align_pairs_remat", "_snapshot",
+                 "_restore", "_assemble", "_segments_pending"):
         _wrap(PB, name)
     for name in ("decode_packed", "decode_fused", "build_eq_bits",
-                 "traceback_walk", "pack_walked", "pack_meta"):
+                 "traceback_walk", "pack_walked", "pack_meta",
+                 "build_extension", "align_batch_start", "align_batch_resume",
+                 "align_batch_start_walk", "align_batch_replay_walk",
+                 "walk_segment"):
         _wrap(TE, name)
     _wrap(fused_loop, "align_batch_fused_loop")
 
@@ -117,12 +134,52 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
           .stdout.strip().splitlines()[0], flush=True)
-    import pywfa_tpu_torch
-    from pywfa_tpu_torch import BatchWavefrontAligner
     dev = torch.device("cuda", 0)
     install_timers()
+    sections = sys.argv[1:] or ["api", "streams", "slice", "long"]
 
     rng = np.random.default_rng(SEED + 4)
+    if "long" in sections:
+        long_reads(dev)
+    if "api" in sections:
+        api_calls(dev, rng)
+    if "streams" in sections:
+        metric_streams(dev, rng)
+    if "slice" in sections:
+        heuristic_streams(dev, rng)
+    return 0
+
+
+def long_reads(dev):
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    inputs = make_long_inputs()
+    for name, mode in (("E 1 kb high", "high"), ("F 1 kb biwfa", "biwfa")):
+        aligner = BatchWavefrontAligner(span="end-to-end", memory_mode=mode,
+                                        device=dev)
+        batches = inputs["ef"]
+        list(aligner.align_stream(iter(batches[:1]), depth=1))
+
+        def run(aligner=aligner, batches=batches):
+            for _ in aligner.align_stream(iter(batches), depth=3):
+                pass
+
+        for rep in range(2):
+            report(f"stream {name} rep {rep}, per batch of {B_LONG} pairs "
+                   f"of {L_LONG} bp", run, len(batches))
+        busy_share(f"{len(batches)} batches", run)
+    for mode in ("high", "low"):
+        aligner = BatchWavefrontAligner(span="end-to-end", memory_mode=mode,
+                                        device=dev)
+        run = functools.partial(aligner.align, *inputs["g"])
+        run()
+        for rep in range(2):
+            report(f"batch G {mode} rep {rep}, {B_G} pairs of {L_G} bp",
+                   run, 1)
+        busy_share("1 batch", run)
+
+
+def api_calls(dev, rng):
+    import pywfa_tpu_torch
     singles = []
     for _ in range(N_CALLS):
         p = bytes(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, L)])
@@ -141,6 +198,9 @@ def main():
         busy_share(f"{N_PROFILED_CALLS} calls", functools.partial(
             run, singles[:N_PROFILED_CALLS]))
 
+
+def metric_streams(dev, rng):
+    from pywfa_tpu_torch import BatchWavefrontAligner
     streams = [
         ("endsfree_window",
          BatchWavefrontAligner(text_begin_free=WINDOW_FREE,
@@ -172,6 +232,8 @@ def main():
                    len(batches))
         busy_share(f"{len(batches)} batches", run)
 
+
+def heuristic_streams(dev, rng):
     for name, _, attr, wildcard, batches in slice_streams(rng, dev,
                                                           N_NEW_BATCHES):
         run_stream(attr, wildcard, batches[:1], dev, depth=1)
@@ -180,7 +242,6 @@ def main():
             report(f"stream {name} rep {rep}, per {B_MAIN}-pair batch", run,
                    len(batches))
         busy_share(f"{len(batches)} batches", run)
-    return 0
 
 
 if __name__ == "__main__":

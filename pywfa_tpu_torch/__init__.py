@@ -11,9 +11,11 @@ Covered so far: pywfa's `WavefrontAligner` and the batch and stream API
 for all five distance metrics (gap-affine, gap-affine 2-piece,
 gap-linear, edit, indel), end-to-end or ends-free with or without a match
 bonus, WF-extension mode, full CIGAR or score only, with every heuristic,
-wildcards and match classes: every configuration of a short-read call
-that `pywfa_tpu` answers. Memory modes other than high and pairs past
-256 bp raise NotImplementedError naming their ROADMAP item.
+wildcards and match classes, in every memory mode and at any read
+length: long reads run with several diagonals a thread and, past the
+memory mode's budget for the choice record, segmented, with the
+traceback made by running the segments again; a batch paused at its step
+cap resumes (`align_pairs_resumable`, `align_pairs_resume`).
 """
 from .align import (
     AlignmentResult,
@@ -22,9 +24,18 @@ from .align import (
     clip_cigartuples,
     elide_mismatches_from_cigar,
 )
-from .batch import BatchResult, BatchWavefrontAligner, align_pairs, align_pairs_stream
+from .batch import (
+    BatchResult,
+    BatchWavefrontAligner,
+    PausedBatch,
+    align_pairs,
+    align_pairs_resumable,
+    align_pairs_resume,
+    align_pairs_stream,
+)
 
 __all__ = ["WavefrontAligner", "AlignmentResult", "clip_cigartuples",
            "cigartuples_to_str", "elide_mismatches_from_cigar",
-           "BatchResult", "BatchWavefrontAligner", "align_pairs",
+           "BatchResult", "BatchWavefrontAligner", "PausedBatch",
+           "align_pairs", "align_pairs_resumable", "align_pairs_resume",
            "align_pairs_stream"]

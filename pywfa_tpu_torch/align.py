@@ -258,9 +258,8 @@ class WavefrontAligner:
     Extra (non-pywfa) kwargs: `backend` ("auto", "torch" or "numpy", the
     scalar oracle) and `device` ("cuda" by default, which raises when CUDA
     is absent; "cpu" runs the kernels' plain torch versions).
-    What is off the ported slice (memory modes other than high, pairs past
-    256 bp) raises NotImplementedError naming its ROADMAP item when
-    aligning.
+    Every `memory_mode` and reads of any length run on the device: past
+    the mode's budget for the choice record a rung runs segmented.
     """
 
     def __init__(self,

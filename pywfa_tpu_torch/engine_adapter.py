@@ -11,8 +11,6 @@ from typing import Optional, Sequence
 from .attributes import AlignerAttributes, validate_alignment
 from .batch import align_pairs
 from .oracle import OracleAligner, OracleResult
-from .ops import config as C
-from .ops import fused_loop
 
 # power-of-two length buckets of `pywfa_tpu.parallel.bucketing`, copied:
 # that package's __init__ imports jax
@@ -33,12 +31,9 @@ def _bucket_len(n: int, schedule: Sequence[int]) -> int:
 
 def align_single(attr: AlignerAttributes, pattern: bytes, text: bytes,
                  wildcard: Optional[int], device="cuda") -> OracleResult:
-    """Align one pair on `device`.
-
-    Raises NotImplementedError, before any work, when the pair's terminal
-    rung needs a band wider than the fused loop's one-thread-per-diagonal
-    block (pairs past 256 bp bucket to 512 and a band of 1152).
-    """
+    """Align one pair of any length on `device`; a long pair's rungs run
+    with several diagonals a thread and, past the memory mode's record
+    budget, segmented (see batch._align_pairs_remat)."""
     plen, tlen = len(pattern), len(text)
     if plen == 0:
         # degenerate; the oracle holds the edge semantics, as in the
@@ -47,13 +42,6 @@ def align_single(attr: AlignerAttributes, pattern: bytes, text: bytes,
     Lp = _bucket_len(plen, DEFAULT_SCHEDULE)
     Lt = _bucket_len(tlen, DEFAULT_SCHEDULE)
     attr0 = validate_alignment(attr, plen, tlen)
-    terminal = C.full_config(attr0, Lp, Lt)
-    if terminal.W > fused_loop.MAX_THREADS:
-        raise NotImplementedError(
-            f"a {plen} x {tlen} bp pair buckets to {Lp} x {Lt}, whose "
-            f"terminal rung needs W={terminal.W}, more than one thread per "
-            "diagonal; long reads are not ported yet (ROADMAP queue 1 item "
-            "6)")
     # caps escalate inside align_pairs; bucketed Lp/Lt keep shapes stable
     res = align_pairs(attr0, [pattern], [text], wildcard=wildcard, Lp=Lp,
                       Lt=Lt, device=device)[0]

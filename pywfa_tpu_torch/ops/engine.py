@@ -10,6 +10,15 @@ names under the reference's score-only spelling). Every function
 is device-agnostic: it runs where its input tensors live, CPU or CUDA.
 Only the walk synchronises with the device, to end early.
 
+The segmented (rematerialized) run of the long-read path is here too, the
+twin of the reference's `align_batch_start` / `align_batch_resume` /
+`align_batch_start_walk` / `align_batch_replay_walk`: a forward segment
+records nothing and updates the state in place; a replay runs one segment
+again from its boundary state with the record and walks its levels at
+once, so the record never leaves the device. The extension's input (the
+equality bits, or the run-length table where `extend_mode` picks it) is
+built once a batch by `build_extension` and handed to every segment.
+
 Where the reference's formulation existed only because the TPU lacks an
 indexed load (one-hot selects, a one-hot matmul compaction), this module
 uses the direct gather or scatter instead; the outputs are byte-identical.
@@ -24,7 +33,7 @@ import torch
 
 from ..attributes import match_class_table
 from ..constants import DistanceMetric
-from . import fused_loop
+from . import fused_loop, lcp_table
 from .config import (
     D1, D2, I1, I2, M, MSRC_D1, MSRC_D2, MSRC_I1, MSRC_I2, MSRC_NONE,
     MSRC_SEED, MSRC_X,
@@ -218,52 +227,65 @@ def _walk_tables(cfg: EngineConfig, device: torch.device) -> dict:
                 kind=t(4, torch.int32))
 
 
-def traceback_walk(cfg: EngineConfig, choices: torch.Tensor,
-                   final_s: torch.Tensor, end_k: torch.Tensor,
-                   ok: torch.Tensor):
-    """Walk the choice tensor backwards from each pair's end cell.
+def walk_carry_init(final_s: torch.Tensor, end_k: torch.Tensor,
+                    ok: torch.Tensor) -> tuple:
+    """The walk's carry (s, k, comp, active, fallback) at each pair's end
+    cell; `ok` marks the pairs that are walked."""
+    B = final_s.shape[0]
+    dev = final_s.device
+    return (final_s.to(torch.int32).clone(), end_k.to(torch.int32).clone(),
+            torch.zeros(B, dtype=torch.int32, device=dev), ok.clone(),
+            torch.zeros(B, dtype=torch.bool, device=dev))
 
-    Each iteration every walking pair reads its own cell
-    choices[s, b, k] with one gather and takes one step; the op it emits
-    lands at its score level, so the stream is zero-sparse over levels
-    in FORWARD cigar order, as the reference's level scan writes it.
-    Every step lowers s by at least the metric's smallest score
-    distance, which bounds the iteration count; every 4 steps one host sync ends the walk
-    early once no pair is still walking. A pair stops at score 0 on the
-    diagonal it reached, which is a WF0 seed (k != 0 on the ends-free
-    span) and becomes its k_start.
-    Returns (ops_fwd [B, S_cap] uint8, n_ops [B], k_start [B], fallback [B]).
+
+def walk_segment(cfg: EngineConfig, choices: torch.Tensor, seg_base: int,
+                 carry: tuple):
+    """Walk one segment's choice block backwards, from where the segment
+    above left each pair.
+
+    choices [K, B, W] holds the levels of the scores
+    [seg_base, seg_base + K); level 0 of a segment that is not the bottom
+    one aliases the top level of the segment below, which walks it. Each
+    iteration every pair whose score lies in the segment reads its own
+    cell choices[s - seg_base, b, k] with one gather and takes one step;
+    the op it emits lands at its level, so the stream is zero-sparse over
+    levels in FORWARD cigar order, as the reference's level scan writes
+    it. Every step lowers s by at least the metric's smallest score
+    distance, which bounds the iteration count; every 4 steps one host
+    sync ends the walk early once no pair is left in the segment. A pair
+    stops at score 0 on the diagonal it reached, which is a WF0 seed
+    (k != 0 on the ends-free span) and becomes its k_start, or at a seed
+    of a later score. Returns (ops_fwd [B, K] uint8, carry); after the
+    bottom segment a pair still active has an inconsistent chain.
     """
-    S_cap, B, W = choices.shape
+    K, B, W = choices.shape
     dev = choices.device
     tb = _walk_tables(cfg, dev)
     # the least score a step goes back: the metric's smallest distance
     min_step = min(d for d in fused_loop.score_distances(cfg) if d > 0)
-    n_iter = (S_cap - 1) // min_step + 2
+    n_iter = (K - 1) // min_step + 2
+    lowest = seg_base + 1 if seg_base > 0 else 0
     flat = choices.reshape(-1)
     row = torch.arange(B, dtype=torch.int64, device=dev)
-    s = final_s.to(torch.int32).clone()
-    k = end_k.to(torch.int32).clone()
-    comp = torch.zeros(B, dtype=torch.int32, device=dev)
-    act = ok.clone()
-    fallback = torch.zeros(B, dtype=torch.bool, device=dev)
-    ops = torch.zeros((B, S_cap + 1), dtype=torch.uint8, device=dev)
+    s, k, comp, act, fallback = carry
+    ops = torch.zeros((B, K + 1), dtype=torch.uint8, device=dev)
     for it in range(n_iter):
-        # every 4 steps, stop once no pair walks (one host sync); the
+        here = act & (s >= lowest) & (s < seg_base + K)
+        # every 4 steps, stop once no pair walks here (one host sync); the
         # remaining steps would change nothing
-        if it and it % 4 == 0 and not bool(act.any()):
+        if it and it % 4 == 0 and not bool(here.any()):
             break
         kk = (k - cfg.kmin).long()
-        lvl = s.long().clamp(0, S_cap - 1)
+        lvl = (s.long() - seg_base).clamp(0, K - 1)
         cell = flat[(lvl * B + row) * W + kk.clamp(0, W - 1)]
         ch = torch.where((kk >= 0) & (kk < W), cell, 0).long()
         t = comp.long() * 256 + ch
         at_m = comp == M
         kind = tb["kind"][t]
-        stop = act & at_m & ((s <= 0) | (kind == 1))
-        bad = act & at_m & (s > 0) & (kind == 2)
-        move = act & ~stop & ~bad
-        pos = torch.where(move, s.long(), S_cap)
+        stop = here & at_m & ((s <= 0) | (kind == 1))
+        bad = here & at_m & (s > 0) & (kind == 2)
+        move = here & ~stop & ~bad
+        pos = torch.where(move, lvl, K)
         ops.scatter_(1, pos[:, None], torch.where(move, tb["emit"][t], 0)
                      .to(torch.uint8)[:, None])
         s = torch.where(move, s - tb["ds"][t], s)
@@ -272,11 +294,22 @@ def traceback_walk(cfg: EngineConfig, choices: torch.Tensor,
         # a chain pointing before score 0 is inconsistent
         bad2 = move & (s < 0)
         fallback = fallback | bad | bad2
-        act = move & ~bad2
-    fallback = fallback | act
-    ops_fwd = ops[:, :S_cap]
+        act = act & ~stop & ~bad & ~bad2
+    return ops[:, :K], (s, k, comp, act, fallback)
+
+
+def traceback_walk(cfg: EngineConfig, choices: torch.Tensor,
+                   final_s: torch.Tensor, end_k: torch.Tensor,
+                   ok: torch.Tensor):
+    """Walk the whole choice tensor of a one-shot run backwards from each
+    pair's end cell: the bottom segment and the only one (see
+    walk_segment).
+    Returns (ops_fwd [B, S_cap] uint8, n_ops [B], k_start [B], fallback [B]).
+    """
+    ops_fwd, (_, k, _, act, fallback) = walk_segment(
+        cfg, choices, 0, walk_carry_init(final_s, end_k, ok))
     n_ops = (ops_fwd != 0).sum(1, dtype=torch.int32)
-    return ops_fwd, n_ops, k, fallback
+    return ops_fwd, n_ops, k, fallback | act
 
 
 def walkable(out: dict) -> torch.Tensor:
@@ -378,3 +411,76 @@ def pack_meta(out: dict) -> torch.Tensor:
 # is False there, so the pipelines end in pack_meta)
 align_batch_packed_meta = align_batch_packed_full
 align_batch_fused_meta = align_batch_fused_full
+
+
+def extend_mode(cfg: EngineConfig, Ltp: int) -> str:
+    """The extension of a segmented run: "table", the h-major run-length
+    table and one load a cell, where the config allows a table, the text
+    rows are short enough for it (lcp_table.supported) and matching is not
+    by classes (the table's kernel compares raw tokens); else "bits", the
+    packed equality words. PYWFA_EXTEND=bits (cfg.extend_force) forces the
+    words."""
+    if (cfg.use_lcp_table and not cfg.match_classes
+            and cfg.extend_force not in ("bits", "chunk")
+            and lcp_table.supported(Ltp)):
+        return "table"
+    return "bits"
+
+
+def build_extension(cfg: EngineConfig, pat: torch.Tensor,
+                    txt: torch.Tensor) -> dict:
+    """The extension's input for a batch, by extend_mode: dict(bits=...,
+    table=...) with one of the two None."""
+    if extend_mode(cfg, txt.shape[1]) == "table":
+        return dict(bits=None, table=lcp_table.build_lcp_table_hmajor(
+            cfg.W, cfg.kmin, cfg.wildcard, pat.contiguous(),
+            txt.contiguous()))
+    return dict(bits=build_eq_bits(cfg, pat, txt), table=None)
+
+
+def _segment(cfg, ext, plen, tlen, frees, max_steps, state, fresh):
+    seg_base = 0 if fresh else state["s"]
+    out = fused_loop.align_batch_fused_loop(
+        cfg, ext["bits"], plen, tlen, frees, max_steps, table=ext["table"],
+        state=state, fresh=fresh, seg_base=seg_base)
+    # where any pair is still running, the next segment starts here
+    state["s"] = seg_base + cfg.S_cap - 1
+    return out
+
+
+def align_batch_start(cfg: EngineConfig, ext: dict, plen, tlen, frees,
+                      max_steps: int):
+    """Segmented execution, the first segment: scores [0, S_cap - 1] from
+    WF0. Returns (out, state); pairs still running report ST_OVERFLOW_S in
+    `out` and go on in align_batch_resume."""
+    state = fused_loop.new_state(cfg, plen.shape[0], plen.device)
+    return _segment(cfg, ext, plen, tlen, frees, max_steps, state,
+                    True), state
+
+
+def align_batch_resume(cfg: EngineConfig, ext: dict, plen, tlen, frees,
+                       max_steps: int, state: dict):
+    """Continue a segmented run from `state` for another S_cap - 1 scores;
+    the state is updated in place. Returns (out, state)."""
+    return _segment(cfg, ext, plen, tlen, frees, max_steps, state,
+                    False), state
+
+
+def align_batch_start_walk(cfg: EngineConfig, ext: dict, plen, tlen, frees,
+                           max_steps: int, carry: tuple):
+    """Run the first segment again with the choice record and walk its
+    levels; the record never leaves the device. `cfg` records choices.
+    Returns (ops_fwd [B, S_cap], carry)."""
+    state = fused_loop.new_state(cfg, plen.shape[0], plen.device)
+    out = _segment(cfg, ext, plen, tlen, frees, max_steps, state, True)
+    return walk_segment(cfg, out["choices"], 0, carry)
+
+
+def align_batch_replay_walk(cfg: EngineConfig, ext: dict, plen, tlen, frees,
+                            max_steps: int, state: dict, carry: tuple):
+    """Run one segment again from its boundary `state` (as the forward
+    pass saved it; consumed: it is updated in place) with the choice
+    record, and walk its levels. Returns (ops_fwd [B, S_cap], carry)."""
+    seg_base = state["s"]
+    out = _segment(cfg, ext, plen, tlen, frees, max_steps, state, False)
+    return walk_segment(cfg, out["choices"], seg_base, carry)

@@ -3,7 +3,9 @@
 ends-free span (with a match bonus too: the boundary is then seeded at
 every score divisible by -match), full-CIGAR or score-only scope, and the
 heuristic cascade (wf-adaptive, wfmash, x-drop, z-drop, banded static and
-adaptive, and their combinations).
+adaptive, and their combinations); one shot from score 0 or one segment of
+a segmented run (state in, state out); bands of any width; extension by
+the packed equality words or by the run-length table (`ops/lcp_table.py`).
 
 The twin of `pywfa_tpu/ops/pallas/fused_loop.py`. For every pair it runs
 the whole WFA score loop -- extend, terminate, prune the wavefront by the
@@ -12,9 +14,23 @@ unless the scope is score-only -- and returns the same dict as the
 reference's `align_batch_pallas`.
 
 `align_batch_fused_loop` is the entry point. On CUDA tensors it launches
-the hand-written kernel in `csrc/fused_loop.cu`; on CPU tensors it runs
+the hand-written kernel in `csrc/fused_loop.cu` (which picks, from what
+the launch is given, its narrow build for a one-shot run of a band of at
+most 1024 diagonals on the equality words, else its general build); on CPU
+tensors it runs
 `align_batch_fused_loop_ref`, the plain torch version, which is the Pallas
 kernel's own array program over [B, W] with a Python loop over scores.
+
+A segmented run (the long-read path) keeps each pair's state in three
+int32 tensors that the kernel and the plain version share: `ring`
+[B, rows, W] (the wavefront ring, `ring_depths` rows a component, the row
+of score s at s % depth), `lohi` [B, rows, 2] (each row's band) and
+`carry` [B, len(CARRY)] (see CARRY). A segment covers the scores
+[seg_base, seg_base + S_cap - 1], records choice level s - seg_base, and
+updates the state in place; a pair still running at its end reports
+ST_OVERFLOW_S in the result and stays ST_RUNNING in the state; a pair that
+is done is left as it is. `state_from_reference` builds the same state
+from the JAX package's resume pytree.
 
 One deliberate difference from the Pallas kernel: a band that outgrows W
 reports ST_OVERFLOW_W, as the XLA engine does, instead of being clamped
@@ -33,7 +49,7 @@ from .config import (
     D1, D2, I1, I2, M, MSRC_D1, MSRC_D2, MSRC_I1, MSRC_I2, MSRC_NONE,
     MSRC_SEED, MSRC_X,
     NULL, NULL_THRESHOLD, ST_END_REACHED, ST_END_UNREACHABLE, ST_MAX_STEPS,
-    ST_OVERFLOW_S, ST_OVERFLOW_W, EngineConfig,
+    ST_OVERFLOW_S, ST_OVERFLOW_W, ST_RUNNING, EngineConfig,
 )
 
 # the kernel's metric codes (csrc/fused_loop.cu) and the variant-name
@@ -65,12 +81,21 @@ STRATEGIES = int(HeuristicStrategy.WFADAPTIVE | HeuristicStrategy.WFMASH
                  | HeuristicStrategy.BANDED_ADAPTIVE)
 
 # kernel launches made by align_batch_fused_loop (plain version excluded),
-# by variant (see `variant`)
-variant_launches = dict.fromkeys(VARIANTS, 0)
+# by variant (see `variant`); a launch that extends by the run-length table
+# counts under the variant's name plus "_table" (the same instantiation:
+# the extension is a run-time branch, uniform over the launch)
+TABLE_VARIANTS = tuple(v + "_table" for v in VARIANTS)
+variant_launches = dict.fromkeys(VARIANTS + TABLE_VARIANTS, 0)
 
 # shared memory one block may use on sm_90 (bytes)
 SMEM_LIMIT = 232448
 MAX_THREADS = 1024
+
+# one pair's carry in the state of a segmented run, in the kernel's order:
+# its score, status, result (final_s, end_k, end_off), null-step count, the
+# cascade's wait and historic maximum, and whether it is done
+CARRY = ("s", "status", "final_s", "end_k", "end_off", "nnull", "h_wait",
+         "hm_sw", "hm_k", "hm_off", "hm_valid", "done")
 
 
 def _edit_like(cfg: EngineConfig) -> bool:
@@ -94,15 +119,30 @@ def ring_depths(cfg: EngineConfig) -> tuple:
 HEUR_REDUCTIONS = 7
 
 
-def smem_bytes(cfg: EngineConfig) -> int:
-    """Dynamic shared memory of one block: the offsets ring, its lo/hi
-    pairs and the per-warp partials of the two trim reductions a component,
-    of the ends-free termination and, with a heuristic, of the cascade's
-    reductions."""
+def smem_bytes(cfg: EngineConfig, ring: bool = True) -> int:
+    """Dynamic shared memory of one block: the offsets ring (unless it
+    lives in global memory), its lo/hi pairs and the per-warp partials of
+    the two trim reductions a component, of the ends-free termination and,
+    with a heuristic, of the cascade's reductions."""
     depths = ring_depths(cfg)
     rows = sum(depths)
     partials = 2 * len(depths) + 1 + (HEUR_REDUCTIONS if cfg.strategy else 0)
-    return (rows * cfg.W + rows * 2 + partials * 32) * 4
+    return ((rows * cfg.W if ring else 0) + rows * 2 + partials * 32) * 4
+
+
+def ring_in_global(cfg: EngineConfig) -> bool:
+    """Whether the ring's rows pass one block's shared memory (gap-affine
+    at pywfa's penalties: W > 3840; the 2-piece metric: W > 1600) and live
+    in a global [B, rows, W] array instead."""
+    return smem_bytes(cfg) > SMEM_LIMIT
+
+
+def block_threads(W: int) -> int:
+    """Threads of a block: one a diagonal up to MAX_THREADS; past it every
+    thread owns ceil(W / MAX_THREADS) diagonals, W / that many threads,
+    rounded up to whole warps."""
+    per = -(-W // MAX_THREADS)
+    return -(-(-(-W // per)) // 32) * 32
 
 
 def _ends_free(cfg: EngineConfig) -> bool:
@@ -116,82 +156,200 @@ def span_code(cfg: EngineConfig) -> int:
     return 1 if cfg.match == 0 else 2
 
 
-def variant(cfg: EngineConfig) -> str:
+def variant(cfg: EngineConfig, table: bool = False) -> str:
     """The kernel variant a config launches: the metric's prefix (none for
-    gap-affine), the span, "_heur" with any heuristic, then "_score" for
-    the score-only scope."""
+    gap-affine), the span, "_heur" with any heuristic, "_score" for the
+    score-only scope, then "_table" when the extension reads the
+    run-length table."""
     return (METRIC_PREFIX[cfg.metric] + SPANS[span_code(cfg)]
             + ("_heur" if cfg.strategy else "")
-            + ("" if cfg.record_choices else "_score"))
+            + ("" if cfg.record_choices else "_score")
+            + ("_table" if table else ""))
 
 
 def supported(cfg: EngineConfig) -> bool:
     """The slice this module covers: every distance metric, end-to-end or
     ends-free span, with or without a match bonus, every heuristic of the
-    cascade, full-CIGAR or score-only scope, one thread per diagonal.
-    Wildcards and match classes live in the equality bits and need nothing
-    here."""
+    cascade, full-CIGAR or score-only scope, any band of whole warps (the
+    ring moves to global memory where it passes a block's shared memory).
+    Wildcards and match classes live in the equality bits or the table and
+    need nothing here."""
     return (cfg.metric in METRIC_CODE
             and (span_code(cfg) != 2 or cfg.metric in SEEDED_METRICS)
             and (cfg.strategy & ~STRATEGIES) == 0
-            and cfg.W % 32 == 0 and cfg.W <= MAX_THREADS
-            and smem_bytes(cfg) <= SMEM_LIMIT)
+            and cfg.W % 32 == 0
+            and smem_bytes(cfg, ring=False) <= SMEM_LIMIT)
 
 
-def _check(cfg: EngineConfig, bits, plen, tlen, frees):
+def new_state(cfg: EngineConfig, B: int, device) -> dict:
+    """An empty state of a segmented run for B pairs (see the module
+    docstring); the first segment (fresh=True) fills it. `s` is the score
+    the next segment starts at, kept on the host."""
+    rows = sum(ring_depths(cfg))
+    i32 = torch.int32
+    lohi = torch.ones((B, rows, 2), dtype=i32, device=device)
+    lohi[:, :, 1] = -1
+    return dict(ring=torch.full((B, rows, cfg.W), NULL, dtype=i32,
+                                device=device),
+                lohi=lohi,
+                carry=torch.zeros((B, len(CARRY)), dtype=i32, device=device),
+                s=0)
+
+
+def unpause_max_steps(state: dict) -> dict:
+    """Un-pause, in place, the pairs stopped at ST_MAX_STEPS, so that a
+    later segment with a raised step cap goes on from their retained ring
+    with the extension of the score they stopped at; the next segment
+    starts at that score."""
+    carry = state["carry"]
+    paused = carry[:, CARRY.index("status")] == ST_MAX_STEPS
+    if bool(paused.any()):
+        state["s"] = int(carry[paused, CARRY.index("s")].max())
+    carry[:, CARRY.index("status")] = torch.where(
+        paused, ST_RUNNING, carry[:, CARRY.index("status")])
+    carry[:, CARRY.index("done")] = torch.where(
+        paused, 0, carry[:, CARRY.index("done")])
+    return state
+
+
+def state_from_reference(cfg: EngineConfig, ref_state: dict,
+                         device="cpu") -> dict:
+    """The port's state from the JAX package's resume pytree, given as a
+    dict of numpy arrays (offsets [n_comp, scope, B, W], lo / hi
+    [n_comp, scope, B], m_exists [scope, B], s, done, status, final_s,
+    end_k, end_off, num_null_steps and the h_* heuristic fields): a pause
+    taken there finishes here. The reference's ring keeps `scope` rows a
+    component at s % scope; the port's keeps ring_depths rows at
+    s % depth, so the newest `depth` scores of each component carry
+    over."""
+    import numpy as np
+    offsets = np.asarray(ref_state["offsets"])
+    _, scope, B, W = offsets.shape
+    s = int(np.asarray(ref_state["s"]))
+    lo = np.asarray(ref_state["lo"]).copy()
+    hi = np.asarray(ref_state["hi"]).copy()
+    # a wavefront that does not exist is null whatever its band says
+    absent = ~np.asarray(ref_state["m_exists"])
+    lo[M][absent] = 1
+    hi[M][absent] = -1
+    depths = ring_depths(cfg)
+    rows = sum(depths)
+    ring = np.full((B, rows, W), NULL, dtype=np.int32)
+    lohi = np.tile(np.array([1, -1], dtype=np.int32), (B, rows, 1))
+    base = 0
+    for c, depth in enumerate(depths):
+        for back in range(depth):
+            score = s - back
+            if score < 0:
+                break
+            row = base + score % depth
+            ring[:, row] = offsets[c, score % scope]
+            lohi[:, row, 0] = lo[c, score % scope]
+            lohi[:, row, 1] = hi[c, score % scope]
+        base += depth
+    fields = dict(s=np.full(B, s), status=ref_state["status"],
+                  final_s=ref_state["final_s"], end_k=ref_state["end_k"],
+                  end_off=ref_state["end_off"],
+                  nnull=ref_state["num_null_steps"],
+                  h_wait=ref_state["h_steps_wait"],
+                  hm_sw=ref_state["h_max_sw"], hm_k=ref_state["h_max_sw_k"],
+                  hm_off=ref_state["h_max_sw_off"],
+                  hm_valid=ref_state["h_max_sw_valid"],
+                  done=ref_state["done"])
+    carry = np.stack([np.asarray(fields[name]).astype(np.int32)
+                      for name in CARRY], axis=1)
+    dev = torch.device(device)
+    return dict(ring=torch.from_numpy(ring).to(dev),
+                lohi=torch.from_numpy(lohi).to(dev),
+                carry=torch.from_numpy(np.ascontiguousarray(carry)).to(dev),
+                s=s)
+
+
+def _check(cfg: EngineConfig, bits, plen, tlen, frees, table, state, fresh):
     if not supported(cfg):
         raise NotImplementedError(
-            "the fused loop runs one thread per diagonal with its ring in "
-            f"shared memory: W a multiple of 32, W <= {MAX_THREADS} and "
-            f"at most {SMEM_LIMIT} bytes (got {cfg}); wider bands wait for "
-            "the long-read path (ROADMAP queue 1 item 6)")
-    if bits.dim() != 3 or bits.shape[2] != cfg.W:
-        raise ValueError(f"bits must be [NQ, B, {cfg.W}], got "
-                         f"{tuple(bits.shape)}")
-    NQ, B, _ = bits.shape
-    if NQ * 32 <= cfg.Lt:
-        raise ValueError(f"bits hold {NQ * 32} text positions, need more "
-                         f"than Lt={cfg.Lt} for the sentinel mismatch")
-    for name, t, shape in (("plen", plen, (B,)), ("tlen", tlen, (B,)),
-                           ("frees", frees, (B, 4))):
+            f"the fused loop takes bands of whole warps (got {cfg})")
+    ext = table if table is not None else bits
+    if ext is None:
+        raise ValueError("the extension needs the equality bits or the "
+                         "run-length table")
+    if ext.dim() != 3 or ext.shape[2] != cfg.W:
+        raise ValueError(f"bits / table must be [*, B, {cfg.W}], got "
+                         f"{tuple(ext.shape)}")
+    B = ext.shape[1]
+    if table is not None:
+        if table.dtype not in (torch.uint8, torch.int16):
+            raise TypeError(f"table must be uint8 or int16, got "
+                            f"{table.dtype}")
+        if table.shape[0] <= cfg.Lt:
+            raise ValueError(f"the table holds {table.shape[0]} text "
+                             f"positions, need more than Lt={cfg.Lt}")
+    elif ext.shape[0] * 32 <= cfg.Lt:
+        raise ValueError(f"bits hold {ext.shape[0] * 32} text positions, "
+                         f"need more than Lt={cfg.Lt} for the sentinel "
+                         "mismatch")
+    shapes = [("plen", plen, (B,)), ("tlen", tlen, (B,)),
+              ("frees", frees, (B, 4))]
+    if state is not None:
+        rows = sum(ring_depths(cfg))
+        shapes += [("state ring", state["ring"], (B, rows, cfg.W)),
+                   ("state lohi", state["lohi"], (B, rows, 2)),
+                   ("state carry", state["carry"], (B, len(CARRY)))]
+    elif not fresh:
+        raise ValueError("a later segment needs the state of the one before")
+    for name, t, shape in shapes:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got "
                              f"{tuple(t.shape)}")
-        if t.device != bits.device:
-            raise ValueError(f"{name} is on {t.device}, bits on "
-                             f"{bits.device}")
-    for name, t in (("bits", bits), ("plen", plen), ("tlen", tlen),
-                    ("frees", frees)):
+        if t.device != ext.device:
+            raise ValueError(f"{name} is on {t.device}, the extension's "
+                             f"input on {ext.device}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if table is None and bits.dtype != torch.int32:
+        raise TypeError(f"bits must be int32, got {bits.dtype}")
 
 
 def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
-                           max_steps: int) -> dict:
+                           max_steps: int, table=None, state=None,
+                           fresh: bool = True, seg_base: int = 0) -> dict:
     """Run the fused score loop over B pairs.
 
-    bits: [NQ, B, W] int32 bit patterns (engine.build_eq_bits); plen/tlen:
+    bits: [NQ, B, W] int32 bit patterns (engine.build_eq_bits), or None
+    when `table`, the [Ltp, B, W] run-length table
+    (lcp_table.build_lcp_table_hmajor), extends instead; plen/tlen:
     [B] int32; frees: [B, 4] int32 (pattern begin, pattern end, text
     begin, text end free; read on the ends-free span only); max_steps: the
-    user step cap. Returns dict(status, final_s, end_k, end_off, steps),
-    plus choices [S_cap, B, W] uint8 when cfg.record_choices (levels a
-    pair never reaches read 0).
+    user step cap. `state` (new_state) makes the call one segment of a
+    segmented run over the scores [seg_base, seg_base + S_cap - 1]: the
+    first (fresh=True) starts from score 0 and fills the state, a later
+    one goes on from it; the state is updated in place. Returns
+    dict(status, final_s, end_k, end_off, steps), plus choices
+    [S_cap, B, W] uint8 when cfg.record_choices (levels a pair never
+    reaches read 0; the level of score s is s - seg_base).
     """
-    _check(cfg, bits, plen, tlen, frees)
+    _check(cfg, bits, plen, tlen, frees, table, state, fresh)
     max_steps = min(int(max_steps), 2**31 - 1)
-    if bits.device.type == "cpu":
+    ext = table if table is not None else bits
+    if ext.device.type == "cpu":
         return align_batch_fused_loop_ref(cfg, bits, plen, tlen, frees,
-                                          max_steps)
-    if bits.device.type != "cuda":
-        raise ValueError(f"no fused loop for device {bits.device}")
-    for name, t in (("bits", bits), ("plen", plen), ("tlen", tlen),
-                    ("frees", frees)):
+                                          max_steps, table, state, fresh,
+                                          seg_base)
+    if ext.device.type != "cuda":
+        raise ValueError(f"no fused loop for device {ext.device}")
+    tensors = [("bits / table", ext), ("plen", plen), ("tlen", tlen),
+               ("frees", frees)]
+    if state is not None:
+        tensors += [("state " + k, state[k]) for k in ("ring", "lohi",
+                                                       "carry")]
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     from . import cuda_build
     lib = cuda_build.load()
-    NQ, B, W = bits.shape
-    dev = bits.device
+    _, B, W = ext.shape
+    NQ = 0 if table is not None else bits.shape[0]
+    dev = ext.device
     record = cfg.record_choices
     # score-only scope: no [S_cap, B, W] record, so no memset of it either
     choices = (torch.zeros((cfg.S_cap, B, W), dtype=torch.uint8, device=dev)
@@ -200,19 +358,34 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     x, o1, e1, o2, e2 = score_distances(cfg)
     depths = ring_depths(cfg)
     heur = heuristic_params(cfg)
+    in_global = ring_in_global(cfg)
+    if state is not None:
+        ring = state["ring"]
+    else:
+        # a one-shot run's ring, where it does not fit shared memory
+        ring = (torch.empty((B, sum(depths), W), dtype=torch.int32,
+                            device=dev) if in_global else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wfa_fused_loop(
-            bits.data_ptr(), plen.data_ptr(), tlen.data_ptr(),
+            None if table is not None else bits.data_ptr(),
+            table.data_ptr() if table is not None else None,
+            int(table is not None and table.dtype == torch.uint8),
+            table.shape[0] if table is not None else 0,
+            plen.data_ptr(), tlen.data_ptr(),
             frees.data_ptr(), choices.data_ptr() if record else None,
-            res.data_ptr(), (ctypes.c_int * len(depths))(*depths), B, W, NQ,
+            res.data_ptr(), ring.data_ptr() if ring is not None else None,
+            state["lohi"].data_ptr() if state is not None else None,
+            state["carry"].data_ptr() if state is not None else None,
+            int(fresh), int(in_global), seg_base, block_threads(W),
+            (ctypes.c_int * len(depths))(*depths), B, W, NQ,
             cfg.S_cap, cfg.scope, x, o1, e1, o2, e2, max_steps,
             METRIC_CODE[cfg.metric], span_code(cfg), int(record),
             (ctypes.c_int * len(heur))(*heur), -cfg.match, stream)
     if rc != 0:
         raise RuntimeError("fused loop kernel launch failed: "
                            + cuda_build.error_string(rc))
-    variant_launches[variant(cfg)] += 1
+    variant_launches[variant(cfg, table is not None)] += 1
     out = dict(status=res[0], final_s=res[1], end_k=res[2], end_off=res[3],
                steps=res[1].max())
     if record:
@@ -266,15 +439,36 @@ def _ctz32(m):
     return e - 127
 
 
+def _plain_rows(cfg: EngineConfig, s: int):
+    """(state row, plain row) of every wavefront a state holds at score s:
+    the newest `depth` scores of each component, at s % depth in the state
+    and at comp * scope + s % scope in the plain version's ring."""
+    base = 0
+    for comp, depth in enumerate(ring_depths(cfg)):
+        for back in range(depth):
+            score = s - back
+            if score >= 0:
+                yield (base + score % depth,
+                       comp * cfg.scope + score % cfg.scope)
+        base += depth
+
+
 def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
-                               max_steps: int) -> dict:
+                               max_steps: int, table=None, state=None,
+                               fresh: bool = True, seg_base: int = 0) -> dict:
     """The plain torch version: the Pallas kernel's array program (every
     metric's branch, both spans, the match seeding, the heuristic cascade,
     both scopes) over [B, W], all pairs as one tile, with the
-    band-overflow flag of the XLA engine. Its ring has `scope` rows for
-    every component. Runs on any device."""
-    NQ, B, W = bits.shape
-    dev = bits.device
+    band-overflow flag of the XLA engine, the extension by the equality
+    words or by the run-length table, and the state of a segmented run in
+    and out (see align_batch_fused_loop). Its own ring has `scope` rows
+    for every component; the pairs still running step together, so a
+    later segment starts all of them at the one score their carries hold.
+    Runs on any device."""
+    ext = table if table is not None else bits
+    _, B, W = ext.shape
+    NQ = 0 if table is not None else bits.shape[0]
+    dev = ext.device
     i32 = torch.int32
     scope, S_cap, kmin = cfg.scope, cfg.S_cap, cfg.kmin
     x, o1e1, e1, o2e2, e2 = score_distances(cfg)
@@ -389,7 +583,33 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
     h_wait = col() + steps_between
     hm_sw, hm_k, hm_valid = col(), col(), col().bool()
     hm_off = col() + NULL
-    while bool((~done).any()) and s < S_cap - 1:
+    if not fresh:
+        # a later segment: the carry, and the ring's rows of the score the
+        # running pairs share (a done pair's rows are never read)
+        c = {name: state["carry"][:, i:i + 1].clone()
+             for i, name in enumerate(CARRY)}
+        done = c["done"] != 0
+        status, final_s, end_k, end_off = (c["status"], c["final_s"],
+                                           c["end_k"], c["end_off"])
+        nnull, h_wait = c["nnull"], c["h_wait"]
+        hm_sw, hm_k, hm_off = c["hm_sw"], c["hm_k"], c["hm_off"]
+        hm_valid = c["hm_valid"] != 0
+        running0 = ~done[:, 0]
+        if bool(running0.any()):
+            s = int(c["s"][running0].max())
+            if int(c["s"][running0].min()) != s:
+                raise ValueError("the running pairs of a state must share "
+                                 "one score")
+        off[:] = NULL
+        lo[:] = 1
+        hi[:] = -1
+        for srow, prow in _plain_rows(cfg, s):
+            off[prow] = state["ring"][:, srow]
+            lo[prow] = state["lohi"][:, srow, 0:1]
+            hi[prow] = state["lohi"][:, srow, 1:2]
+    entered = ~done
+    seg_end = seg_base + S_cap - 1
+    while bool((~done).any()) and s < seg_end:
         active = ~done
         slot = s % scope
         m_off, m_lo, m_hi, m_null = read_wf(M, s)
@@ -400,20 +620,27 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
         done = done | dead
         active = active & ~dead
 
-        # --- extension: find-first-mismatch over the equality words ---
+        # --- extension: the run from the table, or find-first-mismatch
+        # over the equality words ---
         band = band_mask(m_lo, m_hi) & active & ~m_null
         valid = band & (m_off >= 0) & (m_off <= tlen)
-        idx = m_off.clamp(0, NQ32 - 1)
-        q0 = idx >> 5
-        ones = torch.full_like(idx, -1)
-        head = ones << (idx & 31)
-        fm = torch.full_like(idx, NQ32)
-        for q in range(NQ):
-            sel = torch.where(q0 == q, head, torch.where(q0 < q, ones, 0))
-            mq = ~bits[q] & sel
-            cand = q * 32 + _ctz32(mq)
-            fm = torch.minimum(fm, torch.where(mq != 0, cand, NQ32))
-        m_off = torch.where(valid, m_off + (fm - idx), m_off)
+        if table is not None:
+            idx = m_off.clamp(0, table.shape[0] - 1)
+            run = table.gather(0, idx[None].long())[0].to(i32)
+            m_off = torch.where(valid, m_off + run, m_off)
+        else:
+            idx = m_off.clamp(0, NQ32 - 1)
+            q0 = idx >> 5
+            ones = torch.full_like(idx, -1)
+            head = ones << (idx & 31)
+            fm = torch.full_like(idx, NQ32)
+            for q in range(NQ):
+                sel = torch.where(q0 == q, head,
+                                  torch.where(q0 < q, ones, 0))
+                mq = ~bits[q] & sel
+                cand = q * 32 + _ctz32(mq)
+                fm = torch.minimum(fm, torch.where(mq != 0, cand, NQ32))
+            m_off = torch.where(valid, m_off + (fm - idx), m_off)
         off[M * scope + slot] = m_off
 
         # --- termination ---
@@ -736,7 +963,8 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
                 # edit and indel count no null steps
                 nnull = torch.where(active & (tlo > thi), 2**30, nnull)
         if record:
-            choices[s1] = torch.where(band_n, choice, 0).to(torch.uint8)
+            choices[s1 - seg_base] = torch.where(band_n, choice, 0).to(
+                torch.uint8)
 
         # band overflow: the pair escalates to a wider band
         status = torch.where(overflow, ST_OVERFLOW_W, status)
@@ -750,6 +978,24 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
         s = s1
 
     running = ~done
+    if state is not None:
+        # the state of a later segment, for the pairs that entered this
+        # one: a pair still running stays running there, and a pair paused
+        # at the step cap keeps the ring it stopped with (all such pairs
+        # stop at one score, which ends the loop)
+        keep = entered[:, 0]
+        for srow, prow in _plain_rows(cfg, s):
+            state["ring"][keep, srow] = off[prow][keep]
+            state["lohi"][keep, srow, 0] = lo[prow][keep, 0]
+            state["lohi"][keep, srow, 1] = hi[prow][keep, 0]
+        fields = dict(s=torch.where(running | (status == ST_MAX_STEPS), s,
+                                    final_s),
+                      status=status, final_s=final_s, end_k=end_k,
+                      end_off=end_off, nnull=nnull, h_wait=h_wait,
+                      hm_sw=hm_sw, hm_k=hm_k, hm_off=hm_off,
+                      hm_valid=hm_valid, done=done)
+        new = torch.cat([fields[name].to(i32) for name in CARRY], dim=1)
+        state["carry"][keep] = new[keep]
     status = torch.where(running, ST_OVERFLOW_S, status)
     final_s = torch.where(running, s, final_s)
     out = dict(status=status[:, 0], final_s=final_s[:, 0],

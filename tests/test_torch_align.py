@@ -5,8 +5,8 @@ The golden cases of the README examples and of `TestConstruct` run through
 the kernels' plain torch versions) and through the reference's
 `WavefrontAligner(backend="numpy")` (the scalar oracle); every observable
 field must be equal (tolerance zero), and a few cases also run through
-the reference's jax backend. The file also covers the configurations
-off the slice, property setters, resume after `max_steps` and the
+the reference's jax backend. The file also covers memory modes and pairs
+past 256 bp, property setters, resume after `max_steps` and the
 no-CUDA refusal.
 """
 import pytest
@@ -183,13 +183,15 @@ def test_golden_cases_match_jax_backend(name):
     (dict(match=-1, length=280), "queue 1 item 6"),
 ])
 def test_off_slice_raises_naming_roadmap(kw, item):
-    """What is still refused: memory modes other than high, and pairs past
-    256 bp, whatever else the configuration asks for."""
+    """What used to be refused under that ROADMAP item runs: memory modes
+    other than high, and pairs past 256 bp, whatever else the
+    configuration asks for, equal to the reference's oracle."""
     kw = dict(kw)
     reps = kw.pop("length", 10) // 10
     a = _port("ACGTACGTAC" * reps, **kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        a("ACGTTCGTAC" * reps)
+    b = _ref("numpy")("ACGTACGTAC" * reps, **kw)
+    text = "ACGTTCGTAC" * reps
+    assert _snap(a, a(text)) == _snap(b, b(text))
 
 
 # pywfa's arguments of this slice, each against the reference's backends
@@ -299,10 +301,10 @@ def test_backends_and_devices():
 
 
 def test_pairs_past_256_bp_raise_naming_roadmap():
-    """A 300 bp pair buckets to 512: its terminal rung needs a band of
-    1152 diagonals, more than one thread per diagonal."""
+    """A 300 bp pair buckets to 512 and its terminal rung to a band of
+    1152 diagonals, several a thread: it runs, equal to the oracle."""
     a = _port("ACGT" * 75)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 6"):
-        a("ACGA" * 75)
+    b = _ref("numpy")("ACGT" * 75)
+    assert _snap(a, a("ACGA" * 75)) == _snap(b, b("ACGA" * 75))
+    assert a.score == -300
     assert _port("ACGT" * 64)("ACGA" * 64).score == -256

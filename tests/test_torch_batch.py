@@ -135,13 +135,15 @@ def test_batch_aligner_stream_and_empty_batches():
     dict(memory_mode="biwfa", distance="linear", wildcard="N"),
 ])
 def test_off_slice_config_raises(kw):
-    """Memory modes other than high are what the batch path still refuses
-    by configuration, whatever else the configuration asks for."""
-    pats = [p for p, _ in README_PAIRS]
-    txts = [t for _, t in README_PAIRS]
+    """Memory modes other than high, which the batch path used to refuse,
+    run whatever else the configuration asks for, equal to the reference's
+    batch path."""
+    pats = [p.decode() for p, _ in README_PAIRS]
+    txts = [t.decode() for _, t in README_PAIRS]
     kw = dict(dict(span="end-to-end"), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        BatchWavefrontAligner(device="cpu", **kw).align(pats, txts)
+    from pywfa_tpu.batch import BatchWavefrontAligner as RefBatch
+    got = BatchWavefrontAligner(device="cpu", **kw).align(pats, txts)
+    assert _fields(got) == _fields(RefBatch(**kw).align(pats, txts))
 
 
 @pytest.mark.parametrize("kw", [
@@ -173,13 +175,16 @@ def test_configurations_of_this_slice_run(kw):
 
 @pytest.mark.parametrize("W,S_cap", [(1024, 300000), (1152, 2000)])
 def test_long_read_shapes_raise(W, S_cap):
-    """A choices record over the device budget needs the segmented
-    traceback; a band over 1024 diagonals needs more than one thread per
-    diagonal. Neither is ported yet."""
+    """A choices record over the device budget runs segmented, and a band
+    over 1024 diagonals with several diagonals a thread: both used to be
+    refused, both equal the one-shot run at the default caps."""
     pats = [p for p, _ in README_PAIRS]
     txts = [t for _, t in README_PAIRS]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        PB.align_pairs(_attr(), pats, txts, device="cpu", W=W, S_cap=S_cap)
+    before = PB.segmented_runs["runs"]
+    got = PB.align_pairs(_attr(), pats, txts, device="cpu", W=W, S_cap=S_cap)
+    assert (PB.segmented_runs["runs"] > before) == (S_cap == 300000)
+    assert _fields(got) == _fields(PB.align_pairs(_attr(), pats, txts,
+                                                  device="cpu"))
 
 
 def test_cuda_device_without_cuda_raises():

@@ -1,9 +1,12 @@
-"""The CUDA fused-loop kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
-Every variant (each of the five distance metrics, end-to-end or ends-free
-span, with or without a match bonus, with or without a heuristic,
-full-CIGAR or score-only scope) is held against the plain version, and
-the API paths against the scalar oracle.
+Every variant of the fused loop (each of the five distance metrics,
+end-to-end or ends-free span, with or without a match bonus, with or
+without a heuristic, full-CIGAR or score-only scope) is held against the
+plain version, and the API paths against the scalar oracle; so are the
+run-length table's kernel, the fused loop's table extension, its
+wide-band layouts (several diagonals a thread; the ring in global memory),
+its segments with the state in and out, and a segmented batch.
 
 Runs only where a CUDA device is present (marker `cuda`; skipped
 elsewhere). The file imports no jax, so on a GPU host without jax run it
@@ -30,7 +33,7 @@ from pywfa_tpu_torch.constants import HeuristicStrategy as HS
 from pywfa_tpu_torch.oracle import OracleAligner
 from pywfa_tpu_torch.ops import config as C
 from pywfa_tpu_torch.ops import engine as TE
-from pywfa_tpu_torch.ops import fused_loop
+from pywfa_tpu_torch.ops import fused_loop, lcp_table
 from tests.corpus import mutate, random_pairs
 
 pytestmark = pytest.mark.cuda
@@ -494,3 +497,233 @@ def test_wavefront_aligner_new_configurations_on_cuda(dev, kw, scope):
         assert (a.status, a.score, a.cigarstring, a.locations) == (
             o.status, o.score, o.cigarstring, o.locations), (p, t)
     assert not any(PB.oracle_fallbacks.values()), PB.oracle_fallbacks
+
+
+def _token_rows(cfg, pairs, dev):
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    plens = np.array([len(p) for p in pats], dtype=np.int32)
+    tlens = np.array([len(t) for t in txts], dtype=np.int32)
+    pat = PB.encode_batch(pats, cfg.Lp, cfg.extend_chunk,
+                          PB.PATTERN_SENTINEL, plens)
+    txt = PB.encode_batch(txts, cfg.Lt, cfg.extend_chunk, PB.TEXT_SENTINEL,
+                          tlens)
+    return (torch.from_numpy(pat).to(dev), torch.from_numpy(txt).to(dev),
+            torch.from_numpy(plens).to(dev), torch.from_numpy(tlens).to(dev),
+            torch.zeros((len(pairs), 4), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("L,W,B,wildcard", [
+    (160, 256, 64, -1), (160, 64, 3, 78), (233, 192, 16, -1),
+    (234, 192, 16, 78), (600, 320, 16, -1), (1024, 1152, 16, -1),
+    (2000, 2176, 4, -1),
+])
+def test_lcp_table_kernel_matches_plain_version(dev, L, W, B, wildcard):
+    """K3 at the uint8 shapes, both sides of the uint8 / int16 edge, int16
+    shapes and bands past one block of 256 threads, with a wildcard."""
+    pairs = random_pairs(71, B, L // 2, L, 0.08, 0.05, as_bytes=True)
+    if wildcard >= 0:
+        pairs = [(p[:9] + b"N" + p[10:], t[:5] + b"N" + t[6:])
+                 for p, t in pairs]
+    cfg = C.full_config(ATTR, L, L, W=W, wildcard=wildcard)
+    pat, txt, *_ = _token_rows(cfg, pairs, dev)
+    before = lcp_table.launches["lcp_table"]
+    got = lcp_table.build_lcp_table_hmajor(W, cfg.kmin, wildcard, pat, txt)
+    assert lcp_table.launches["lcp_table"] == before + 1
+    want = lcp_table.build_lcp_table_hmajor_ref(W, cfg.kmin, wildcard, pat,
+                                                txt)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == lcp_table.table_dtype(txt.shape[1])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kw,frees_row", [
+    (dict(span="end-to-end"), (0, 0, 0, 0)),
+    (dict(span="end-to-end", scope="score"), (0, 0, 0, 0)),
+    (dict(text_begin_free=20, text_end_free=20), (0, 0, 20, 20)),
+    (dict(span="end-to-end", distance="affine2p"), (0, 0, 0, 0)),
+    (dict(span="end-to-end", distance="levenshtein", heuristic="adaptive"),
+     (0, 0, 0, 0)),
+    (dict(match=-1, text_begin_free=20, text_end_free=20), (0, 0, 20, 20)),
+])
+@pytest.mark.parametrize("W", [512, 1152])
+def test_table_variants_match_plain_and_bits(dev, kw, frees_row, W):
+    attr = RefAligner(backend="numpy", **kw)._attributes()
+    pairs = _window_pairs(72, 24, 300, 20 if frees_row[2] else 0)
+    cfg = C.full_config(attr, 320, 352, W=W, S_cap=400,
+                        record_choices=kw.get("scope") != "score")
+    bits, plen, tlen, frees = _inputs(cfg, pairs, dev, frees_row)
+    pat, txt, *_ = _token_rows(cfg, pairs, dev)
+    table = lcp_table.build_lcp_table_hmajor(W, cfg.kmin, -1, pat, txt)
+    name = fused_loop.variant(cfg, table=True)
+    before = fused_loop.variant_launches[name]
+    got = fused_loop.align_batch_fused_loop(cfg, None, plen, tlen, frees,
+                                            2**31 - 1, table=table)
+    assert fused_loop.variant_launches[name] == before + 1
+    plain = fused_loop.align_batch_fused_loop_ref(cfg, None, plen, tlen,
+                                                  frees, 2**31 - 1,
+                                                  table=table)
+    by_bits = fused_loop.align_batch_fused_loop(cfg, bits, plen, tlen, frees,
+                                                2**31 - 1)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        if k in plain:
+            assert torch.equal(got[k], plain[k]), k
+            assert torch.equal(got[k], by_bits[k]), k
+    assert int((got["status"] == C.ST_END_REACHED).sum()) >= 12
+
+
+@pytest.mark.parametrize("kw,frees_row", [
+    (dict(span="end-to-end"), (0, 0, 0, 0)),
+    (dict(span="end-to-end", scope="score"), (0, 0, 0, 0)),
+    (dict(text_begin_free=20, text_end_free=20), (0, 0, 20, 20)),
+    (dict(span="end-to-end", distance="affine2p", heuristic="adaptive"),
+     (0, 0, 0, 0)),
+    (dict(span="end-to-end", distance="levenshtein"), (0, 0, 0, 0)),
+    (dict(match=-1, text_begin_free=20, text_end_free=20), (0, 0, 20, 20)),
+])
+def test_narrow_and_general_kernels_match_plain_version(dev, kw, frees_row):
+    """A one-shot run of a band of at most 1024 diagonals on the equality
+    words launches the narrow kernel; the same run with a state to fill
+    launches the general one. Both give the plain version's bytes."""
+    attr = RefAligner(backend="numpy", **kw)._attributes()
+    pairs = _window_pairs(75, 24, 300, 20 if frees_row[2] else 0)
+    cfg = C.full_config(attr, 320, 352, W=512, S_cap=400,
+                        record_choices=kw.get("scope") != "score")
+    args = _inputs(cfg, pairs, dev, frees_row)
+    narrow = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    general = fused_loop.align_batch_fused_loop(
+        cfg, *args, 2**31 - 1, state=fused_loop.new_state(cfg, len(pairs),
+                                                          dev), fresh=True)
+    plain = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        if k in plain:
+            assert torch.equal(narrow[k], plain[k]), k
+            assert torch.equal(general[k], plain[k]), k
+    assert int((plain["status"] == C.ST_END_REACHED).sum()) >= 12
+
+
+@pytest.mark.parametrize("kw,W,in_global", [
+    (dict(span="end-to-end"), 2176, False),
+    (dict(span="end-to-end"), 4096, True),
+    (dict(heuristic="adaptive"), 4096, True),
+    (dict(span="end-to-end", distance="affine2p"), 2176, True),
+    (dict(span="end-to-end", heuristic="X-drop", xdrop=50), 2176, False),
+    (dict(span="end-to-end", distance="indel"), 5120, False),
+])
+def test_wide_band_layouts_match_plain_version(dev, kw, W, in_global):
+    attr = RefAligner(backend="numpy", **kw)._attributes()
+    pairs = random_pairs(73, 6, 700, 1000, 0.04, 0.03, as_bytes=True)
+    cfg = C.full_config(attr, 1024, 1088, W=W, S_cap=500)
+    assert fused_loop.ring_in_global(cfg) == in_global
+    args = _inputs(cfg, pairs, dev)
+    got = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("kw,W", [
+    (dict(span="end-to-end"), 896), (dict(heuristic="adaptive"), 896),
+    (dict(span="end-to-end"), 4096),
+    (dict(span="end-to-end", distance="affine2p"), 1152),
+])
+@pytest.mark.parametrize("record", [False, True])
+def test_segments_match_plain_version(dev, kw, W, record):
+    """Start and resume segment by segment, kernel and plain each from
+    its own state: equal results, and equal states for the pairs still
+    running; the last segment's result is the one-shot run's."""
+    attr = RefAligner(backend="numpy", **kw)._attributes()
+    pairs = random_pairs(74, 8, 700, 1000, 0.04, 0.03, as_bytes=True)
+    whole = C.full_config(attr, 1024, 1088, W=W, S_cap=1200,
+                          record_choices=False)
+    cfg = dataclasses.replace(whole, S_cap=150, record_choices=record)
+    pat, txt, plen, tlen, frees = _token_rows(cfg, pairs, dev)
+    ext = TE.build_extension(cfg, pat, txt)
+    assert (ext["table"] is not None) == (not cfg.match_classes)
+
+    def run(fn, state, fresh, base):
+        return fn(cfg, ext["bits"], plen, tlen, frees, 2**31 - 1,
+                  table=ext["table"], state=state, fresh=fresh, seg_base=base)
+
+    sk = fused_loop.new_state(cfg, len(pairs), dev)
+    sp = fused_loop.new_state(cfg, len(pairs), dev)
+    base, n = 0, 0
+    while True:
+        got = run(fused_loop.align_batch_fused_loop, sk, base == 0, base)
+        want = run(fused_loop.align_batch_fused_loop_ref, sp, base == 0, base)
+        torch.cuda.synchronize()
+        for k in KEYS:
+            if k in want:
+                assert torch.equal(got[k], want[k]), (n, k)
+        running = got["status"] == C.ST_OVERFLOW_S
+        for k in ("ring", "lohi", "carry"):
+            assert torch.equal(sk[k][running], sp[k][running]), (n, k)
+        n += 1
+        base += cfg.S_cap - 1
+        if not bool(running.any()):
+            break
+    assert n >= 3
+    one = fused_loop.align_batch_fused_loop(whole, ext["bits"], plen, tlen,
+                                            frees, 2**31 - 1,
+                                            table=ext["table"])
+    for k in KEYS[:4]:
+        assert torch.equal(got[k], one[k]), k
+
+
+@pytest.mark.parametrize("mode", ["medium", "low", "biwfa"])
+def test_segmented_batch_on_cuda_matches_one_shot(dev, monkeypatch, mode):
+    """A batch of 1 kb pairs with the record budget forced down: every
+    memory mode runs segmented (K3 and the table variants launch) and
+    answers as high does in one shot, and as the oracle."""
+    monkeypatch.setattr(PB, "CHOICES_BYTES_CAP", 2**24)
+    pairs = random_pairs(75, 24, 800, 1000, 0.04, 0.03, as_bytes=True)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    high = pywfa_tpu_torch.BatchWavefrontAligner(
+        span="end-to-end", device=dev).align(pats, txts)
+    runs = PB.segmented_runs["runs"]
+    tables = lcp_table.launches["lcp_table"]
+    PB.oracle_fallbacks.update(dict.fromkeys(PB.oracle_fallbacks, 0))
+    aligner = pywfa_tpu_torch.BatchWavefrontAligner(
+        span="end-to-end", memory_mode=mode, device=dev)
+    got = aligner.align(pats, txts)
+    assert PB.segmented_runs["runs"] > runs
+    assert lcp_table.launches["lcp_table"] > tables
+    assert not any(PB.oracle_fallbacks.values())
+    key = lambda r: (r.status, r.score, r.ops, r.end_v, r.end_h)
+    assert list(map(key, got)) == list(map(key, high))
+    o = PB._oracle_one(aligner._attr, pats[0], txts[0])
+    assert key(got[0]) == key(o)
+
+
+def test_resume_on_cuda_equals_fresh(dev):
+    pairs = random_pairs(76, 12, 400, 500, 0.04, 0.03, as_bytes=True)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    attr = RefAligner(backend="numpy", span="end-to-end")._attributes()
+    small = dataclasses.replace(attr, system=dataclasses.replace(
+        attr.system, max_alignment_steps=40))
+    res, paused = PB.align_pairs_resumable(small, pats, txts, device=dev)
+    assert paused is not None
+    assert sum(r.status == PB.STATUS_MAX_STEPS_REACHED for r in res) >= 8
+    res, paused = PB.align_pairs_resume(paused, 10**6)
+    assert paused is None
+    fresh = PB.align_pairs(attr, pats, txts, device=dev)
+    assert [(r.status, r.score, r.ops) for r in res] == [
+        (r.status, r.score, r.ops) for r in fresh]
+
+
+@pytest.mark.parametrize("n", [1000, 5000])
+@pytest.mark.parametrize("scope", ["full", "score"])
+def test_wavefront_aligner_long_pairs_on_cuda(dev, n, scope):
+    rng = random.Random(77)
+    p = "".join(rng.choice("ACGT") for _ in range(n))
+    t = mutate(rng, p, 0.04, 0.03)
+    a = pywfa_tpu_torch.WavefrontAligner(p, scope=scope, device=dev)
+    b = RefAligner(p, scope=scope, backend="numpy")
+    ra, rb = a(t), b(t)
+    assert (ra.score, ra.status, ra.cigartuples) == (
+        rb.score, rb.status, rb.cigartuples)

@@ -176,9 +176,13 @@ def test_wrapper_routes_cpu_to_plain_version_and_rejects_others():
         TFL.align_batch_fused_loop(cfg, *(a.to("meta") for a in args), MAXS)
     with pytest.raises(TypeError):
         TFL.align_batch_fused_loop(cfg, bits, args[1].long(), *args[2:], MAXS)
-    # a band past one thread block is still refused
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+    # a band past one thread block is taken (the bits must fit it); a band
+    # that is not whole warps is refused
+    with pytest.raises(ValueError, match="1152"):
         TFL.align_batch_fused_loop(dataclasses.replace(cfg, W=1152),
+                                   *args, MAXS)
+    with pytest.raises(NotImplementedError, match="whole warps"):
+        TFL.align_batch_fused_loop(dataclasses.replace(cfg, W=100),
                                    *args, MAXS)
     # a strategy bit the cascade does not know
     with pytest.raises(NotImplementedError):
@@ -321,5 +325,13 @@ def test_supported_covers_the_slice():
     # wildcards and classes live in the eq bits
     assert TFL.supported(dataclasses.replace(cfg, wildcard=78))
     assert TFL.supported(dataclasses.replace(cfg, match_classes="iupac"))
-    # still off the slice: more diagonals than one thread block
-    assert not TFL.supported(dataclasses.replace(cfg, W=1152))
+    # more diagonals than one thread block: several a thread, and past a
+    # block's shared memory the ring in global memory
+    wide = dataclasses.replace(cfg, W=1152)
+    assert TFL.supported(wide) and not TFL.ring_in_global(wide)
+    assert TFL.block_threads(1152) == 576 and TFL.block_threads(256) == 256
+    assert not TFL.ring_in_global(dataclasses.replace(cfg, W=3840))
+    assert TFL.ring_in_global(dataclasses.replace(cfg, W=3968))
+    assert TFL.supported(dataclasses.replace(cfg, W=20096))
+    assert TFL.variant(cfg, table=True) == "endsfree_table"
+    assert not TFL.supported(dataclasses.replace(cfg, W=100))
