@@ -14,34 +14,42 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    weight) from the checkout; prints ptxas' registers and spills per
    variant.
 3. Each kernel variant against its plain torch version on the card, byte
-   for byte, at the main paths' shapes. Gap-affine: end to end with the choice
+   for byte, at the main paths' shapes, through every build the routing
+   can give it: the warp build (one warp a pair over the live band,
+   several pairs a block, a persistent grid: what
+   `fused_loop.kernel_build` picks for every short-read shape), the narrow
+   build (one block a pair, a thread a diagonal: what it picks at a
+   terminal rung, whose score cap passes its width) and the general build
+   (one block a pair, any band, the build of a segment's state). Each
+   line names the build the routing picks; its time is the `ms` of the
+   kernels line. Gap-affine: end to end with the choice
    record, 4096 pairs of 150 bp at 2% divergence at the first rung
    (W=256, S_cap=96) and at W=128, and 256 pairs (64 unrelated) at the
    terminal rung (W=384, S_cap=649); ends-free with the record, 4096
    150 bp reads in 200 bp windows with text frees of 50 at their first
    rung, and the main pairs with all frees 0; score only, the end-to-end
-   rung-1 and terminal sets and the windows; and one WavefrontAligner
-   call with pywfa's defaults in both scopes (a 150 bp pair padded to 16
-   pairs at Lp = Lt = 256, W=256, S_cap=96). Affine2p, gap-linear, edit
-   and indel: the main pairs at each metric's first rung (W=384, 128, 256,
-   256) with the record and score only, affine2p at its terminal rung
-   (W=512, S_cap=649), the windows under affine2p and edit, and one
-   WavefrontAligner call a metric in both scopes. The heuristic and
-   seeded variants: gap-affine at the first rung on the pairs of streams
-   A, B and C below (wf-adaptive, z-drop, match -1 in windows, and
-   wf-adaptive on those windows with and without the match bonus), with
-   the record and score only, and under wf-adaptive at the terminal
-   rung; affine2p under wf-adaptive at its first rung; and one
-   WavefrontAligner call for every heuristic or seeded variant of every
-   metric. Each of these shapes launches the narrow kernel (one diagonal
-   a thread, no state); the general kernel, which a run that keeps a
-   state launches, is held against the same plain result and timed
-   beside it. All times by CUDA
-   events; beside them the bound, the least time the card could take: the
-   eq words read once plus the choice levels these pairs write over 3.35
-   TB/s, or the cells these pairs compute times an operation count a cell
-   over 67 Tops/s, whichever is larger (the [S_cap, B, W] memset is not
-   in it).
+   rung-1 and terminal sets and the windows; one WavefrontAligner call
+   with pywfa's defaults in both scopes (a 150 bp pair padded to 16 pairs
+   at Lp = Lt = 256, W=256, S_cap=96); and stream E's second rung (256
+   pairs of 1 kb, W=896, S_cap=768), a one-shot run of a wide live band.
+   Affine2p, gap-linear, edit and indel: the main pairs at each metric's
+   first rung (W=384, 128, 256, 256) with the record and score only,
+   affine2p at its terminal rung (W=512, S_cap=649), the windows under
+   affine2p and edit, and one WavefrontAligner call a metric in both
+   scopes. The heuristic and seeded variants: gap-affine at the first
+   rung on the pairs of streams A, B and C below (wf-adaptive, z-drop,
+   match -1 in windows, and wf-adaptive on those windows with and
+   without the match bonus), with the record and score only, and under
+   wf-adaptive at the terminal rung; affine2p under wf-adaptive at its
+   first rung; and one WavefrontAligner call for every heuristic or
+   seeded variant of every metric. Every build is held to max_abs_err 0.
+   Times by CUDA events, the narrow and the warp build in turns (narrow,
+   warp, warp, narrow), the general build once; beside them memset_ms,
+   the [S_cap, B, W] torch.zeros of the choice record alone (inside every
+   recording time), and the bound, the least time the card could take:
+   the eq words read once plus the choice levels these pairs write over
+   3.35 TB/s, or the cells these pairs compute times an operation count
+   a cell over 67 Tops/s, whichever is larger (the memset is not in it).
 4. Stream: BatchWavefrontAligner(distance="affine", span="end-to-end",
    device="cuda").align_stream over 8 batches of 4096 pairs (timed:
    alignments/s), then over one probe batch (25% divergence, unrelated
@@ -110,11 +118,12 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    5 kb pairs in both scopes. No pair of these phases may go to the host
    oracle.
 
-Each main-path phase zeroes the kernels' launch counts and the count of
-pairs sent to the host oracle just before it and reads them just after; it
-fails unless its kernel variants launched, if a timed stream or an API
-phase sent any pair to the oracle, or if any phase did so for an
-inconsistent walk. The line before the last is the kernels' JSON record;
+Each main-path phase zeroes the kernels' launch counts (by variant and by
+build) and the count of pairs sent to the host oracle just before it and
+reads them just after; it fails unless its kernel variants launched,
+unless a short-read phase (4-9) launched the warp build, if a timed
+stream or an API phase sent any pair to the oracle, or if any phase did
+so for an inconsistent walk. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
 import collections
@@ -285,15 +294,28 @@ def reset_counts():
     reason, and the segmented executor's counts."""
     from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch.ops import fused_loop, lcp_table
-    for counts in (fused_loop.variant_launches, lcp_table.launches,
-                   PB.oracle_fallbacks, PB.segmented_runs):
+    for counts in (fused_loop.variant_launches, fused_loop.build_launches,
+                   lcp_table.launches, PB.oracle_fallbacks,
+                   PB.segmented_runs):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts():
+    """The launch counts: the fused loop's by variant and, under
+    "build_<name>", by build; the run-length table's."""
     from pywfa_tpu_torch.ops import fused_loop, lcp_table
-    return dict(fused_loop.variant_launches, **lcp_table.launches)
+    builds = {"build_" + k: v for k, v in fused_loop.build_launches.items()}
+    return dict(fused_loop.variant_launches, **lcp_table.launches, **builds)
+
+
+def check_warp(phase, counts):
+    """A short-read main path runs on the warp build: fail unless it
+    launched it; print what each build launched."""
+    builds = {k[6:]: v for k, v in counts.items() if k.startswith("build_")}
+    log(f"builds [{phase}]: {builds}")
+    if builds["warp"] == 0:
+        raise AssertionError(f"{phase} never launched the warp build")
 
 
 def launched(counts):
@@ -404,6 +426,27 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def kernel_only_ms(fn, reps=5):
+    """Mean ms a call of fn spends in the fused loop's kernels alone, by
+    torch.profiler's device rows (no memset, no host gap); None where the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "fused_loop" in e.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
 def host_ms(fn, reps):
     fn()
     t0 = time.perf_counter()
@@ -441,8 +484,8 @@ def phase_build():
         name = "?"
         spills = ""
         for line in output.splitlines():
-            m = re.search(r"fused_loop(_narrow)?ILi(\d)ELi(\d)ELb([01])"
-                          r"ELb([01])E", line)
+            m = re.search(r"fused_loop(_narrow|_warp)?ILi(\d)ELi(\d)"
+                          r"ELb([01])ELb([01])E", line)
             t = re.search(r"lcp_tableI(\w)E", line)
             if m and "Compiling" in line:
                 name = "{}<{}, {}, {}, {}>".format(m.group(1) or "",
@@ -536,7 +579,7 @@ def kernel_bound(cfg, args, out, cells, seg_base=0, state_bytes=0,
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernel_vs_plain(attr, dev):
+def phase_kernel_vs_plain(attr, dev, long_inputs):
     from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
     from pywfa_tpu_torch.ops import config as C
     from pywfa_tpu_torch.ops import fused_loop
@@ -594,61 +637,76 @@ def phase_kernel_vs_plain(attr, dev):
             shapes.append((prefix + "api_single" + tag,)
                           + api_single_inputs(m_def, *single) + (zero,))
     shapes += slice_shapes(rng, main, term, windows, single)
+    # stream E's second rung, one shot: a live band of hundreds of
+    # diagonals on 256 pairs
+    pats1k, txts1k = long_inputs["ef"][0]
+    shapes.append(("e_rung2", (pats1k, txts1k),
+                   rung2_config(attr, pats1k, txts1k, B_LONG), zero))
     records = {}
     for name, (pats, txts), cfg, frees_row in shapes:
         args = _device_inputs(cfg, pats, txts, dev, frees_row)
-        ms = MAXS
-        got = fused_loop.align_batch_fused_loop(cfg, *args, ms)
-        want = fused_loop.align_batch_fused_loop_ref(cfg, *args, ms)
+        B = len(pats)
+        build = fused_loop.kernel_build(cfg, B)
+
+        def run(b):
+            return fused_loop.align_batch_fused_loop(cfg, *args, MAXS,
+                                                     build=b)
+
+        want = fused_loop.align_batch_fused_loop_ref(cfg, *args, MAXS)
         torch.cuda.synchronize()
-        if set(got) != set(want) or ("choices" in got) != cfg.record_choices:
-            raise AssertionError(f"{name}: outputs {sorted(got)} vs "
-                                 f"{sorted(want)}")
         err = 0
-        for key in ("status", "final_s", "end_k", "end_off", "choices"):
-            if key not in want:
-                continue
-            a, b = got[key], want[key]
-            if a.shape != b.shape or a.dtype != b.dtype:
-                raise AssertionError(f"{name}: {key} {a.shape}/{a.dtype} vs "
-                                     f"{b.shape}/{b.dtype}")
-            err = max(err, int((a.long() - b.long()).abs().max()))
-        # the general kernel on the same inputs (a run that keeps a state
-        # launches it; without one these shapes launch the narrow kernel)
-        st = fused_loop.new_state(cfg, len(pats), dev)
-
-        def general():
-            return fused_loop.align_batch_fused_loop(cfg, *args, ms,
-                                                     state=st, fresh=True)
-
-        err = max(err, _max_err(name, general(), want, LOOP_KEYS))
+        for b in fused_loop.BUILDS:
+            got = run(b)
+            torch.cuda.synchronize()
+            if set(got) != set(want) or (
+                    "choices" in got) != cfg.record_choices:
+                raise AssertionError(f"{name} ({b}): outputs {sorted(got)} "
+                                     f"vs {sorted(want)}")
+            e = _max_err(name, got, want, LOOP_KEYS)
+            if e != 0:
+                raise AssertionError(f"{name}: the {b} build differs from "
+                                     f"the plain version ({e})")
+            err = max(err, e)
+        got = run(build)
         status = torch.bincount(got["status"].long(), minlength=6).tolist()
-        k_ms = cuda_ms(lambda: fused_loop.align_batch_fused_loop(
-            cfg, *args, ms), 20)
-        g_ms = cuda_ms(general, 20)
-        del st
+        # the old and the new short-read build in turns, then the rest
+        times = collections.defaultdict(list)
+        for b in ("narrow", "warp", "warp", "narrow"):
+            times[b].append(cuda_ms(lambda: run(b), 10))
+        times["general"].append(cuda_ms(lambda: run("general"), 10))
+        t_ms = {b: float(np.mean(v)) for b, v in times.items()}
+        # the kernel alone, where the event time above is a call's host
+        # time (a small batch, a few steps)
+        only = {b: kernel_only_ms(lambda: run(b)) for b in ("warp", "narrow")}
+        memset_ms = cuda_ms(lambda: torch.zeros(
+            (cfg.S_cap, B, cfg.W), dtype=torch.uint8, device=dev), 20) \
+            if cfg.record_choices else 0.0
         p_ms = cuda_ms(lambda: fused_loop.align_batch_fused_loop_ref(
-            cfg, *args, ms), 2)
+            cfg, *args, MAXS), 2)
         rec = got if cfg.record_choices else fused_loop.align_batch_fused_loop(
-            dataclasses.replace(cfg, record_choices=True), *args, ms)
-        cells = int(torch.count_nonzero(rec["choices"])) + len(pats)
+            dataclasses.replace(cfg, record_choices=True), *args, MAXS)
+        cells = int(torch.count_nonzero(rec["choices"])) + B
         del rec
         b_ms, b_by = kernel_bound(cfg, args, got, cells)
         log(f"kernel vs plain [{name}] variant={fused_loop.variant(cfg)} "
-            f"B={len(pats)} W={cfg.W} S_cap={cfg.S_cap} Lp={cfg.Lp} "
+            f"B={B} W={cfg.W} S_cap={cfg.S_cap} Lp={cfg.Lp} "
             f"Lt={cfg.Lt} NQ={args[0].shape[0]} "
             f"steps={int(got['steps'])} "
-            f"status_counts={status} max_abs_err={err} "
-            f"kernel_ms={k_ms:.4f} general_kernel_ms={g_ms:.4f} "
+            f"status_counts={status} max_abs_err={err} build={build} "
+            f"pairs_a_block={fused_loop.warp_pairs(cfg, B)} "
+            f"warp_ms={t_ms['warp']:.4f} ({times['warp'][0]:.4f}, "
+            f"{times['warp'][1]:.4f}) narrow_ms={t_ms['narrow']:.4f} "
+            f"({times['narrow'][0]:.4f}, {times['narrow'][1]:.4f}) "
+            f"general_ms={t_ms['general']:.4f} memset_ms={memset_ms:.4f} "
+            f"kernel_only_ms warp={_fmt(only['warp'])} "
+            f"narrow={_fmt(only['narrow'])} "
             f"plain_ms={p_ms:.2f} "
             f"bound_ms={b_ms:.3g} bound_by={b_by} cells={cells} "
-            f"smem={fused_loop.smem_bytes(cfg)}")
-        if err != 0:
-            raise AssertionError(f"{name}: the narrow or the general kernel "
-                                 "differs from the plain version")
+            f"warp_smem={fused_loop.warp_pairs(cfg, B) * fused_loop.warp_pair_bytes(cfg)} "
+            f"block_smem={fused_loop.smem_bytes(cfg)}")
         records[name] = dict(variant=fused_loop.variant(cfg), err=err,
-                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, B=len(pats))
+                             build=build, ms=t_ms[build], plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by, B=B)
     return records
 
 
@@ -755,6 +813,7 @@ def phase_stream(dev):
     probe_wall = time.perf_counter() - t0
     check_fallbacks("stream e2e + probe", timed=False)
     counts = read_counts()
+    check_warp("stream e2e + probe", counts)
     launches = counts["e2e"]
     n_main = N_BATCHES * B_MAIN
     log(f"stream: {N_BATCHES} batches, {n_main} pairs in {wall:.3f} s = "
@@ -915,6 +974,7 @@ def phase_api(dev):
         per_call[scope] = 1e3 * float(np.median(times))
     counts = read_counts()
     check_fallbacks("api", timed=True)
+    check_warp("api", counts)
     a = pywfa_tpu_torch.WavefrontAligner(GOLDEN[0][0], device=dev)
     if (a.wavefront_align(GOLDEN[0][1]), a.cigarstring) != (
             -24, "3M1X4M1D7M1I9M1X6M"):
@@ -973,6 +1033,7 @@ def phase_new_streams(dev):
     for name, variant, aligner, batches in streams:
         results, wall, c = _timed_stream(aligner, batches)
         check_fallbacks(f"stream {name}", timed=True)
+        check_warp(f"stream {name}", c)
         n = N_NEW_BATCHES * B_MAIN
         log(f"stream [{name}]: {N_NEW_BATCHES} batches, {n} pairs in "
             f"{wall:.3f} s = {n / wall:.0f} alignments/s "
@@ -1033,6 +1094,7 @@ def phase_metrics(dev):
         wall = time.perf_counter() - t0
         c = read_counts()
         fb = check_fallbacks(f"probe {metric}", timed=False)
+        check_warp(f"probe {metric}", c)
         if c[prefix + "e2e"] < 2:
             raise AssertionError(f"probe {metric}: {c[prefix + 'e2e']} "
                                  "launches; the batch must escalate")
@@ -1072,6 +1134,7 @@ def phase_metrics(dev):
             per_call[scope] = 1e3 * float(np.median(times))
         c = read_counts()
         check_fallbacks(f"api {metric}", timed=True)
+        check_warp(f"api {metric}", c)
         log(f"api [{metric}]: {2 * len(singles)} calls equal to the oracle; "
             f"median ms/call full={per_call['full']:.3f} "
             f"score={per_call['score']:.3f}; launches {launched(c)}")
@@ -1139,6 +1202,7 @@ def phase_slice_streams(dev):
         wall = time.perf_counter() - t0
         c = read_counts()
         check_fallbacks(f"stream {name}", timed=True)
+        check_warp(f"stream {name}", c)
         n = N_SLICE_BATCHES * B_MAIN
         flat = [r for rs in results for r in rs]
         partial = sum(r.status == 1 for r in flat)
@@ -1191,6 +1255,7 @@ def phase_slice_api(dev):
         wall = time.perf_counter() - t0
         c = read_counts()
         fb = check_fallbacks(f"probe {hname}", timed=False)
+        check_warp(f"probe {hname}", c)
         if c["e2e_heur"] < 2:
             raise AssertionError(f"probe {hname}: {c['e2e_heur']} launches; "
                                  "the batch must escalate")
@@ -1239,6 +1304,7 @@ def phase_slice_api(dev):
                     n_calls += 1
         c = read_counts()
         check_fallbacks(f"slice api {metric}", timed=True)
+        check_warp(f"slice api {metric}", c)
         med = ", ".join(f"{cn} {sc}={1e3 * float(np.median(v)):.3f}"
                         for (cn, sc), v in times.items())
         log(f"slice api [{metric}]: {n_calls} calls equal to the oracle; "
@@ -1729,10 +1795,10 @@ def main():
     phase_build()
     from pywfa_tpu_torch import BatchWavefrontAligner
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
-    records = phase_kernel_vs_plain(attr, dev)
+    long_inputs = make_long_inputs()
+    records = phase_kernel_vs_plain(attr, dev, long_inputs)
     # launches of the main paths only: each phase zeroes the counts before
     # its path and reads them after it
-    long_inputs = make_long_inputs()
     records.update(phase_long_kernels(dev, long_inputs))
     launches = collections.Counter()
     for phase in (phase_stream, phase_api, phase_new_streams, phase_metrics,
@@ -1754,7 +1820,8 @@ def main():
 def kernel_records(records, launches):
     """One entry a kernel variant for the JSON line: its launches on the
     main paths, and the error, times and bound of the largest shape it was
-    held at against its plain version."""
+    held at against its plain version, with the build the main path takes
+    at that shape (the build whose time `ms` is)."""
     from pywfa_tpu_torch.ops import fused_loop
     pallas = "pywfa_tpu/ops/pallas/fused_loop.py"
     # the Pallas lines each variant replaces: the heuristic cascade, the
@@ -1810,7 +1877,7 @@ def kernel_records(records, launches):
             "max_abs_err": max(r["err"] for r in held),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "build": timed.get("build", "general")})
     return kernels
 
 

@@ -8,9 +8,10 @@
 // bands of any width; extension by the packed equality words or by the
 // run-length table of csrc/lcp_table.cu.
 //
-// Replaces pywfa_tpu/ops/pallas/fused_loop.py::_kernel (every metric's
-// branch, the heuristic cascade and the ends-free match seeding) and both
-// of its pallas_calls: the recording one and the score-only one. The plain torch
+// Replaces pywfa_tpu/ops/pallas/fused_loop.py::_kernel (:197; every
+// metric's branch, the heuristic cascade and the ends-free match seeding)
+// and both of its pallas_calls: the recording one (:900) and the
+// score-only one (:919). The plain torch
 // version of the same program is
 // pywfa_tpu_torch/ops/fused_loop.py::align_batch_fused_loop_ref; both
 // produce byte-identical status, final_s, end_k, end_off and choices.
@@ -48,14 +49,16 @@
 // warp reductions plus a shared-memory pass over the warps' partials.
 // Each block leaves its loop as soon as its own pair is done.
 //
-// Every variant is built as two kernels from one body. The general one
-// serves a segment's state, the table and any band. The narrow one is the
-// short-read case, chosen at launch from what the launch is given (a
-// one-shot run on the equality words, a thread a diagonal, the ring in
-// shared memory): every branch on the state, the table and the global
-// ring folds away, each strided pass is one step, and the thread's one
-// cell of s + 1 waits in registers for the trim, so it takes about half
-// the general kernel's registers and more blocks share an SM.
+// Every variant is built as three kernels; the caller names the one a
+// launch takes (pywfa_tpu_torch/ops/fused_loop.py::kernel_build) and a
+// launch that build cannot take fails. The general one serves a
+// segment's state, the table and any band. The narrow one is loop_body
+// with every branch on the state, the table and the global ring folded
+// away, a thread a diagonal, the thread's one cell of s + 1 held in
+// registers for the trim. The warp one (fused_loop_warp, below) is the
+// short-read build: one warp a pair, several pairs a block, passes over
+// the live band only and no block barrier; it takes a one-shot run on the
+// equality words whose ring fits shared memory.
 //
 // Four template parameters select the variant. kMetric picks the step:
 // gap-affine computes M, I1, D1 from M at s+1-x and s+1-(o+e) and I1/D1 at
@@ -85,12 +88,23 @@
 // bands of those rows are kept in registers, so the install reads no
 // shared lo/hi pair that another thread writes.
 //
-// What bounds it: the per-step __syncthreads latency (two barriers per
-// score step), not bytes; a batch of few long pairs also leaves most SMs
-// idle, one block a pair. The choices record
-// is about 100 MB for a 4096-pair batch at W = 256, tens of microseconds
-// at the card's bandwidth. Making it fast (several pairs per block, a
-// warp per pair, fewer barriers) is later work.
+// What bounds it on the H100: not bytes nor arithmetic (a short-read
+// batch reads a few MB of words and computes a few million cells), but the
+// dependent latency of the score steps: each step is an eq-word load from
+// global memory, then reductions that the next phase waits on. A block a
+// pair pays that with two to five __syncthreads a step over all W
+// diagonals, most of them outside the live band (10-30 of 256 diagonals at
+// 150 bp and 2% divergence). After the steps, the bytes of the choice
+// record: its [S_cap, B, W] memset (about 100 MB at rung 1, tens of
+// microseconds) runs before every recording launch. The warp build cuts
+// the step to what one pair needs: a warp walks the live band 32
+// diagonals at a time, folds its minima and maxima in registers with one
+// __reduce_*_sync a pass and orders its shared-memory writes with
+// __syncwarp alone, so a pair never waits on another pair's steps, and
+// several pairs (up to 8, as many as keep an SM's shared memory fullest)
+// share a block so that an SM holds a dozen or more pairs at once. A
+// batch of few long pairs still leaves most SMs idle, one block a pair on
+// the general build.
 //
 // A band that outgrows W, at WF0 or later, reports ST_OVERFLOW_W instead
 // of being clamped silently, as the XLA engine of the reference package
@@ -98,6 +112,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -167,7 +183,8 @@ struct Params {
   const int32_t* tlen;   // [B]
   const int32_t* frees;  // [B, 4]: pattern begin/end, text begin/end free
   uint8_t* choices;      // [S_cap, B, W], zero on entry; unused unless kRecord
-  int32_t* res;          // [4, B]: status, final_s, end_k, end_off
+  int32_t* res;          // [4, B]: status, final_s, end_k, end_off;
+                         // then the warp build's pair counter
   // a segmented run's state, read unless `fresh` and written at the end:
   // the ring [B, rows, W], its bands [B, rows, 2] and the carry
   // [B, kCarry]; all nullptr for a one-shot run. `ring` alone is also the
@@ -679,7 +696,9 @@ __device__ __forceinline__ void loop_body(const Params& p) {
         if (cur_lo != m_lo || cur_hi != m_hi) {
           // install M's pruned band, cut every gap component's row of
           // score s to it (a null row stays null), and let the compute
-          // of s + 1 see both
+          // of s + 1 see both; the barrier first: the banded-adaptive
+          // cut above read cells of M's row that the install nulls
+          __syncthreads();
 #pragma unroll
           for (int c = 1; c < kComps; ++c) {
             g_lo[c] = max(g_lo[c], cur_lo);
@@ -1021,58 +1040,742 @@ __global__ void fused_loop_narrow(Params p) {
   loop_body<kMetric, kSpan, kRecord, kHeur, true>(p);
 }
 
-// The ring's rows in shared memory when they fit one block; else the
-// caller's global ring [B, rows, W], and only the bands and the partials
-// in shared memory. A one-shot run on the equality words with a thread a
-// diagonal and the ring in shared memory launches the narrow kernel, any
-// other the general one: the choice reads only what the launch is given.
+// --- the warp build: one warp a pair, several pairs a block ---
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kWarpMaxPairs = 8;
+constexpr int kExtChunks = 4;  // chunks of 32 diagonals an extension pass
+
+// ints of shared memory one pair of the warp build takes: its ring
+// [rows][W] and its lo/hi pairs [rows][2], rounded up to whole int4s so
+// that the next pair's ring starts 16-byte aligned
+// (pywfa_tpu_torch/ops/fused_loop.py::warp_pair_bytes)
+__host__ __device__ constexpr int warp_pair_ints(int rows, int W) {
+  return (rows * (W + 2) + 3) & ~3;
+}
+
+// Set to NULL the cells of a ring row in [lo, hi] (diagonals, w = k - kmin)
+// that lie outside [keep_lo, keep_hi]: the two flanks [lo, keep_lo - 1]
+// and [keep_hi + 1, hi] (which cover all of [lo, hi] when the kept band is
+// empty, keep_lo > keep_hi), one lane a diagonal, 32 at a time, so a step
+// whose band barely moves writes a chunk or two however wide the band.
+__device__ __forceinline__ void null_outside(int* row, int lo, int hi,
+                                             int keep_lo, int keep_hi,
+                                             int kmin, int lane) {
+  const int left_hi = min(hi, keep_lo - 1);
+  for (int k = lo + lane; k <= left_hi; k += 32) row[k - kmin] = kNull;
+  for (int k = max(lo, keep_hi + 1) + lane; k <= hi; k += 32) {
+    row[k - kmin] = kNull;
+  }
+}
+
+// The loop of one pair on one warp: the one-shot run on the equality
+// words (no state, no table, the ring in shared memory), as loop_body's
+// narrow build computes it, cell for cell. Every per-cell pass runs over
+// the live band only, 32 diagonals a chunk (lane i owns k = k0 + i), and
+// folds its minima and maxima in registers, one warp reduction a pass; a
+// __syncwarp orders each pass's writes before the next pass's reads of
+// other lanes' cells. The invariant that replaces writing all W cells a
+// step: every cell of a ring row outside the row's band is NULL. WF0
+// fills the whole ring with NULL once; a step nulls, in the recycled row
+// of s + 1, what its old band (score s + 1 - depth) and the untrimmed new
+// band hold outside the trimmed one; the cascade's install nulls what it
+// cuts. Out-of-band cells then read NULL as before, and the two folds of
+// the cascade that saw every diagonal of [0, W) keep their value: the
+// band never covers w = 0 (klo = kmin + 2), so wf-adaptive folds
+// max(plen, tlen) once, and x-drop / z-drop take diagonal 0 (w = 0) as
+// the maximum's index when no cell of the band is valid.
 template <int kMetric, int kSpan, bool kRecord, bool kHeur>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t ring = p.ring_global ? 0 : static_cast<size_t>(p.rows) * p.W;
-  const size_t smem =
-      (ring + p.rows * 2 +
-       (2 * n_comps(kMetric) + 1 + (kHeur ? kHeurReductions : 0)) * 32) *
-      sizeof(int);
-  const bool narrow = p.threads == p.W && p.carry == nullptr &&
-                      p.table == nullptr && !p.ring_global;
-  void (*kernel)(Params) =
-      narrow ? fused_loop_narrow<kMetric, kSpan, kRecord, kHeur>
-             : fused_loop<kMetric, kSpan, kRecord, kHeur>;
+__device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
+                                          int lane) {
+  constexpr int kComps = n_comps(kMetric);
+  constexpr bool kEditLike = kMetric == kEdit || kMetric == kIndel;
+  constexpr bool kEndsFree = kSpan != kEndToEnd;
+  constexpr bool kSeeding = kSpan == kSeeded;
+  const int W = p.W;
+  const int scope = p.scope;
+  const int kmin = -(W / 2);
+  const int klo = kmin + 2, khi = kmin + W - 3;
+  // this warp's ring [rows][W] and bands [rows][2]
+  int* lohi = off + p.rows * W;
+  const int plen = p.plen[b];
+  const int tlen = p.tlen[b];
+  const size_t BW = static_cast<size_t>(p.B) * W;
+  const size_t bW = static_cast<size_t>(b) * W;
+  const uint32_t* bits = p.bits + bW;
+  uint8_t* choices = kRecord ? p.choices + bW : nullptr;
+  const int NQ32 = p.NQ * 32;
+
+  int pbf = 0, pef = 0, tbf = 0, tef = 0;
+  if (kEndsFree) {
+    const int32_t* fr = p.frees + 4 * static_cast<size_t>(b);
+    pbf = fr[0];
+    pef = fr[1];
+    tbf = fr[2];
+    tef = fr[3];
+  }
+
+  // warp-uniform state, as loop_body's block-uniform state
+  int s = 0, status = 0, final_s = 0, end_k = 0, end_off = kNull;
+  int nnull = 0;
+  int h_wait = p.steps_between;
+  int hm_sw = 0, hm_k = 0, hm_off = kNull;
+  bool hm_valid = false;
+  // WF0 (see loop_body)
+  int wf0_lo = 0, wf0_hi = 0;
+  if (kSpan == kEndsFreeWf0) {
+    wf0_lo = -pbf;
+    wf0_hi = tbf;
+  }
+  bool done = kSpan == kEndsFreeWf0 && (wf0_lo < klo || wf0_hi > khi);
+  if (done) {
+    status = ST_OVERFLOW_W;
+  } else {
+    const int4 null4 = make_int4(kNull, kNull, kNull, kNull);
+    int4* off4 = reinterpret_cast<int4*>(off);
+    for (int i = lane; i < p.rows * W / 4; i += 32) off4[i] = null4;
+    for (int i = lane; i < p.rows; i += 32) {
+      lohi[2 * i] = (i == 0) ? wf0_lo : 1;
+      lohi[2 * i + 1] = (i == 0) ? wf0_hi : -1;
+    }
+    __syncwarp();
+    for (int k = wf0_lo + lane; k <= wf0_hi; k += 32) off[k - kmin] = max(k, 0);
+    __syncwarp();
+  }
+
+  // each component's ring slot of score s and the band of its row of
+  // score s (M owns rows [0, scope), its slot of score 0 is row 0)
+  int slot[kComps], g_lo[kComps], g_hi[kComps];
+#pragma unroll
+  for (int c = 0; c < kComps; ++c) {
+    slot[c] = 0;
+    g_lo[c] = c == M ? wf0_lo : 1;
+    g_hi[c] = c == M ? wf0_hi : -1;
+  }
+  int m_lo = wf0_lo, m_hi = wf0_hi;
+
+  while (!done && s < p.S_cap - 1) {
+    int* m_row = off + slot[M] * W;
+    const bool m_null = m_lo > m_hi;
+    if (m_null && nnull > scope) {
+      status = ST_END_UNREACHABLE;
+      final_s = s;
+      done = true;
+      break;
+    }
+
+    // --- extension over M's band ---
+    // kExtChunks chunks at a time: their first words are loaded together,
+    // so a wide band waits on one load latency, not one a chunk
+    int first_hit = W;
+    if (!m_null) {
+      for (int k0 = m_lo; k0 <= m_hi; k0 += 32 * kExtChunks) {
+        int m_off[kExtChunks], idx[kExtChunks];
+        uint32_t mq[kExtChunks];
+#pragma unroll
+        for (int j = 0; j < kExtChunks; ++j) {
+          const int k = k0 + 32 * j + lane;
+          m_off[j] = k <= m_hi ? m_row[k - kmin] : kNull;
+          idx[j] = min(m_off[j], NQ32 - 1);
+          mq[j] = (m_off[j] >= 0 && m_off[j] <= tlen)
+                      ? ~__ldg(bits + (idx[j] >> 5) * BW + (k - kmin)) &
+                            (0xFFFFFFFFu << (idx[j] & 31))
+                      : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < kExtChunks; ++j) {
+          const int k = k0 + 32 * j + lane;
+          const int w = k - kmin;
+          int mo = m_off[j];
+          if (mo >= 0 && mo <= tlen) {
+            int q = idx[j] >> 5;
+            uint32_t m = mq[j];
+            while (m == 0 && ++q < p.NQ) m = ~__ldg(bits + q * BW + w);
+            const int fm =
+                (m != 0) ? q * 32 + __ffs(static_cast<int>(m)) - 1 : NQ32;
+            mo += fm - idx[j];
+            m_row[w] = mo;
+          }
+          if (kEndsFree) {
+            const int v = mo - k;
+            if (k <= m_hi && mo > kNullThreshold &&
+                ((mo >= tlen && plen - v <= pef) ||
+                 (v >= plen && tlen - mo <= tef))) {
+              first_hit = min(first_hit, w);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();
+
+    // --- termination ---
+    if (kEndsFree) {
+      const int first = __reduce_min_sync(kFull, first_hit);
+      if (first < W) {
+        status = ST_END_REACHED;
+        final_s = s;
+        end_k = first + kmin;
+        end_off = m_row[first];
+        done = true;
+        break;
+      }
+    } else {
+      const int ak = tlen - plen;
+      const int aw = ak - kmin;
+      const int cell = (aw >= 0 && aw < W) ? m_row[aw] : 0;
+      if (!m_null && m_lo <= ak && ak <= m_hi && cell >= tlen) {
+        status = ST_END_REACHED;
+        final_s = s;
+        end_k = ak;
+        end_off = tlen;
+        done = true;
+        break;
+      }
+    }
+
+    // --- heuristic cascade (see loop_body), over the band ---
+    if constexpr (kHeur) {
+      if (!m_null) {
+        --h_wait;
+        int cur_lo = m_lo, cur_hi = m_hi;
+        const int st = p.strategy;
+        if ((st & (kWfAdaptive | kWfMash)) && h_wait <= 0 &&
+            cur_hi - cur_lo + 1 >= p.min_wf_len) {
+          const float mfactor = __fdiv_rn(__int2float_rn(plen + tlen), 2.0f);
+          auto dist_of = [&](int k, int m_off) {
+            if (m_off < 0) return -kNull;
+            const int v = m_off - k;
+            if (st & kWfMash) {
+              return max(mash_dist(plen - v, plen, mfactor),
+                         mash_dist(tlen - m_off, tlen, mfactor));
+            }
+            return max(plen - v, tlen - m_off);
+          };
+          // the diagonals outside the band count max(plen, tlen): w = 0
+          // always is one
+          int mn = max(plen, tlen);
+          for (int k0 = cur_lo; k0 <= cur_hi; k0 += 32) {
+            const int k = k0 + lane;
+            if (k <= cur_hi) mn = min(mn, dist_of(k, m_row[k - kmin]));
+          }
+          const int mind = __reduce_min_sync(kFull, mn);
+          const int ak = tlen - plen;
+          const int top_limit = min(ak, cur_hi);
+          int f = W, l = -1;
+          for (int k0 = cur_lo; k0 <= cur_hi; k0 += 32) {
+            const int k = k0 + lane;
+            const int w = k - kmin;
+            const bool keep =
+                k <= cur_hi && dist_of(k, m_row[w]) - mind <= p.max_dist;
+            if (keep && k < top_limit) f = min(f, w);
+            if (keep && k > ak) l = max(l, w);
+          }
+          const int first = __reduce_min_sync(kFull, f);
+          const int last = __reduce_max_sync(kFull, l);
+          const int lo_red = first < W ? first + kmin : max(top_limit, cur_lo);
+          const int new_lo = max(lo_red, cur_lo);
+          const int bot_limit = max(ak, new_lo);
+          const int hi_red = (last >= 0 && last + kmin > bot_limit)
+                                 ? last + kmin
+                                 : min(bot_limit, cur_hi);
+          cur_hi = min(hi_red, cur_hi);
+          cur_lo = new_lo;
+          h_wait = p.steps_between;
+        }
+        if ((st & (kXdrop | kZdrop)) && h_wait <= 0) {
+          auto sw_of = [&](int k, int m_off) {
+            return m_off >= 0 ? (p.swg_match * (m_off - k + m_off) - s) / 2
+                              : -kBig;
+          };
+          int mx = -kBig;
+          for (int k0 = cur_lo; k0 <= cur_hi; k0 += 32) {
+            const int k = k0 + lane;
+            if (k <= cur_hi) mx = max(mx, sw_of(k, m_row[k - kmin]));
+          }
+          const int cmax = __reduce_max_sync(kFull, mx);
+          const bool xd = (st & kXdrop) != 0;
+          int ci = W, fx = W, lx = -1;
+          for (int k0 = cur_lo; k0 <= cur_hi; k0 += 32) {
+            const int k = k0 + lane;
+            const int w = k - kmin;
+            const int sw = k <= cur_hi ? sw_of(k, m_row[w]) : -kBig;
+            if (sw == cmax) ci = min(ci, w);
+            if (xd && sw > -kBig && hm_sw - sw < p.xdrop) {
+              fx = min(fx, w);
+              lx = max(lx, w);
+            }
+          }
+          // no valid cell in the band: every diagonal scores -kBig, and
+          // the first of them is w = 0
+          const int ci_band = __reduce_min_sync(kFull, ci);
+          const int cidx = cmax == -kBig ? 0 : ci_band;
+          const bool improved = !hm_valid || cmax > hm_sw;
+          if (xd) {
+            const int firstx = __reduce_min_sync(kFull, fx);
+            const int lastx = __reduce_max_sync(kFull, lx);
+            if (hm_valid) {
+              cur_lo = firstx < W ? firstx + kmin : cur_hi + 1;
+              cur_hi = firstx < W ? lastx + kmin : cur_lo - 1;
+            }
+            if (improved) {
+              hm_sw = cmax;
+              hm_k = cidx + kmin;
+            }
+          } else {
+            const bool zdropped =
+                hm_valid && !improved && hm_sw - cmax > p.zdrop;
+            if (improved) {
+              hm_sw = cmax;
+              hm_k = cidx + kmin;
+              hm_off = m_row[min(cidx, W - 1)];
+            }
+            if (zdropped) {
+              status = ST_END_UNREACHABLE;
+              final_s = s;
+              end_k = hm_k;
+              end_off = hm_off;
+              done = true;
+              break;
+            }
+          }
+          hm_valid = true;
+          h_wait = p.steps_between;
+        }
+        if (st & kBandedStatic) {
+          cur_lo = max(cur_lo, p.band_min_k);
+          cur_hi = min(cur_hi, p.band_max_k);
+        } else if (st & kBandedAdaptive) {
+          const int wf_len = cur_hi - cur_lo + 1;
+          const int max_len = p.band_max_k - p.band_min_k + 1;
+          if (h_wait <= 0 && wf_len >= 4) {
+            if (wf_len > max_len) {
+              auto dist_at = [&](int kq) {
+                const int o = m_row[min(max(kq - kmin, 0), W - 1)];
+                return o >= 0 ? max(plen - (o - kq), tlen - o) : -kNull;
+              };
+              const int leeway = (wf_len - max_len) / 2;
+              const int quarter = wf_len / 4;
+              const int d0 = dist_at(cur_lo);
+              const int d1 = dist_at(cur_lo + quarter);
+              const int d2 = dist_at(cur_lo + 2 * quarter);
+              const int d3 = dist_at(cur_hi);
+              const int new_lo0 = cur_lo + (d0 > d3 ? leeway : 0) +
+                                  (d1 > d2 ? leeway : 0);
+              cur_hi = min(new_lo0 + max_len - 1, cur_hi);
+              cur_lo = max(new_lo0, cur_lo);
+            }
+            h_wait = p.steps_between;
+          }
+        }
+        if (cur_lo != m_lo || cur_hi != m_hi) {
+          // install M's pruned band and cut every gap component's row of
+          // score s to it: null what each row's old band loses, after
+          // every lane's reads of M's row above (the banded-adaptive cut
+          // reads cells that the install nulls)
+          __syncwarp();
+          null_outside(m_row, m_lo, m_hi, cur_lo, cur_hi, kmin, lane);
+#pragma unroll
+          for (int c = 1; c < kComps; ++c) {
+            const int nlo = max(g_lo[c], cur_lo);
+            const int nhi = min(g_hi[c], cur_hi);
+            null_outside(off + (p.base[c] + slot[c]) * W, g_lo[c], g_hi[c],
+                         nlo, nhi, kmin, lane);
+            g_lo[c] = nlo;
+            g_hi[c] = nhi;
+          }
+          if (lane == 0) {
+            lohi[2 * slot[M]] = cur_lo;
+            lohi[2 * slot[M] + 1] = cur_hi;
+#pragma unroll
+            for (int c = 1; c < kComps; ++c) {
+              const int row = p.base[c] + slot[c];
+              lohi[2 * row] = g_lo[c];
+              lohi[2 * row + 1] = g_hi[c];
+            }
+          }
+          __syncwarp();
+        }
+      }
+    }
+
+    // --- compute s + 1 (see loop_body) ---
+    const int s1 = s + 1;
+    int slot1[kComps], old_lo[kComps], old_hi[kComps];
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) {
+      slot1[c] = slot[c] + 1 == p.depth[c] ? 0 : slot[c] + 1;
+      // the band of score s + 1 - depth that this row still holds
+      const int row = p.base[c] + slot1[c];
+      old_lo[c] = lohi[2 * row];
+      old_hi[c] = lohi[2 * row + 1];
+    }
+    Wf mm, op, i1, d1, op2, i2, d2;
+    bool prod[kComps];
+    int lo_n, hi_n;
+    bool all_null;
+    if constexpr (kEditLike) {
+      mm = read_wf(off, lohi, p, M, slot1[M], 1, s1);
+      lo_n = mm.lo - 1;
+      hi_n = mm.hi + 1;
+      all_null = mm.null_;
+    } else if constexpr (kMetric == kLinear) {
+      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1);
+      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1);
+      lo_n = min(lim_lo(mm, 0), lim_lo(op, 1));
+      hi_n = max(lim_hi(mm, 0), lim_hi(op, 1));
+      all_null = mm.null_ && op.null_;
+    } else {
+      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1);
+      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1);
+      i1 = read_wf(off, lohi, p, I1, slot1[I1], p.e1, s1);
+      d1 = read_wf(off, lohi, p, D1, slot1[D1], p.e1, s1);
+      lo_n = min(min(lim_lo(mm, 0), lim_lo(op, 1)),
+                 min(lim_lo(i1, 1), lim_lo(d1, 1)));
+      hi_n = max(max(lim_hi(mm, 0), lim_hi(op, 1)),
+                 max(lim_hi(i1, 1), lim_hi(d1, 1)));
+      all_null = mm.null_ && op.null_ && i1.null_ && d1.null_;
+      prod[I1] = !(op.null_ && i1.null_);
+      prod[D1] = !(op.null_ && d1.null_);
+      if constexpr (kMetric == kAffine2p) {
+        op2 = read_wf(off, lohi, p, M, slot1[M], p.o2, s1);
+        i2 = read_wf(off, lohi, p, I2, slot1[kComps - 2], p.e2, s1);
+        d2 = read_wf(off, lohi, p, D2, slot1[kComps - 1], p.e2, s1);
+        lo_n = min(lo_n, min(lim_lo(op2, 1),
+                             min(lim_lo(i2, 1), lim_lo(d2, 1))));
+        hi_n = max(hi_n, max(lim_hi(op2, 1),
+                             max(lim_hi(i2, 1), lim_hi(d2, 1))));
+        all_null = all_null && op2.null_ && i2.null_ && d2.null_;
+        prod[kComps - 2] = !(op2.null_ && i2.null_);
+        prod[kComps - 1] = !(op2.null_ && d2.null_);
+      }
+    }
+    if (!kEditLike) nnull = all_null ? nnull + 1 : 0;
+    bool null_step = all_null, seeded_null = false;
+    bool seed_t = false, seed_p = false;
+    int ek = 0;
+    if constexpr (kSeeding) {
+      if (s1 % p.seed_div == 0 && (pbf > 0 || tbf > 0)) {
+        ek = s1 / p.seed_div;
+        seed_t = tbf >= ek;
+        seed_p = pbf >= ek;
+        if (seed_p) lo_n = min(lo_n, -ek);
+        if (seed_t) hi_n = max(hi_n, ek);
+        if (all_null) {
+          lo_n = seed_p ? -ek : (seed_t ? ek : 0);
+          hi_n = seed_t ? ek : (seed_p ? -ek : 0);
+          seeded_null = true;
+        }
+        null_step = false;
+      }
+    }
+    const bool write = !null_step;
+    const bool overflow = write && (lo_n < klo || hi_n > khi);
+    lo_n = min(max(lo_n, klo), khi);
+    hi_n = min(max(hi_n, klo), khi);
+    prod[M] = write;
+#pragma unroll
+    for (int c = 1; c < kComps; ++c) prod[c] = prod[c] && write;
+
+    // the cells of [lo_n, hi_n], untrimmed, into each component's row of
+    // s + 1 (no source row shares that slot), with each lane's first and
+    // last in-bounds diagonal for the trim
+    int wmin[kComps], wmax[kComps];
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) {
+      wmin[c] = W;
+      wmax[c] = -1;
+    }
+    for (int k0 = lo_n; write && k0 <= hi_n; k0 += 32) {
+      const int k = k0 + lane;
+      if (k > hi_n) continue;
+      const int w = k - kmin;
+      int arr[kComps];
+      int choice, mval;
+      if constexpr (kEditLike) {
+        int pm =
+            max(pack(at(mm, w + 1, W), 3), pack(at(mm, w - 1, W) + 1, 1));
+        if constexpr (kMetric == kEdit) {
+          pm = max(pack(at(mm, w, W) + 1, 5), pm);
+        }
+        mval = pm >> 3;
+        choice = one_comp_source(pm);
+      } else if constexpr (kMetric == kLinear) {
+        const int pm = max(pack(at(mm, w, W) + 1, 5),
+                           max(pack(at(op, w + 1, W), 3),
+                               pack(at(op, w - 1, W) + 1, 1)));
+        mval = pm < 0 ? kNull : (pm >> 3);
+        choice = one_comp_source(pm);
+      } else {
+        int i1_ext, d1_ext;
+        const int ins1 =
+            gap_cell(at(op, w - 1, W), at(i1, w - 1, W), 1, &i1_ext);
+        const int del1 =
+            gap_cell(at(op, w + 1, W), at(d1, w + 1, W), 0, &d1_ext);
+        const int mis = at(mm, w, W) + 1;
+        arr[I1] = ins1;
+        arr[D1] = del1;
+        int pm, raw;
+        if constexpr (kMetric == kAffine2p) {
+          int i2_ext, d2_ext;
+          const int ins2 =
+              gap_cell(at(op2, w - 1, W), at(i2, w - 1, W), 1, &i2_ext);
+          const int del2 =
+              gap_cell(at(op2, w + 1, W), at(d2, w + 1, W), 0, &d2_ext);
+          arr[kComps - 2] = ins2;
+          arr[kComps - 1] = del2;
+          pm = max(max(pack(mis, 5), pack(del2, 4)),
+                   max(pack(del1, 3), max(pack(ins2, 2), pack(ins1, 1))));
+          raw = max(max(mis, del2), max(del1, max(ins2, ins1)));
+          const int pr = pm & 7;
+          const int msrc =
+              pm < 0 ? MSRC_NONE
+                     : (pr == 5 ? MSRC_X
+                                : (pr == 4 ? MSRC_D2
+                                           : (pr == 3 ? MSRC_D1
+                                                      : (pr == 2 ? MSRC_I2
+                                                                 : MSRC_I1))));
+          choice = msrc | (i1_ext << 3) | (d1_ext << 4) | (i2_ext << 5) |
+                   (d2_ext << 6);
+        } else {
+          pm = max(pack(mis, 5), max(pack(del1, 3), pack(ins1, 1)));
+          raw = max(mis, max(del1, ins1));
+          const int pr = pm & 7;
+          const int msrc =
+              pm < 0 ? MSRC_NONE
+                     : (pr == 5 ? MSRC_X : (pr == 3 ? MSRC_D1 : MSRC_I1));
+          choice = msrc | (i1_ext << 3) | (d1_ext << 4);
+        }
+        mval = pm < 0 ? raw : (pm >> 3);
+      }
+      if (mval < 0 || mval > tlen || mval - k < 0 || mval - k > plen) {
+        mval = kNull;
+      }
+      if constexpr (kSeeding) {
+        if (seed_t && k == ek && mval <= ek) {
+          mval = ek;
+          choice = MSRC_SEED;
+        } else if (seed_p && k == -ek && mval <= 0) {
+          mval = 0;
+          choice = MSRC_SEED;
+        }
+      }
+      arr[M] = mval;
+#pragma unroll
+      for (int c = 0; c < kComps; ++c) {
+        if (!prod[c]) arr[c] = kNull;
+        const int v = arr[c] - k;
+        if (arr[c] >= 0 && arr[c] <= tlen && v >= 0 && v <= plen) {
+          wmin[c] = min(wmin[c], w);
+          wmax[c] = max(wmax[c], w);
+        }
+        off[(p.base[c] + slot1[c]) * W + w] = arr[c];
+      }
+      if (kRecord && choice != 0) {
+        choices[static_cast<size_t>(s1) * BW + w] =
+            static_cast<uint8_t>(choice);
+      }
+    }
+    __syncwarp();
+
+    // end trim per component: of the row's old band and of the cells just
+    // written, what lies outside the trimmed band goes back to NULL
+    int t_lo[kComps], t_hi[kComps];
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) {
+      const int first = __reduce_min_sync(kFull, wmin[c]);
+      const int last = __reduce_max_sync(kFull, wmax[c]);
+      const bool keep = prod[c] && first < W;
+      int tlo = keep ? first + kmin : 1;
+      int thi = keep ? last + kmin : -1;
+      if (kSeeding && c == M && seeded_null) {
+        tlo = lo_n;
+        thi = hi_n;
+      }
+      int lo_x = old_lo[c] <= old_hi[c] ? old_lo[c] : kBig;
+      int hi_x = old_lo[c] <= old_hi[c] ? old_hi[c] : -kBig;
+      if (write) {
+        lo_x = min(lo_x, lo_n);
+        hi_x = max(hi_x, hi_n);
+      }
+      null_outside(off + (p.base[c] + slot1[c]) * W, lo_x, hi_x, tlo, thi,
+                   kmin, lane);
+      t_lo[c] = tlo;
+      t_hi[c] = thi;
+      slot[c] = slot1[c];
+      g_lo[c] = tlo;
+      g_hi[c] = thi;
+      if (c == M) {
+        m_lo = tlo;
+        m_hi = thi;
+        if (kEditLike && tlo > thi) nnull = kBig;
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < kComps; ++c) {
+        const int row = p.base[c] + slot1[c];
+        lohi[2 * row] = t_lo[c];
+        lohi[2 * row + 1] = t_hi[c];
+      }
+    }
+    __syncwarp();
+
+    if (overflow) {
+      status = ST_OVERFLOW_W;
+      done = true;
+    } else if (s1 >= p.max_steps) {
+      status = ST_MAX_STEPS;
+      final_s = s1;
+      done = true;
+    }
+    s = s1;
+  }
+  if (!done) {
+    status = ST_OVERFLOW_S;
+    final_s = s;
+  }
+  if (lane == 0) {
+    p.res[b] = status;
+    p.res[p.B + b] = final_s;
+    p.res[2 * p.B + b] = end_k;
+    p.res[3 * p.B + b] = end_off;
+  }
+}
+
+// A persistent grid of warps, as many as the SMs hold at once: warp i of
+// block j starts on pair j * P + i, then takes the next pair from the
+// launch's counter (res[4 * B], zeroed before a launch that has fewer
+// warps than pairs), so a warp whose
+// pair ends early takes another instead of idling until the slowest pair
+// of its block ends.
+template <int kMetric, int kSpan, bool kRecord, bool kHeur>
+__global__ void __launch_bounds__(kWarpMaxPairs * 32)
+    fused_loop_warp(Params p) {
+  extern __shared__ __align__(16) int smem_warp[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int* off = smem_warp + warp * warp_pair_ints(p.rows, p.W);
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  while (b < p.B) {
+    warp_pair<kMetric, kSpan, kRecord, kHeur>(p, b, off, lane);
+    if (warps >= p.B) break;  // a warp a pair: the counter is not zeroed
+    int next = 0;
+    if (lane == 0) next = atomicAdd(p.res + 4 * p.B, 1);
+    b = warps + __shfl_sync(kFull, next, 0);
+    // the last pair's reads of its ring before the next pair's fill
+    __syncwarp();
+  }
+}
+
+// the build codes of wfa_fused_loop (pywfa_tpu_torch/ops/fused_loop.py::BUILDS)
+constexpr int kBuildGeneral = 0;
+constexpr int kBuildNarrow = 1;
+constexpr int kBuildWarp = 2;
+
+// The build the caller chose: the general kernel takes any launch; the
+// narrow one a one-shot run on the equality words with a thread a
+// diagonal and the ring in shared memory; the warp one a one-shot run on
+// the words with threads / 32 pairs a block, each pair's ring in shared
+// memory. Shared memory: the general and the narrow kernel hold the ring
+// (unless it lives in the caller's global ring [B, rows, W]), its bands
+// and the partials of the block reductions; the warp kernel a ring and
+// its bands a pair.
+template <int kMetric, int kSpan, bool kRecord, bool kHeur>
+int launch(const Params& p, int build, cudaStream_t stream) {
+  void (*kernel)(Params);
+  size_t smem;
+  int grid = p.B;
+  if (build == kBuildWarp) {
+    const int pairs = p.threads / 32;
+    kernel = fused_loop_warp<kMetric, kSpan, kRecord, kHeur>;
+    smem = static_cast<size_t>(pairs) * warp_pair_ints(p.rows, p.W) *
+           sizeof(int);
+    grid = (p.B + pairs - 1) / pairs;
+  } else {
+    const size_t ring =
+        p.ring_global ? 0 : static_cast<size_t>(p.rows) * p.W;
+    smem = (ring + p.rows * 2 +
+            (2 * n_comps(kMetric) + 1 + (kHeur ? kHeurReductions : 0)) *
+                32) *
+           sizeof(int);
+    kernel = build == kBuildNarrow
+                 ? fused_loop_narrow<kMetric, kSpan, kRecord, kHeur>
+                 : fused_loop<kMetric, kSpan, kRecord, kHeur>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<p.B, p.threads, smem, stream>>>(p);
+  if (build == kBuildWarp) {
+    // no more blocks than the SMs hold at once (asked of the runtime once
+    // a device, block size and shared memory); the pair counter at 0
+    // unless every pair has a warp of its own
+    static std::mutex mu;
+    static int cached_device = -1, cached_threads = 0, cached_resident = 0;
+    static size_t cached_smem = 0;
+    int device = 0, resident = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    {
+      std::lock_guard<std::mutex> lock(mu);
+      if (device != cached_device || p.threads != cached_threads ||
+          smem != cached_smem) {
+        int sms = 0, per_sm = 0;
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+        if (e == cudaSuccess) {
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, kernel, p.threads, smem);
+        }
+        if (e != cudaSuccess) return static_cast<int>(e);
+        cached_device = device;
+        cached_threads = p.threads;
+        cached_smem = smem;
+        cached_resident = per_sm * sms;
+      }
+      resident = cached_resident;
+    }
+    if (resident == 0) return static_cast<int>(cudaErrorInvalidValue);
+    grid = min(grid, resident);
+    if (static_cast<long long>(grid) * (p.threads / 32) < p.B) {
+      e = cudaMemsetAsync(p.res + 4 * p.B, 0, sizeof(int32_t), stream);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  }
+  kernel<<<grid, p.threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kMetric, int kSpan>
-int launch_span(const Params& p, bool record, bool heur,
+int launch_span(const Params& p, int build, bool record, bool heur,
                 cudaStream_t stream) {
   if (heur) {
-    return record ? launch<kMetric, kSpan, true, true>(p, stream)
-                  : launch<kMetric, kSpan, false, true>(p, stream);
+    return record ? launch<kMetric, kSpan, true, true>(p, build, stream)
+                  : launch<kMetric, kSpan, false, true>(p, build, stream);
   }
-  return record ? launch<kMetric, kSpan, true, false>(p, stream)
-                : launch<kMetric, kSpan, false, false>(p, stream);
+  return record ? launch<kMetric, kSpan, true, false>(p, build, stream)
+                : launch<kMetric, kSpan, false, false>(p, build, stream);
 }
 
 template <int kMetric>
-int launch_metric(const Params& p, int span, bool record, bool heur,
-                  cudaStream_t stream) {
+int launch_metric(const Params& p, int build, int span, bool record,
+                  bool heur, cudaStream_t stream) {
   if (span == kEndToEnd) {
-    return launch_span<kMetric, kEndToEnd>(p, record, heur, stream);
+    return launch_span<kMetric, kEndToEnd>(p, build, record, heur, stream);
   }
   if (span == kEndsFreeWf0) {
-    return launch_span<kMetric, kEndsFreeWf0>(p, record, heur, stream);
+    return launch_span<kMetric, kEndsFreeWf0>(p, build, record, heur,
+                                              stream);
   }
   // edit and indel carry no match weight: nothing to seed
   if constexpr (kMetric == kEdit || kMetric == kIndel) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    return launch_span<kMetric, kSeeded>(p, record, heur, stream);
+    return launch_span<kMetric, kSeeded>(p, build, record, heur, stream);
   }
 }
 
@@ -1082,7 +1785,8 @@ extern "C" {
 
 // Launch the loop for B pairs on `stream`; returns the cudaError_t of the
 // launch (0 on success). All pointers are device pointers; `frees` is
-// read only on an ends-free span, `choices` written only when record.
+// read only on an ends-free span, `choices` written only when record;
+// `res` holds 4 * B + 1 ints, the last the warp build's pair counter.
 // The extension reads `table` ([Ltp, B, W], uint8 when table_u8 else
 // int16) when it is not nullptr, else `bits`. `ring`, `lohi` and `carry`
 // are the state of a segmented run (all nullptr for a one-shot run),
@@ -1095,13 +1799,15 @@ extern "C" {
 // (pywfa_tpu_torch/ops/fused_loop.py::ring_depths); `heur` is a host array
 // of the cascade's nine parameters (::heuristic_params), whose first, the
 // strategy bits, is 0 for the exact loop; seed_div is -match, read on the
-// seeded span.
+// seeded span. `build` is the kernel the caller chose (kBuild*; `threads`
+// is a block's threads, for the warp build 32 times its pairs); a launch
+// the build cannot take returns cudaErrorInvalidValue and runs nothing.
 int wfa_fused_loop(const void* bits, const void* table, int table_u8,
                    int Ltp, const void* plen, const void* tlen,
                    const void* frees, void* choices, void* res, void* ring,
                    void* lohi, void* carry, int fresh, int ring_global,
-                   int seg_base, int threads, const int* depths, int B,
-                   int W, int NQ, int S_cap, int scope, int x, int o1,
+                   int seg_base, int build, int threads, const int* depths,
+                   int B, int W, int NQ, int S_cap, int scope, int x, int o1,
                    int e1, int o2, int e2, int max_steps, int metric,
                    int span, int record, const int* heur, int seed_div,
                    void* stream) {
@@ -1114,7 +1820,16 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
       (bits == nullptr && table == nullptr) ||
       (carry != nullptr && (ring == nullptr || lohi == nullptr)) ||
       (carry == nullptr && !fresh) || (ring_global && ring == nullptr) ||
-      threads < 32 || threads > 1024 || threads % 32 != 0) {
+      threads < 32 || threads > 1024 || threads % 32 != 0 ||
+      build < kBuildGeneral || build > kBuildWarp) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the narrow and the warp build: a one-shot run on the equality words,
+  // the ring in shared memory
+  const bool one_shot = carry == nullptr && table == nullptr &&
+                        !ring_global && fresh && seg_base == 0;
+  if ((build == kBuildNarrow && !(one_shot && threads == W)) ||
+      (build == kBuildWarp && !(one_shot && threads <= 32 * kWarpMaxPairs))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -1165,15 +1880,15 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
   const bool heuristic = p.strategy != 0;
   switch (metric) {
     case kAffine:
-      return launch_metric<kAffine>(p, span, record, heuristic, st);
+      return launch_metric<kAffine>(p, build, span, record, heuristic, st);
     case kAffine2p:
-      return launch_metric<kAffine2p>(p, span, record, heuristic, st);
+      return launch_metric<kAffine2p>(p, build, span, record, heuristic, st);
     case kLinear:
-      return launch_metric<kLinear>(p, span, record, heuristic, st);
+      return launch_metric<kLinear>(p, build, span, record, heuristic, st);
     case kEdit:
-      return launch_metric<kEdit>(p, span, record, heuristic, st);
+      return launch_metric<kEdit>(p, build, span, record, heuristic, st);
     default:
-      return launch_metric<kIndel>(p, span, record, heuristic, st);
+      return launch_metric<kIndel>(p, build, span, record, heuristic, st);
   }
 }
 

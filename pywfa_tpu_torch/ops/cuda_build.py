@@ -100,7 +100,7 @@ def load(name: str = "fused_loop") -> ctypes.CDLL:
         ints = ctypes.POINTER(ci)
         if name == "fused_loop":
             lib.wfa_fused_loop.argtypes = (
-                [vp, vp, ci, ci] + [vp] * 8 + [ci] * 4 + [ints] + [ci] * 14
+                [vp, vp, ci, ci] + [vp] * 8 + [ci] * 5 + [ints] + [ci] * 14
                 + [ints, ci, vp])
             lib.wfa_fused_loop.restype = ci
         else:

@@ -14,10 +14,13 @@ unless the scope is score-only -- and returns the same dict as the
 reference's `align_batch_pallas`.
 
 `align_batch_fused_loop` is the entry point. On CUDA tensors it launches
-the hand-written kernel in `csrc/fused_loop.cu` (which picks, from what
-the launch is given, its narrow build for a one-shot run of a band of at
-most 1024 diagonals on the equality words, else its general build); on CPU
-tensors it runs
+the hand-written kernel in `csrc/fused_loop.cu`, in the build that
+`kernel_build` picks: for a one-shot run of a band of at most 1024
+diagonals on the equality words, the warp build (one warp a pair over the
+live band, several pairs a block), or the narrow build (one block a pair)
+at a terminal rung, whose score cap passes its width; the general build
+(one block a pair) for a segment's state, the run-length table, a ring in
+global memory or a wider band; on CPU tensors it runs
 `align_batch_fused_loop_ref`, the plain torch version, which is the Pallas
 kernel's own array program over [B, W] with a Python loop over scores.
 
@@ -87,9 +90,21 @@ STRATEGIES = int(HeuristicStrategy.WFADAPTIVE | HeuristicStrategy.WFMASH
 TABLE_VARIANTS = tuple(v + "_table" for v in VARIANTS)
 variant_launches = dict.fromkeys(VARIANTS + TABLE_VARIANTS, 0)
 
-# shared memory one block may use on sm_90 (bytes)
+# the kernel builds of csrc/fused_loop.cu, in the order of their codes,
+# and the launches align_batch_fused_loop made of each
+BUILDS = ("general", "narrow", "warp")
+build_launches = dict.fromkeys(BUILDS, 0)
+
+# shared memory one block may use on sm_90, shared memory of one SM, and
+# what the card sets aside of it for each resident block (bytes)
 SMEM_LIMIT = 232448
+SM_SMEM = 233472
+BLOCK_SMEM_RESERVED = 1024
 MAX_THREADS = 1024
+# the warp build: at most this many pairs (warps) a block; the SMs of an
+# H100 SXM, over which a small batch is spread
+WARP_MAX_PAIRS = 8
+SMS = 132
 
 # one pair's carry in the state of a segmented run, in the kernel's order:
 # its score, status, result (final_s, end_k, end_off), null-step count, the
@@ -135,6 +150,45 @@ def ring_in_global(cfg: EngineConfig) -> bool:
     at pywfa's penalties: W > 3840; the 2-piece metric: W > 1600) and live
     in a global [B, rows, W] array instead."""
     return smem_bytes(cfg) > SMEM_LIMIT
+
+
+def warp_pair_bytes(cfg: EngineConfig) -> int:
+    """Shared memory one pair of the warp build takes: its ring
+    [rows, W] and its bands [rows, 2], int32, rounded up to 16 bytes."""
+    rows = sum(ring_depths(cfg))
+    return -(-rows * (cfg.W + 2) // 4) * 16
+
+
+def warp_pairs(cfg: EngineConfig, B: int, sms: int = SMS) -> int:
+    """Pairs a block of the warp build. Shared memory bounds the pairs an
+    SM holds, so P is the one up to WARP_MAX_PAIRS whose blocks keep the
+    most pairs resident on an SM (the largest such), cut to ceil(B / sms)
+    so that a small batch spreads over the SMs; 0 when one pair's ring
+    passes a block's shared memory."""
+    per = warp_pair_bytes(cfg)
+    best = (0, 0)
+    for P in range(1, WARP_MAX_PAIRS + 1):
+        if P * per > SMEM_LIMIT:
+            break
+        resident = P * (SM_SMEM // (P * per + BLOCK_SMEM_RESERVED))
+        best = max(best, (resident, P))
+    return min(best[1], -(-B // sms)) if best[1] else 0
+
+
+def kernel_build(cfg: EngineConfig, B: int, table=None, state=None) -> str:
+    """The build of csrc/fused_loop.cu that a launch of B pairs takes (one
+    of BUILDS). The general build for a segment's state, the run-length
+    table, a ring in global memory or a band past MAX_THREADS diagonals
+    (the long-read paths). Else a one-shot run on the equality words: the
+    warp build (one warp a pair over the live band), unless the rung's
+    score cap passes its width, as at the terminal rungs, which are sized
+    for pairs as far apart as unrelated ones: their live bands fill W, and
+    a block a pair (the narrow build) walks such a band in one pass where
+    a warp walks it 32 diagonals at a time (PERF.md, kernel table)."""
+    if (state is not None or table is not None or ring_in_global(cfg)
+            or cfg.W > MAX_THREADS or warp_pairs(cfg, B) == 0):
+        return "general"
+    return "narrow" if cfg.S_cap > cfg.W else "warp"
 
 
 def block_threads(W: int) -> int:
@@ -312,7 +366,8 @@ def _check(cfg: EngineConfig, bits, plen, tlen, frees, table, state, fresh):
 
 def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
                            max_steps: int, table=None, state=None,
-                           fresh: bool = True, seg_base: int = 0) -> dict:
+                           fresh: bool = True, seg_base: int = 0,
+                           build=None) -> dict:
     """Run the fused score loop over B pairs.
 
     bits: [NQ, B, W] int32 bit patterns (engine.build_eq_bits), or None
@@ -326,9 +381,13 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     one goes on from it; the state is updated in place. Returns
     dict(status, final_s, end_k, end_off, steps), plus choices
     [S_cap, B, W] uint8 when cfg.record_choices (levels a pair never
-    reaches read 0; the level of score s is s - seg_base).
+    reaches read 0; the level of score s is s - seg_base). `build` (one
+    of BUILDS) overrides kernel_build's choice on CUDA tensors; a build
+    the launch cannot take raises.
     """
     _check(cfg, bits, plen, tlen, frees, table, state, fresh)
+    if build is not None and build not in BUILDS:
+        raise ValueError(f"build must be one of {BUILDS}, got {build!r}")
     max_steps = min(int(max_steps), 2**31 - 1)
     ext = table if table is not None else bits
     if ext.device.type == "cpu":
@@ -354,11 +413,19 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     # score-only scope: no [S_cap, B, W] record, so no memset of it either
     choices = (torch.zeros((cfg.S_cap, B, W), dtype=torch.uint8, device=dev)
                if record else None)
-    res = torch.empty((4, B), dtype=torch.int32, device=dev)
+    # status, final_s, end_k, end_off; then the warp build's pair counter
+    res = torch.empty(4 * B + 1, dtype=torch.int32, device=dev)
     x, o1, e1, o2, e2 = score_distances(cfg)
     depths = ring_depths(cfg)
     heur = heuristic_params(cfg)
     in_global = ring_in_global(cfg)
+    if build is None:
+        build = kernel_build(cfg, B, table, state)
+    if build == "warp":
+        threads = 32 * warp_pairs(
+            cfg, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    else:
+        threads = W if build == "narrow" else block_threads(W)
     if state is not None:
         ring = state["ring"]
     else:
@@ -377,15 +444,18 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
             res.data_ptr(), ring.data_ptr() if ring is not None else None,
             state["lohi"].data_ptr() if state is not None else None,
             state["carry"].data_ptr() if state is not None else None,
-            int(fresh), int(in_global), seg_base, block_threads(W),
+            int(fresh), int(in_global), seg_base, BUILDS.index(build),
+            threads,
             (ctypes.c_int * len(depths))(*depths), B, W, NQ,
             cfg.S_cap, cfg.scope, x, o1, e1, o2, e2, max_steps,
             METRIC_CODE[cfg.metric], span_code(cfg), int(record),
             (ctypes.c_int * len(heur))(*heur), -cfg.match, stream)
     if rc != 0:
-        raise RuntimeError("fused loop kernel launch failed: "
-                           + cuda_build.error_string(rc))
+        raise RuntimeError(f"fused loop kernel launch failed ({build} "
+                           "build): " + cuda_build.error_string(rc))
     variant_launches[variant(cfg, table is not None)] += 1
+    build_launches[build] += 1
+    res = res[:4 * B].view(4, B)
     out = dict(status=res[0], final_s=res[1], end_k=res[2], end_off=res[3],
                steps=res[1].max())
     if record:

@@ -584,24 +584,165 @@ def test_table_variants_match_plain_and_bits(dev, kw, frees_row, W):
 ])
 def test_narrow_and_general_kernels_match_plain_version(dev, kw, frees_row):
     """A one-shot run of a band of at most 1024 diagonals on the equality
-    words launches the narrow kernel; the same run with a state to fill
-    launches the general one. Both give the plain version's bytes."""
+    words launches the warp build; the narrow build takes the same run,
+    and the general one the same run with a state to fill. All three give
+    the plain version's bytes."""
     attr = RefAligner(backend="numpy", **kw)._attributes()
     pairs = _window_pairs(75, 24, 300, 20 if frees_row[2] else 0)
     cfg = C.full_config(attr, 320, 352, W=512, S_cap=400,
                         record_choices=kw.get("scope") != "score")
     args = _inputs(cfg, pairs, dev, frees_row)
-    narrow = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    assert fused_loop.kernel_build(cfg, len(pairs)) == "warp"
+    before = dict(fused_loop.build_launches)
+    warp = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    narrow = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
+                                               build="narrow")
     general = fused_loop.align_batch_fused_loop(
         cfg, *args, 2**31 - 1, state=fused_loop.new_state(cfg, len(pairs),
                                                           dev), fresh=True)
+    assert {k: v - before[k] for k, v in fused_loop.build_launches.items()
+            } == {"warp": 1, "narrow": 1, "general": 1}
     plain = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
     torch.cuda.synchronize()
     for k in KEYS:
         if k in plain:
+            assert torch.equal(warp[k], plain[k]), k
             assert torch.equal(narrow[k], plain[k]), k
             assert torch.equal(general[k], plain[k]), k
     assert int((plain["status"] == C.ST_END_REACHED).sum()) >= 12
+
+
+def _warp_case(case):
+    """(config, pairs, frees row, max_steps) of one warp-build case."""
+    e2e = dict(span="end-to-end")
+    if case.startswith("metric_"):
+        _, metric, scope = case.split("_")
+        attr = _metric_attr(metric if metric != "affine" else "affine",
+                            scope=scope)
+        pairs = _hard_pairs(96)
+        return (C.full_config(attr, 128, 128,
+                              record_choices=scope == "full"),
+                pairs, (0, 0, 0, 0), 2**31 - 1)
+    if case == "wfadaptive_narrow_band":
+        # the cut leaves a band far narrower than W = 256
+        attr = dataclasses.replace(
+            RefAligner(backend="numpy", **e2e)._attributes(),
+            heuristic=HEURISTICS["wfadaptive"])
+        pairs = random_pairs(97, 48, 100, 150, 0.12, 0.04, unrelated=0.2,
+                             as_bytes=True)
+        return (C.full_config(attr, 160, 160, W=256, S_cap=400), pairs,
+                (0, 0, 0, 0), 2**31 - 1)
+    if case in ("xdrop_banded", "zdrop_banded"):
+        # the drop reads a band that wf-adaptive cut in the same step, and
+        # a static band then cuts M's row: the drop's maximum and its
+        # first diagonal come from a band narrower than M's row
+        name = case.split("_")[0]
+        params = dataclasses.replace(
+            HEURISTICS[name], strategy=HEURISTICS[name].strategy
+            | HS.WFADAPTIVE | HS.BANDED_STATIC, min_wavefront_length=5,
+            max_distance_threshold=10, min_k=-6, max_k=6)
+        attr = dataclasses.replace(
+            RefAligner(backend="numpy", **e2e)._attributes(),
+            heuristic=params)
+        return (C.full_config(attr, 128, 128), _hard_pairs(98),
+                (0, 0, 0, 0), 2**31 - 1)
+    if case == "overflow_w":
+        attr = RefAligner(backend="numpy", **e2e)._attributes()
+        pairs = random_pairs(99, 32, 20, 150, 0.1, 0.1, unrelated=0.5,
+                             as_bytes=True)
+        return (C.full_config(attr, 160, 160, W=128), pairs, (0, 0, 0, 0),
+                2**31 - 1)
+    if case == "unrelated_wide_band":
+        # unrelated 150 bp pairs: a live band of a hundred diagonals and
+        # more, several chunks of 32 a step
+        attr = RefAligner(backend="numpy", **e2e)._attributes()
+        pairs = random_pairs(100, 24, 140, 150, 0.0, 0.0, unrelated=1.0,
+                             as_bytes=True)
+        return C.full_config(attr, 160, 160), pairs, (0, 0, 0, 0), 2**31 - 1
+    if case == "seeded_null_steps":
+        attr = RefAligner(backend="numpy", **BONUS["affine"])._attributes()
+        return (C.full_config(attr, 128, 128), _hard_pairs(101),
+                (10, 4, 30, 6), 2**31 - 1)
+    if case == "max_steps_9":
+        attr = RefAligner(backend="numpy", text_begin_free=10,
+                          text_end_free=10)._attributes()
+        return (C.full_config(attr, 128, 128), _hard_pairs(102),
+                (0, 0, 10, 10), 9)
+    if case == "one_pair":
+        attr = RefAligner(backend="numpy", **e2e)._attributes()
+        return (C.full_config(attr, 160, 160, W=256, S_cap=96),
+                random_pairs(103, 1, 150, 150, 0.02, 0.0, as_bytes=True),
+                (0, 0, 0, 0), 2**31 - 1)
+    # ragged: 1000 pairs, seven a block, the last block holds six
+    attr = RefAligner(backend="numpy", **e2e)._attributes()
+    cfg = C.full_config(attr, 96, 96, W=256, S_cap=96)
+    assert fused_loop.warp_pairs(cfg, 1000) == 7
+    return (cfg, random_pairs(104, 1000, 40, 80, 0.05, 0.02, as_bytes=True),
+            (0, 0, 0, 0), 2**31 - 1)
+
+
+WARP_CASES = ([f"metric_{m}_{s}" for m in ("affine",) + METRICS
+               for s in ("full", "score")]
+              + ["wfadaptive_narrow_band", "xdrop_banded", "zdrop_banded",
+                 "overflow_w", "unrelated_wide_band", "seeded_null_steps",
+                 "max_steps_9", "one_pair", "ragged"])
+
+
+@pytest.mark.parametrize("case", WARP_CASES)
+def test_warp_kernel_matches_plain_version(dev, case):
+    """The warp build (a warp a pair over the live band, several pairs a
+    block) against the plain version and the general build, byte for byte
+    on the whole choices tensor. Two folds of the cascade ran over every
+    diagonal of [0, W) and now run over the band: wf-adaptive's minimum
+    takes max(plen, tlen) once for the diagonals outside it, and x-drop /
+    z-drop name diagonal 0 when no cell of the band is valid. A one-shot
+    run reaches neither value (a trimmed band ends on valid cells, whose
+    distance is at most max(plen, tlen)); the kernel keeps both, and these
+    cases drive each fold over bands narrower than M's row."""
+    cfg, pairs, frees_row, max_steps = _warp_case(case)
+    args = _inputs(cfg, pairs, dev, frees_row)
+    before = dict(fused_loop.build_launches)
+    got = fused_loop.align_batch_fused_loop(cfg, *args, max_steps,
+                                            build="warp")
+    general = fused_loop.align_batch_fused_loop(cfg, *args, max_steps,
+                                                build="general")
+    assert {k: v - before[k] for k, v in fused_loop.build_launches.items()
+            } == {"warp": 1, "narrow": 0, "general": 1}
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, max_steps)
+    torch.cuda.synchronize()
+    assert set(got) == set(want) == set(general)
+    for k in (KEYS if cfg.record_choices else KEYS[:4]):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(general[k], want[k]), k
+    status = got["status"]
+    if case == "overflow_w":
+        assert (status == C.ST_OVERFLOW_W).any()
+    if case == "max_steps_9":
+        assert (status == C.ST_MAX_STEPS).any()
+    if case == "seeded_null_steps":
+        assert (got["choices"] == C.MSRC_SEED).any()
+    if case == "unrelated_wide_band":
+        assert (got["final_s"] > 200).all()
+    if case in ("one_pair", "ragged", "unrelated_wide_band"):
+        assert (status == C.ST_END_REACHED).all()
+
+
+def test_builds_refuse_launches_they_cannot_take(dev):
+    """The narrow and the warp build take only a one-shot run on the
+    equality words: given a state they raise, and nothing falls back."""
+    cfg = C.full_config(ATTR, 160, 160, W=256, S_cap=96)
+    pairs = random_pairs(105, 8, 100, 150, 0.05, 0.0, as_bytes=True)
+    args = _inputs(cfg, pairs, dev)
+    for build in ("warp", "narrow"):
+        with pytest.raises(RuntimeError, match=build):
+            fused_loop.align_batch_fused_loop(
+                cfg, *args, 2**31 - 1, build=build,
+                state=fused_loop.new_state(cfg, len(pairs), dev))
+    with pytest.raises(RuntimeError, match="narrow"):
+        fused_loop.align_batch_fused_loop(
+            dataclasses.replace(cfg, W=1152), *_inputs(
+                dataclasses.replace(cfg, W=1152), pairs, dev), 2**31 - 1,
+            build="narrow")
 
 
 @pytest.mark.parametrize("kw,W,in_global", [
