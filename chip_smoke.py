@@ -11,8 +11,8 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    (K3) and the fused-loop kernel (52 variants: 5 distance
    metrics x 2 spans x 2 scopes, each with and without the heuristic
    cascade, plus the seeded ends-free span of the 3 metrics with a match
-   weight) from the checkout; prints ptxas' registers and spills per
-   variant.
+   weight, each built four ways: warp, narrow, cluster and general) from
+   the checkout; prints ptxas' registers and spills per kernel.
 3. Each kernel variant against its plain torch version on the card, byte
    for byte, at the main paths' shapes, through every build the routing
    can give it: the warp build (one warp a pair over the live band,
@@ -22,7 +22,8 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    terminal rung, whose score cap passes its width) and the general build
    (one block a pair, any band, the build of a segment's state). Each
    line names the build the routing picks; its time is the `ms` of the
-   kernels line. Gap-affine: end to end with the choice
+   kernels line. (The fourth build, the cluster build, is for bands past
+   1024 diagonals: phase 10.) Gap-affine: end to end with the choice
    record, 4096 pairs of 150 bp at 2% divergence at the first rung
    (W=256, S_cap=96) and at W=128, and 256 pairs (64 unrelated) at the
    terminal rung (W=384, S_cap=649); ends-free with the record, 4096
@@ -99,11 +100,23 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    bits variant at that 1 kb shape, as the segments stream F runs (first
    segment from WF0, then a later one from the stored state; the forward
    scope without the record and the replay scope with it), with the times
-   of both extensions. The wide-band layouts against plain: W=2176 (a
-   thread owns several diagonals, the ring in shared memory) and the
-   second rung of 10 kb reads (the ring in global memory) with batch G's
-   16 pairs, a later segment from the kernel's own state, each with its
-   bound. Then stream E, 4 x 256 pairs of
+   of both extensions, on the warp build (a segment's state and the table
+   at W=896) against the general build, which must leave the same state.
+   The wide bands against plain: W=2176 (8 pairs, one shot); the
+   second rung of 10 kb reads with batch G's 16 pairs (W=6912) and of the
+   same pairs cut to 5 kb (W=3584), each a later segment of 96 scores from
+   the kernel's own state; and G's first segment at its own length under
+   memory_mode="low" (held against the general build, and the 96 scores
+   after it against plain: the plain version takes about 0.1 s a score
+   step there), on the cluster build (8 CTAs a pair at W=6912, 4 at
+   W=3584 and W=2176, three diagonals a thread) against the
+   general build (a block a pair, the ring in global memory at W=6912),
+   with cudaOccupancyMaxActiveClusters and each shape's bound; the
+   routing takes the cluster build at W=6912 and W=3584 and the general
+   build at
+   W=2176 (three diagonals a thread of one block, as fast). Every segment
+   and wide shape is timed general, new, new, general in turns (CUDA
+   events), beside the routed build alone (torch.profiler). Then stream E, 4 x 256 pairs of
    1 kb, ONT-like (4% substitutions, 3% indels), gap-affine end to end,
    full CIGAR, memory mode high: pairs escalate past the first rung;
    stream F, the same pairs under memory_mode="biwfa": the escalated
@@ -116,12 +129,17 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    through align_pairs_resumable, then align_pairs_resume, equal to the
    fresh results; and WavefrontAligner(device="cuda") on single 1 kb and
    5 kb pairs in both scopes. No pair of these phases may go to the host
-   oracle.
+   oracle; streams E and F and the resume must launch the warp build and
+   not the general build, batch G the cluster build (for its second rung;
+   its first, W=1792, takes the general build) and the long API pairs the
+   cluster build (the 5 kb pair's second rung, W=3584) and not the
+   general build.
 
 Each main-path phase zeroes the kernels' launch counts (by variant and by
 build) and the count of pairs sent to the host oracle just before it and
 reads them just after; it fails unless its kernel variants launched,
-unless a short-read phase (4-9) launched the warp build, if a timed
+unless a short-read phase (4-9) launched the warp build, unless a
+long-read phase (10) launched the build its band routes to, if a timed
 stream or an API phase sent any pair to the oracle, or if any phase did
 so for an inconsistent walk. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}.
@@ -318,6 +336,32 @@ def check_warp(phase, counts):
         raise AssertionError(f"{phase} never launched the warp build")
 
 
+def check_build(phase, counts, build, general=False):
+    """A long-read main path runs on the build `kernel_build` names for its
+    band (the warp build up to 1024 diagonals, the cluster build past 3072
+    diagonals or where the ring passes one block): fail unless it launched that
+    build, or if it launched the general build where none of its bands
+    routes there (`general` False); print what each build launched."""
+    builds = {k[6:]: v for k, v in counts.items() if k.startswith("build_")}
+    log(f"builds [{phase}]: {builds}")
+    if builds[build] == 0 or (builds["general"] and not general):
+        raise AssertionError(f"{phase} must launch the {build} build"
+                             + ("" if general else " and not the general "
+                                "one") + f": {builds}")
+
+
+def in_turns(run, new, reps):
+    """Mean ms a call of run(build) by CUDA events, the general build and
+    the new one in turns (general, new, new, general); returns the means
+    and the four times."""
+    times = collections.defaultdict(list)
+    order = ("general", new, new, "general")
+    for b in order:
+        times[b].append(cuda_ms(lambda: run(b), reps))
+    return ({b: float(np.mean(v)) for b, v in times.items()},
+            [times[b][i] for b, i in zip(order, (0, 0, 1, 1))])
+
+
 def launched(counts):
     """The variants of `counts` that launched at all."""
     return {k: v for k, v in counts.items() if v}
@@ -484,7 +528,7 @@ def phase_build():
         name = "?"
         spills = ""
         for line in output.splitlines():
-            m = re.search(r"fused_loop(_narrow|_warp)?ILi(\d)ELi(\d)"
+            m = re.search(r"fused_loop(_narrow|_warp|_cluster)?ILi(\d)ELi(\d)"
                           r"ELb([01])ELb([01])E", line)
             t = re.search(r"lcp_tableI(\w)E", line)
             if m and "Compiling" in line:
@@ -655,7 +699,9 @@ def phase_kernel_vs_plain(attr, dev, long_inputs):
         want = fused_loop.align_batch_fused_loop_ref(cfg, *args, MAXS)
         torch.cuda.synchronize()
         err = 0
-        for b in fused_loop.BUILDS:
+        # the builds a short-read shape can take (the cluster build is for
+        # bands past 1024 diagonals: phase 10)
+        for b in ("general", "narrow", "warp"):
             got = run(b)
             torch.cuda.synchronize()
             if set(got) != set(want) or (
@@ -1453,8 +1499,9 @@ def phase_long_kernels(dev, long_inputs):
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             B=len(pats))
 
-    # --- the table variant against plain and against the bits variant, as
-    # the segments of stream F: the forward scope and the replay scope ---
+    # --- the table variant against plain, against the bits variant and
+    # against the general build, as the segments of stream F: the forward
+    # scope and the replay scope ---
     pat, txt, plen, tlen, frees = _token_rows(cfg_f, pats1k, txts1k, dev)
     table = TE.build_extension(cfg_f, pat, txt)["table"]
     bits = TE.build_eq_bits(cfg_f, pat, txt)
@@ -1463,41 +1510,50 @@ def phase_long_kernels(dev, long_inputs):
     for record in (False, True):
         cfg = dataclasses.replace(cfg_f, record_choices=record)
         name = "table_1kb" + ("_replay" if record else "_forward")
+        new = fused_loop.kernel_build(cfg, B_LONG, table=table,
+                                      state=fused_loop.new_state(cfg, 1, dev))
 
-        def segment(fn, state, fresh, use_table=True):
+        def segment(fn, state, fresh, use_table=True, **kw):
             return fn(cfg, None if use_table else bits, plen, tlen, frees,
                       MAXS, table=table if use_table else None, state=state,
-                      fresh=fresh, seg_base=0 if fresh else K - 1)
+                      fresh=fresh, seg_base=0 if fresh else K - 1, **kw)
 
         states = {}
         outs = {}
         err = 0
+        kernel = fused_loop.align_batch_fused_loop
         for fresh in (True, False):
-            for tag, fn, use_table in (
-                    ("kernel", fused_loop.align_batch_fused_loop, True),
-                    ("plain", fused_loop.align_batch_fused_loop_ref, True),
-                    ("bits", fused_loop.align_batch_fused_loop, False)):
+            for tag, fn, use_table, kw in (
+                    ("kernel", kernel, True, {}),
+                    ("plain", fused_loop.align_batch_fused_loop_ref, True,
+                     {}),
+                    ("bits", kernel, False, {}),
+                    ("general", kernel, True, dict(build="general"))):
                 if fresh:
                     states[tag] = fused_loop.new_state(cfg, B_LONG, dev)
-                outs[tag] = segment(fn, states[tag], fresh, use_table)
+                outs[tag] = segment(fn, states[tag], fresh, use_table, **kw)
             torch.cuda.synchronize()
             running = outs["kernel"]["status"] == 5
-            for other in ("plain", "bits"):
+            for other in ("plain", "bits", "general"):
                 err = max(err,
                           _max_err(name, outs["kernel"], outs[other],
                                    LOOP_KEYS),
                           _state_err(name, states["kernel"], states[other],
                                      running))
+            # the builds' states are equal for every pair, done or not
+            err = max(err, _state_err(name, states["kernel"],
+                                      states["general"],
+                                      torch.ones_like(running)))
             if fresh and not bool(running.any()):
                 raise AssertionError(f"{name}: no pair passes the first "
                                      "segment")
         status = torch.bincount(outs["kernel"]["status"].long(),
                                 minlength=6).tolist()
         st = fused_loop.new_state(cfg, B_LONG, dev)
-        k_ms = cuda_ms(lambda: segment(fused_loop.align_batch_fused_loop, st,
-                                       True), 10)
-        b_ms = cuda_ms(lambda: segment(fused_loop.align_batch_fused_loop, st,
-                                       True, False), 10)
+        t_ms, turns = in_turns(
+            lambda b: segment(kernel, st, True, build=b), new, 10)
+        b_ms = cuda_ms(lambda: segment(kernel, st, True, False), 10)
+        only = kernel_only_ms(lambda: segment(kernel, st, True))
         p_ms = cuda_ms(lambda: segment(fused_loop.align_batch_fused_loop_ref,
                                        st, True), 1)
         # the bound of the first segment: the table cells these pairs read
@@ -1517,25 +1573,38 @@ def phase_long_kernels(dev, long_inputs):
         variant = fused_loop.variant(cfg, table=True)
         log(f"kernel vs plain [{name}] variant={variant} B={B_LONG} "
             f"W={cfg.W} K={K} Ltp={table.shape[0]} segments=2 "
-            f"status_counts={status} max_abs_err={err} "
-            f"kernel_ms={k_ms:.4f} bits_kernel_ms={b_ms:.4f} "
+            f"status_counts={status} max_abs_err={err} build={new} "
+            f"{new}_ms={t_ms[new]:.4f} general_ms={t_ms['general']:.4f} "
+            f"turns(general,{new},{new},general)="
+            f"{','.join(f'{t:.4f}' for t in turns)} "
+            f"kernel_only_ms={_fmt(only)} {new}_bits_ms={b_ms:.4f} "
             f"plain_ms={p_ms:.2f} bound_ms={max(t_bytes, t_ops):.3g} "
             f"bound_by={'bytes' if t_bytes >= t_ops else 'operations'} "
-            f"cells={cells} threads={fused_loop.block_threads(cfg.W)}")
+            f"cells={cells} "
+            f"pairs_a_block={fused_loop.warp_pairs(cfg, B_LONG)}")
         if err != 0:
             raise AssertionError(f"{name}: the table variant differs from "
-                                 "its plain version or the bits variant")
+                                 "its plain version, the bits variant or "
+                                 "the general build")
         records[name] = dict(
-            variant=variant, err=err, ms=k_ms, plain_ms=p_ms,
-            bound_ms=max(t_bytes, t_ops),
+            variant=variant, err=err, build=new, ms=t_ms[new],
+            plain_ms=p_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations", B=B_LONG)
     del table, bits
 
-    # --- the wide-band layouts against plain ---
+    # --- the wide-band layouts against plain, the cluster build against
+    # the general build ---
     low = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     pats_g, txts_g = long_inputs["g"]
     cfg_g = dataclasses.replace(rung2_config(low, pats_g, txts_g, B_G),
                                 record_choices=False)
+    # batch G's own segment length under memory_mode="low"
+    budget = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
+                 // PB.MEMORY_MODE_DIVISOR[MemoryMode.LOW])
+    K_g = max(64, budget // (B_G * cfg_g.W))
+    pats_5k, txts_5k = [p[:5000] for p in pats_g], [t[:5000] for t in txts_g]
+    cfg_5k = dataclasses.replace(C.full_config(attr, 5120, 5376, W=3584),
+                                 S_cap=96, record_choices=False)
     wide = [
         ("wide_2176_shared_ring",
          (pats1k[:8], txts1k[:8]),
@@ -1543,35 +1612,108 @@ def phase_long_kernels(dev, long_inputs):
                              S_cap=700), 0),
         # the 10 kb rung at batch G's own B: the kernel runs 8 segments of
         # 96 scores, then kernel and plain run one more from copies of
-        # that state (G's segments are longer: the plain version is one
-        # Python iteration a score)
+        # that state (the plain version is one Python iteration a score)
         ("wide_10kb_global_ring", (pats_g, txts_g),
          dataclasses.replace(cfg_g, S_cap=96), 8),
         ("wide_10kb_global_ring_replay", (pats_g, txts_g),
          dataclasses.replace(cfg_g, S_cap=96, record_choices=True), 8),
+        # G's pairs cut to 5 kb at W=3584, the band of a 5 kb pair's second
+        # rung (4 CTAs a pair; the ring just fits one block), the same way
+        ("wide_3584_shared_ring", (pats_5k, txts_5k), cfg_5k, 8),
+        ("wide_3584_shared_ring_replay", (pats_5k, txts_5k),
+         dataclasses.replace(cfg_5k, record_choices=True), 8),
+        # G's first segment at its own length, from WF0, against the
+        # general build
+        ("wide_10kb_segment", (pats_g, txts_g),
+         dataclasses.replace(cfg_g, S_cap=K_g), -1),
+        ("wide_10kb_segment_replay", (pats_g, txts_g),
+         dataclasses.replace(cfg_g, S_cap=K_g, record_choices=True), -1),
     ]
     for name, (pats, txts), cfg, lead in wide:
         pat, txt, plen, tlen, frees = _token_rows(cfg, pats, txts, dev)
         bits = TE.build_eq_bits(cfg, pat, txt)
         in_global = fused_loop.ring_in_global(cfg)
-        if in_global != ("global" in name):
+        if in_global != ("global" in name or "segment" in name):
             raise AssertionError(f"{name}: ring_in_global={in_global}")
-        if lead == 0:
-            def kernel():
+        # the build the routing takes here, and the cluster build against
+        # the general one whichever it is
+        taken = fused_loop.kernel_build(cfg, len(pats))
+        new = "cluster"
+        if lead <= 0:
+            def kernel(b=None, st=None):
+                st = st if st is not None else (
+                    fused_loop.new_state(cfg, len(pats), dev) if lead < 0
+                    else None)
                 return fused_loop.align_batch_fused_loop(
-                    cfg, bits, plen, tlen, frees, MAXS)
+                    cfg, bits, plen, tlen, frees, MAXS, state=st,
+                    fresh=True, build=b)
 
-            got = kernel()
+            sk, sg = (fused_loop.new_state(cfg, len(pats), dev)
+                      if lead < 0 else None for _ in range(2))
+            got = kernel(new, st=sk)
+            gen = kernel("general", st=sg)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = fused_loop.align_batch_fused_loop_ref(
-                cfg, bits, plen, tlen, frees, MAXS)
-            torch.cuda.synchronize()
-            p_ms = 1e3 * (time.perf_counter() - t0)
-            err = _max_err(name, got, want, LOOP_KEYS)
-            k_ms = cuda_ms(kernel, 5)
-            cells = int(torch.count_nonzero(got["choices"])) + len(pats)
-            b_ms, b_by = kernel_bound(cfg, (bits,), got, cells)
+            err = _max_err(name, got, gen, LOOP_KEYS)
+            p_ms = None
+            if lead == 0:
+                t0 = time.perf_counter()
+                want = fused_loop.align_batch_fused_loop_ref(
+                    cfg, bits, plen, tlen, frees, MAXS)
+                torch.cuda.synchronize()
+                p_ms = 1e3 * (time.perf_counter() - t0)
+                err = max(err, _max_err(name, got, want, LOOP_KEYS))
+            else:
+                # G's own segment length: the plain version takes about
+                # 0.1 s a score step at this width, too long for the whole
+                # segment; the cluster build is held against the general
+                # build, results and the whole state, and the next 96
+                # scores from copies of its end state against plain
+                err = max(err, _state_err(name, sk, sg, torch.ones_like(
+                    got["status"], dtype=torch.bool)))
+                tail = dataclasses.replace(cfg, S_cap=96)
+                tails = {}
+                for tag, fn, kw in (
+                        ("cluster", fused_loop.align_batch_fused_loop,
+                         dict(build=new)),
+                        ("general", fused_loop.align_batch_fused_loop,
+                         dict(build="general")),
+                        ("plain", fused_loop.align_batch_fused_loop_ref,
+                         {})):
+                    st = {k: (v.clone() if torch.is_tensor(v) else v)
+                          for k, v in sk.items()}
+                    tails[tag] = (fn(tail, bits, plen, tlen, frees, MAXS,
+                                     state=st, fresh=False,
+                                     seg_base=cfg.S_cap - 1, **kw), st)
+                torch.cuda.synchronize()
+                (tk, tsk), (tg, tsg), (tp, tsp) = (
+                    tails[t] for t in ("cluster", "general", "plain"))
+                tail_running = tk["status"] == 5
+                tail_err = max(_max_err(name, tk, tp, LOOP_KEYS),
+                               _max_err(name, tg, tp, LOOP_KEYS),
+                               _state_err(name, tsk, tsp, tail_running),
+                               _state_err(name, tsk, tsg,
+                                          torch.ones_like(tail_running)))
+                log(f"kernel vs plain [{name}_next_96] scores "
+                    f"[{cfg.S_cap - 1}, {cfg.S_cap + 94}] from the "
+                    f"segment's state: running={int(tail_running.sum())} "
+                    f"max_abs_err={tail_err}")
+                err = max(err, tail_err)
+                del tails, tk, tsk, tg, tsg, tp, tsp
+            rec = got if cfg.record_choices else \
+                fused_loop.align_batch_fused_loop(
+                    dataclasses.replace(cfg, record_choices=True), bits,
+                    plen, tlen, frees, MAXS)
+            cells = int(torch.count_nonzero(rec["choices"])) + len(pats)
+            del rec
+            state_bytes = (sum(sk[k].numel() * 4 for k in ("ring", "lohi",
+                                                           "carry"))
+                           if lead < 0 else 0)
+            # a segment reads the words its cells read, a one-shot run all
+            b_ms, b_by = kernel_bound(cfg, (bits,), got, cells,
+                                      state_bytes=state_bytes,
+                                      ext_bytes=cells * 4 if lead < 0
+                                      else None)
+            reps = 5
         else:
             fwd = dataclasses.replace(cfg, record_choices=False)
             ext = dict(bits=bits, table=None)
@@ -1587,13 +1729,14 @@ def phase_long_kernels(dev, long_inputs):
                 return {k: (v.clone() if torch.is_tensor(v) else v)
                         for k, v in state.items()}
 
-            def kernel(st=None):
+            def kernel(b=None, st=None):
                 return fused_loop.align_batch_fused_loop(
                     cfg, bits, plen, tlen, frees, MAXS, state=st or copy(),
-                    fresh=False, seg_base=state["s"])
+                    fresh=False, seg_base=state["s"], build=b)
 
-            sk, sp = copy(), copy()
-            got = kernel(sk)
+            sk, sg, sp = copy(), copy(), copy()
+            got = kernel(new, st=sk)
+            gen = kernel("general", st=sg)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             want = fused_loop.align_batch_fused_loop_ref(
@@ -1601,9 +1744,11 @@ def phase_long_kernels(dev, long_inputs):
                 seg_base=state["s"])
             torch.cuda.synchronize()
             p_ms = 1e3 * (time.perf_counter() - t0)
+            running = got["status"] == 5
             err = max(_max_err(name, got, want, LOOP_KEYS),
-                      _state_err(name, sk, sp, got["status"] == 5))
-            k_ms = cuda_ms(kernel, 5)  # with the state's copy
+                      _max_err(name, gen, want, LOOP_KEYS),
+                      _state_err(name, sk, sp, running),
+                      _state_err(name, sk, sg, torch.ones_like(running)))
             # the bound of this segment: the words its cells read, its
             # state in and out, its levels
             rec = got if cfg.record_choices else \
@@ -1619,20 +1764,37 @@ def phase_long_kernels(dev, long_inputs):
                                       seg_base=state["s"],
                                       state_bytes=state_bytes,
                                       ext_bytes=cells * 4)
+            reps = 5  # each with the state's copy
+        t_ms, turns = in_turns(lambda b: kernel(b), new, reps)
+        only = kernel_only_ms(lambda: kernel(taken))
+        kernel(new)
+        clusters = fused_loop.active_clusters()
+        threads, n_cta = fused_loop.launch_shape(cfg, len(pats), new, dev)
         status = torch.bincount(got["status"].long(), minlength=6).tolist()
         log(f"kernel vs plain [{name}] variant={fused_loop.variant(cfg)} "
             f"B={len(pats)} W={cfg.W} S_cap={cfg.S_cap} Lt={cfg.Lt} "
-            f"NQ={bits.shape[0]} ring_in_global={in_global} "
-            f"threads={fused_loop.block_threads(cfg.W)} "
+            f"NQ={bits.shape[0]} ring_in_global={in_global} build={taken} "
+            f"threads={threads} ctas_a_pair={n_cta} "
+            f"cluster_smem={fused_loop.cluster_smem_bytes(cfg, n_cta)} "
+            f"active_clusters={clusters} "
+            f"general_threads={fused_loop.block_threads(cfg.W)} "
             f"final_s_max={int(got['final_s'].max())} "
             f"status_counts={status} max_abs_err={err} "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.1f} "
+            f"{new}_ms={t_ms[new]:.4f} general_ms={t_ms['general']:.4f} "
+            f"turns(general,{new},{new},general)="
+            f"{','.join(f'{t:.4f}' for t in turns)} "
+            f"kernel_only_ms[{taken}]={_fmt(only)} plain_ms={_fmt(p_ms)} "
             f"bound_ms={b_ms:.3g} bound_by={b_by} cells={cells}")
         if err != 0:
-            raise AssertionError(f"{name}: kernel differs from plain version")
+            raise AssertionError(f"{name}: kernel differs from plain version "
+                                 "or the general build")
+        if p_ms is None:
+            # not held against the plain version here: no record of its own
+            del bits
+            continue
         records[name] = dict(variant=fused_loop.variant(cfg), err=err,
-                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, B=len(pats))
+                             build=taken, ms=t_ms[taken], plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by, B=len(pats))
         del bits
     torch.cuda.empty_cache()
     return records
@@ -1678,6 +1840,7 @@ def phase_long_reads(dev, long_inputs):
     if c["e2e"] < 2 * N_LONG_BATCHES or seg["runs"]:
         raise AssertionError("stream E must escalate past its first rung in "
                              f"one shot: launches {launched(c)}, {seg}")
+    check_build("stream E", c, "warp")
     pats = [p for b in batches for p in b[0]]
     txts = [t for b in batches for t in b[1]]
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
@@ -1696,6 +1859,8 @@ def phase_long_reads(dev, long_inputs):
         if c[variant] < N_LONG_BATCHES:
             raise AssertionError(f"stream F launched {variant} "
                                  f"{c[variant]} times")
+    # its segments (W=896, the table) on the warp build
+    check_build("stream F", c, "warp")
     if list(map(_result_fields, f_res)) != list(map(_result_fields, e_res)):
         raise AssertionError("stream F differs from stream E")
     log(f"stream [F] equals stream [E] pair for pair ({n} pairs, every "
@@ -1727,6 +1892,9 @@ def phase_long_reads(dev, long_inputs):
                               or c["lcp_table"] or c["e2e_score"] < 2):
             raise AssertionError("batch G low must run in segments on the "
                                  f"equality bits: {seg}, {launched(c)}")
+        # its second rung (W=6912) on the cluster build, its first (W=1792,
+        # the ring in one block) on the general build
+        check_build(f"batch G {mode}", c, "cluster", general=True)
         total.update(c)
     if list(map(_result_fields, g["low"])) != list(map(_result_fields,
                                                        g["high"])):
@@ -1760,6 +1928,7 @@ def phase_long_reads(dev, long_inputs):
         f"steps, resumed "
         f"equal to the fresh results in {wall:.3f} s; segmented "
         f"{dict(PB.segmented_runs)}; launches {launched(c)}")
+    check_build("resume", c, "warp")
     total.update(c)
 
     # --- WavefrontAligner on single long pairs, both scopes ---
@@ -1785,6 +1954,9 @@ def phase_long_reads(dev, long_inputs):
     c = read_counts()
     check_fallbacks("api long", timed=True)
     log(f"api long: launches {launched(c)}")
+    # the 5 kb pair's second rung (W=3584) on the cluster build, the
+    # other rungs on the warp build
+    check_build("api long", c, "cluster")
     total.update(c)
     return total
 

@@ -16,49 +16,84 @@
 // pywfa_tpu_torch/ops/fused_loop.py::align_batch_fused_loop_ref; both
 // produce byte-identical status, final_s, end_k, end_off and choices.
 //
-// Design: one thread block per pair. A thread owns the diagonals
-// w = tid, tid + blockDim, ... (k = kmin + w): one each up to W = 1024,
-// several on the wide bands of long reads, where every per-cell phase is
-// a strided pass that folds the thread's own diagonals before the warp
-// reduction. Nothing per cell lives in a register across a barrier: the
-// compute of s + 1 writes each component's cells into its ring row
-// untrimmed (no source row shares that slot), and after the trim
-// reduction each thread sets the cells it wrote outside the trimmed band
-// back to NULL. The wavefront ring and its lo/hi pairs live in dynamic
-// shared memory; a ring that does not fit one block (gap-affine past
-// W = 3840, the 2-piece metric past W = 1600) lives in a global
-// [B, rows, W] array instead, which the L2 holds, and __syncthreads
-// orders its reads after its writes within the block. The ring keeps a depth per
+// Design: every variant is built as four kernels, and the caller names
+// the one a launch takes (pywfa_tpu_torch/ops/fused_loop.py::kernel_build);
+// a launch that build cannot take fails, nothing falls back.
+//
+// - The warp build (fused_loop_warp, warp_pair): one warp a pair, up to 8
+//   pairs a block, a persistent grid whose warps take the next pair from
+//   a counter. Every per-cell pass runs over the live band only, 32
+//   diagonals a chunk, folds its minima and maxima with one
+//   __reduce_*_sync a pass and orders its shared-memory writes with
+//   __syncwarp: no block barrier, and a pair never waits on another's
+//   steps. It rests on one invariant: every ring cell outside its row's
+//   band is NULL. It takes any launch whose ring fits a warp's share of
+//   the block (bands up to 1024 diagonals at pywfa's penalties): one shot
+//   or a segment (the ring, its bands and the carry copied in with
+//   coalesced 16-byte loads and out the same way), on the words or the
+//   run-length table. Bounded by the latency of a step: an extension load
+//   from global memory, then 6-10 dependent warp reductions.
+// - The narrow build (loop_body, kBuildNarrow): one block a pair, a thread
+//   a diagonal, the one-shot run on the words; each thread's cell of s + 1
+//   waits in registers for the trim. It walks a band that fills W in one
+//   pass, where a warp walks it 32 diagonals at a time: the terminal rungs.
+//   Bounded by two to five __syncthreads a step.
+// - The cluster build (fused_loop_cluster, loop_body with kBuildCluster):
+//   one pair on a thread-block cluster of C CTAs (launched with the
+//   cluster dimension, C at most 8). CTA r owns the slice of diagonals
+//   [r * W / C, (r + 1) * W / C), three a thread (the fastest of one to
+//   four, measured), and that slice's columns of the ring in its own
+//   shared memory, so a wide band keeps its ring out of global memory and
+//   spreads over C SMs. A cell across a slice edge (the compute's k - 1 and
+//   k + 1, the ends-free end cell, the cascade's sampled cells) is read
+//   from the CTA that owns it through distributed shared memory, after the
+//   cluster barrier that already separates the phases; end to end, the
+//   thread that owns the end cell writes its test into every CTA before
+//   that barrier instead.
+//   Every block reduction becomes the cluster's: a warp reduction, the
+//   warp's partial written into the row of every CTA (lanes 0..C-1 of the
+//   warp, one CTA each), one cluster barrier, and a fold of the C * nwarps
+//   partials in each CTA; a step takes two such barriers (after the
+//   extension, after the compute), the cascade up to four more. Bounded by
+//   the latency of the cluster barriers. A pair's CTAs leave together,
+//   after a last cluster barrier, so none leaves while another may read
+//   its shared memory.
+// - The general build (fused_loop, loop_body with kBuildGeneral): one block
+//   a pair, a thread owning the diagonals w = tid, tid + blockDim, ...; the
+//   ring in shared memory, or in a global [B, rows, W] array that the L2
+//   holds where it passes one block (gap-affine past W = 3840, the 2-piece
+//   metric past W = 1600). It takes the bands of 1025 to 3072 diagonals
+//   whose ring fits one block, two or three a thread (as fast as the
+//   cluster build at W = 1792 and 2176, measured; at W = 3584 the cluster
+//   build was 1.2x faster), and a ring that no cluster of 8 holds (a very
+//   large scope). Bounded by the same barriers over all W diagonals,
+//   several a thread.
+//
+// Within every build nothing per cell lives in a register across a
+// barrier except the narrow build's cell of s + 1 (a thread owns one
+// diagonal there; the cluster build's threads own three, so it writes
+// them to the ring like the general build): the compute
+// of s + 1 writes each component's cells into its ring row untrimmed (no
+// source row shares that slot), and after the trim reduction the cells
+// outside the trimmed band go back to NULL. The ring keeps a depth per
 // component: M is read as far back as the scope (the largest penalty sum
 // plus one), a gap component only at its own extension distance, so it
 // keeps gap_extension + 1 rows. Gap-affine at 4/6/2 has 9 + 2 * 3 = 15
 // rows (15.4 KB at W = 256); the 2-piece metric at 4/6/2/24/1 has
 // 26 + 2 * 3 + 2 * 2 = 36 rows (73.7 KB at W = 512) where five components
-// of 26 rows each would not fit one block. Extension reads the packed equality
-// words bits[q, b, w] from word off >> 5 upward and stops at the first
-// mismatch (__ffs of the inverted word), with reads coalesced across w;
-// given the run-length table R[h, b, w] it is one load a cell instead,
+// of 26 rows each would not fit one block. Extension reads the packed
+// equality words bits[q, b, w] from word off >> 5 upward and stops at the
+// first mismatch (__ffs of the inverted word), with reads coalesced across
+// w; given the run-length table R[h, b, w] it is one load a cell instead,
 // off += R[min(off, Ltp - 1), b, w], with the same bytes out (a run-time
-// branch, uniform over the launch: no further instantiation).
-// A segment of a segmented run covers scores [seg_base, seg_base + S_cap
-// - 1]: it loads the pair's carry, bands and ring from the state unless it
-// is the first, records choice level s - seg_base, and stores the state at
-// its end; a pair still running then reports ST_OVERFLOW_S in the result
-// and stays running in the state; a pair that is done returns at once.
-// The end trim takes its first/last in-bounds diagonal per component with
-// warp reductions plus a shared-memory pass over the warps' partials.
-// Each block leaves its loop as soon as its own pair is done.
-//
-// Every variant is built as three kernels; the caller names the one a
-// launch takes (pywfa_tpu_torch/ops/fused_loop.py::kernel_build) and a
-// launch that build cannot take fails. The general one serves a
-// segment's state, the table and any band. The narrow one is loop_body
-// with every branch on the state, the table and the global ring folded
-// away, a thread a diagonal, the thread's one cell of s + 1 held in
-// registers for the trim. The warp one (fused_loop_warp, below) is the
-// short-read build: one warp a pair, several pairs a block, passes over
-// the live band only and no block barrier; it takes a one-shot run on the
-// equality words whose ring fits shared memory.
+// branch, uniform over the launch: no further instantiation). A segment
+// of a segmented run covers scores [seg_base, seg_base + S_cap - 1]: it
+// loads the pair's carry, bands and ring from the state unless it is the
+// first, records choice level s - seg_base, and stores the state at its
+// end, the same bytes on every build, so consecutive segments may run on
+// different builds; a pair still running then reports ST_OVERFLOW_S in
+// the result and stays running in the state; a pair that is done returns
+// at once.
 //
 // Four template parameters select the variant. kMetric picks the step:
 // gap-affine computes M, I1, D1 from M at s+1-x and s+1-(o+e) and I1/D1 at
@@ -74,42 +109,28 @@
 // every score s with s % -match == 0 seeds the cells k = s / -match and
 // k = -s / -match while the begin frees reach that far, as a wavefront of
 // the seeds alone on a null step. Both ends-free spans end at the lowest
-// diagonal whose cell reached an end-free boundary: each thread keeps its
-// lowest hit, a warp reduction the warp's, and a pass over the warps'
-// partials in shared memory picks the block's. kRecord = false is the score-only
-// scope: no choice bytes, no choices pointer. kHeur compiles the heuristic
-// cascade in, between the termination and the compute of s + 1: the
-// strategy bits and parameters are kernel arguments, and since one block
-// is one pair every branch of the cascade is uniform over the block, so
-// its block reductions (a warp reduction, one partial a warp in shared
-// memory, a barrier, a fold) sit behind branches that most steps skip.
-// The cascade prunes the band of M at score s in registers, then installs
-// it in the ring and cuts every gap component's row of score s to it; the
-// bands of those rows are kept in registers, so the install reads no
-// shared lo/hi pair that another thread writes.
+// diagonal whose cell reached an end-free boundary. kRecord = false is the
+// score-only scope: no choice bytes, no choices pointer. kHeur compiles
+// the heuristic cascade in, between the termination and the compute of
+// s + 1: the strategy bits and parameters are kernel arguments, and since
+// a block, a warp or a cluster is one pair every branch of the cascade is
+// uniform over it, so its reductions sit behind branches that most steps
+// skip. The cascade prunes the band of M at score s in registers, then
+// installs it in the ring and cuts every gap component's row of score s to
+// it; the bands of those rows are kept in registers, so the install reads
+// no shared lo/hi pair that another thread writes.
 //
 // What bounds it on the H100: not bytes nor arithmetic (a short-read
-// batch reads a few MB of words and computes a few million cells), but the
-// dependent latency of the score steps: each step is an eq-word load from
-// global memory, then reductions that the next phase waits on. A block a
-// pair pays that with two to five __syncthreads a step over all W
-// diagonals, most of them outside the live band (10-30 of 256 diagonals at
-// 150 bp and 2% divergence). After the steps, the bytes of the choice
-// record: its [S_cap, B, W] memset (about 100 MB at rung 1, tens of
-// microseconds) runs before every recording launch. The warp build cuts
-// the step to what one pair needs: a warp walks the live band 32
-// diagonals at a time, folds its minima and maxima in registers with one
-// __reduce_*_sync a pass and orders its shared-memory writes with
-// __syncwarp alone, so a pair never waits on another pair's steps, and
-// several pairs (up to 8, as many as keep an SM's shared memory fullest)
-// share a block so that an SM holds a dozen or more pairs at once. A
-// batch of few long pairs still leaves most SMs idle, one block a pair on
-// the general build.
-//
+// batch reads a few MB of words and computes a few million cells; a 10 kb
+// batch of 16 pairs some hundred million cells), but the dependent latency
+// of the score steps, and for the recording scope the bytes of the choice
+// record's [S_cap, B, W] memset before every recording launch.
+
 // A band that outgrows W, at WF0 or later, reports ST_OVERFLOW_W instead
 // of being clamped silently, as the XLA engine of the reference package
 // does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -167,6 +188,16 @@ constexpr int D1 = 2;
 constexpr int I2 = 3;
 constexpr int D2 = 4;
 
+// the build codes of wfa_fused_loop (pywfa_tpu_torch/ops/fused_loop.py::BUILDS)
+constexpr int kBuildGeneral = 0;
+constexpr int kBuildNarrow = 1;
+constexpr int kBuildWarp = 2;
+constexpr int kBuildCluster = 3;
+constexpr int kClusterMax = 8;  // the portable cluster size
+// threads of one CTA of the cluster build: a slice of at most 1024
+// diagonals, three a thread, in whole warps
+constexpr int kClusterThreads = 384;
+
 // ints of one pair's carry in the state of a segmented run: s, status,
 // final_s, end_k, end_off, the null-step count, the cascade's wait and
 // historic maximum (score, diagonal, offset, valid), done
@@ -196,8 +227,9 @@ struct Params {
   // the segment covers scores [seg_base, seg_base + S_cap - 1]; the choice
   // level of score s is s - seg_base
   int seg_base;
-  // threads of a block; each owns diagonals tid, tid + T, ...
-  int threads;
+  // threads of a block; each owns diagonals tid, tid + T, ... (the
+  // cluster build: CTAs a pair, each owning W / cluster diagonals)
+  int threads, cluster;
   int B, W, NQ, S_cap, scope, max_steps;
   // the heuristic cascade (read when kHeur): HeuristicStrategy bits and
   // their parameters; swg_match is the match weight of the drop
@@ -225,11 +257,11 @@ struct Wf {
 // The wavefront of component `comp` at score s1 - dist, where `slot1` is
 // the component's ring slot of score s1 (s1 % depth, kept incrementally:
 // the loop takes no modulo) and 0 < dist < depth.
+// `RS` is the ring's row stride: W, or a slice's width on the cluster build.
 __device__ __forceinline__ Wf read_wf(const int* off, const int* lohi,
                                       const Params& p, int comp, int slot1,
-                                      int dist, int s1) {
+                                      int dist, int s1, int RS) {
   Wf f;
-  const int W = p.W;
   if (s1 - dist < 0) {
     f.row = nullptr;
     f.lo = 1;
@@ -238,7 +270,7 @@ __device__ __forceinline__ Wf read_wf(const int* off, const int* lohi,
     int j = slot1 - dist;
     if (j < 0) j += p.depth[comp];
     const int i = p.base[comp] + j;
-    f.row = off + i * W;
+    f.row = off + i * RS;
     f.lo = lohi[2 * i];
     f.hi = lohi[2 * i + 1];
   }
@@ -280,34 +312,65 @@ __device__ __forceinline__ int one_comp_source(int pm) {
                                                           : MSRC_NONE));
 }
 
-// Block reductions: every thread posts its value, already folded over the
-// diagonals it owns (each warp's lane 0 writes the warp's partial into a
-// row of 32 ints that the reduction owns), the caller places one
-// __syncthreads, and every warp folds the row: lane i takes warp i's
-// partial and one more warp reduction gives every thread the result (a
-// block has at most 32 warps; the callers' branches are uniform over the
-// block, so every lane is there).
-__device__ __forceinline__ void post_min(int* row, int v, int lane,
-                                         int warp) {
-  v = __reduce_min_sync(0xFFFFFFFFu, v);
-  if (lane == 0) row[warp] = v;
-}
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ void post_max(int* row, int v, int lane,
-                                         int warp) {
-  v = __reduce_max_sync(0xFFFFFFFFu, v);
-  if (lane == 0) row[warp] = v;
-}
+// The block reductions of loop_body, and on the cluster build the
+// cluster's. Every thread posts its value, already folded over the
+// diagonals it owns, into a reduction's row: a warp reduction, then the
+// warp's partial at its place in the row (a block has at most 32 warps).
+// On the cluster build the row has C * nwarps places, and lanes 0..C-1 of
+// each warp write the partial into the row of every CTA of the cluster
+// through distributed shared memory, so that one cluster barrier takes the
+// place of the block's and no CTA-level fold is needed before it. The
+// caller places the barrier (sync), and every warp folds its own CTA's
+// row: each lane a stride of it, and one more warp reduction gives every
+// thread the result. The callers' branches are uniform over the block (the
+// cluster), so every lane is there. A row is posted again only after
+// another barrier: every fold of its last use is then done.
+template <bool kCluster>
+struct Reducer {
+  int lane, warp, n;  // n: the places of a row
+  int C, rank, nwarps;
 
-__device__ __forceinline__ int fold_min(const int* row, int nwarps,
-                                        int lane) {
-  return __reduce_min_sync(0xFFFFFFFFu, lane < nwarps ? row[lane] : kBig);
-}
-
-__device__ __forceinline__ int fold_max(const int* row, int nwarps,
-                                        int lane) {
-  return __reduce_max_sync(0xFFFFFFFFu, lane < nwarps ? row[lane] : -kBig);
-}
+  __device__ __forceinline__ void put(int* row, int v) const {
+    if constexpr (kCluster) {
+      if (lane < C) {
+        int* dst = cooperative_groups::this_cluster().map_shared_rank(
+            row, static_cast<unsigned>(lane));
+        dst[rank * nwarps + warp] = v;
+      }
+    } else {
+      if (lane == 0) row[warp] = v;
+    }
+  }
+  __device__ __forceinline__ void post_min(int* row, int v) const {
+    put(row, __reduce_min_sync(kFull, v));
+  }
+  __device__ __forceinline__ void post_max(int* row, int v) const {
+    put(row, __reduce_max_sync(kFull, v));
+  }
+  __device__ __forceinline__ int fold_min(const int* row) const {
+    int v = lane < n ? row[lane] : kBig;
+    if constexpr (kCluster) {
+      for (int j = lane + 32; j < n; j += 32) v = min(v, row[j]);
+    }
+    return __reduce_min_sync(kFull, v);
+  }
+  __device__ __forceinline__ int fold_max(const int* row) const {
+    int v = lane < n ? row[lane] : -kBig;
+    if constexpr (kCluster) {
+      for (int j = lane + 32; j < n; j += 32) v = max(v, row[j]);
+    }
+    return __reduce_max_sync(kFull, v);
+  }
+  __device__ __forceinline__ void sync() const {
+    if constexpr (kCluster) {
+      cooperative_groups::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+  }
+};
 
 // wfmash's length-normalised distance, float32 in a fixed order: divide,
 // multiply, truncate (saturating, NaN to 0); nothing contracts
@@ -316,41 +379,73 @@ __device__ __forceinline__ int mash_dist(int left, int len, float mfactor) {
       __fdiv_rn(__int2float_rn(left), __int2float_rn(len)), mfactor));
 }
 
-// The loop of one pair. kNarrow is the one-shot run of a band of at most
-// 1024 diagonals on the equality words: one diagonal a thread, the ring in
-// shared memory, no state and no table, so every branch on those folds
-// away and each strided pass below is a single step (see launch()).
-template <int kMetric, int kSpan, bool kRecord, bool kHeur, bool kNarrow>
+// The loop of one pair, in the build kBuild. The narrow build is the
+// one-shot run of a band of at most 1024 diagonals on the equality words:
+// one diagonal a thread, the ring in shared memory, no state and no table,
+// so every branch on those folds away and each strided pass below is a
+// single step (see launch()). The cluster build runs one pair on a cluster
+// of C CTAs: CTA r owns the diagonals [r * W / C, (r + 1) * W / C), a
+// thread owning every T-th of them, and the ring's columns of them
+// ([rows][W / C] in its shared memory); a cell
+// of another CTA's slice (a neighbour at a slice edge, the end cell, the
+// cascade's sampled cells) is read through distributed shared memory after
+// a cluster barrier, and every reduction is the cluster's (Reducer). Every
+// value that steers the loop (s, the bands, done, status) is uniform over
+// the cluster.
+template <int kMetric, int kSpan, bool kRecord, bool kHeur, int kBuild>
 __device__ __forceinline__ void loop_body(const Params& p) {
   constexpr int kComps = n_comps(kMetric);
   constexpr bool kEditLike = kMetric == kEdit || kMetric == kIndel;
   constexpr bool kEndsFree = kSpan != kEndToEnd;
   constexpr bool kSeeding = kSpan == kSeeded;
+  constexpr bool kNarrow = kBuild == kBuildNarrow;
+  constexpr bool kCluster = kBuild == kBuildCluster;
   extern __shared__ int smem[];
   const int W = p.W;
   const int T = blockDim.x;
   const int scope = p.scope;
-  const int b = blockIdx.x;
-  int* lohi = smem;                       // [rows][2]
-  int* red = lohi + p.rows * 2;           // [2 * kComps][32] trim partials
-  int* term = red + 2 * kComps * 32;      // [32] ends-free hit partials
-  int* hred = term + 32;  // [kHeurReductions][32] cascade partials (kHeur)
-  // the ring [rows][W]: shared memory, or this pair's slice of the global
-  // ring when the rows do not fit one block's shared memory
-  const bool fresh = kNarrow || p.fresh;
-  const bool ring_global = !kNarrow && p.ring_global;
-  const int seg_base = kNarrow ? 0 : p.seg_base;
-  int* ring_g = (kNarrow || p.ring == nullptr)
-                    ? nullptr
-                    : p.ring + static_cast<size_t>(b) * p.rows * W;
-  int* off = ring_global ? ring_g
-                         : hred + (kHeur ? kHeurReductions * 32 : 0);
-
+  const int C = kCluster ? p.cluster : 1;
+  const int rank = kCluster ? static_cast<int>(blockIdx.x) % C : 0;
+  const int b = kCluster ? static_cast<int>(blockIdx.x) / C : blockIdx.x;
+  // the ring's row stride (a slice's width on the cluster build) and the
+  // diagonals [wbase, wend) this block owns
+  const int RS = kCluster ? W / C : W;
+  const int wbase = kCluster ? rank * RS : 0;
+  const int wend = kCluster ? wbase + RS : W;
   const int tid = threadIdx.x;
   if (kNarrow) __builtin_assume(tid < W);
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = T >> 5;
+  // the places of a reduction's row (Reducer)
+  const int RR = kCluster ? C * nwarps : 32;
+  const Reducer<kCluster> red_ops{lane, warp, kCluster ? RR : nwarps, C, rank,
+                                  nwarps};
+  int* lohi = smem;                       // [rows][2]
+  int* red = lohi + p.rows * 2;           // [2 * kComps][RR] trim partials
+  int* term = red + 2 * kComps * RR;      // [RR] ends-free hit partials
+  int* hred = term + RR;  // [kHeurReductions][RR] cascade partials (kHeur)
+  // the ring [rows][RS]: shared memory, or this pair's slice of the global
+  // ring when the rows do not fit one block's shared memory
+  const bool fresh = kNarrow || p.fresh;
+  const bool ring_global = !kNarrow && !kCluster && p.ring_global;
+  const int seg_base = kNarrow ? 0 : p.seg_base;
+  int* ring_g = (kNarrow || p.ring == nullptr)
+                    ? nullptr
+                    : p.ring + static_cast<size_t>(b) * p.rows * W;
+  int* off = ring_global ? ring_g
+                         : hred + (kHeur ? kHeurReductions * RR : 0);
+  // the CTAs of the neighbouring slices (cluster build)
+  const int* left = nullptr;
+  const int* right = nullptr;
+  if constexpr (kCluster) {
+    auto cluster = cooperative_groups::this_cluster();
+    if (rank > 0) left = cluster.map_shared_rank(off, rank - 1);
+    if (rank < C - 1) right = cluster.map_shared_rank(off, rank + 1);
+  }
+  // this thread's first diagonal
+  const int w0 = wbase + tid;
+
   const int kmin = -(W / 2);
   const int plen = p.plen[b];
   const int tlen = p.tlen[b];
@@ -367,6 +462,34 @@ __device__ __forceinline__ void loop_body(const Params& p) {
   int32_t* carry = (kNarrow || p.carry == nullptr)
                        ? nullptr
                        : p.carry + static_cast<size_t>(b) * kCarry;
+
+  // the cell of ring row `row` at diagonal w, whichever block owns it
+  auto cell = [&](int row, int w) -> int {
+    if constexpr (kCluster) {
+      const int r = w / RS;
+      const int* base =
+          r == rank ? off
+                    : cooperative_groups::this_cluster().map_shared_rank(
+                          off, static_cast<unsigned>(r));
+      return base[row * RS + w - r * RS];
+    } else {
+      return off[row * W + w];
+    }
+  };
+  // f.row[i], NULL outside [0, W) (the reference's NULL-padded shift); on
+  // the cluster build i is w - 1, w or w + 1 of this thread's w, and a
+  // neighbour past the slice's edge is read from the next CTA's ring
+  auto at_ = [&](const Wf& f, int i) -> int {
+    if constexpr (kCluster) {
+      if (f.row == nullptr || i < 0 || i >= W) return kNull;
+      const int j = i - wbase;
+      if (j < 0) return left[(f.row - off) + RS - 1];
+      if (j >= RS) return right[f.row - off];
+      return f.row[j];
+    } else {
+      return at(f, i, W);
+    }
+  };
 
   int pbf = 0, pef = 0, tbf = 0, tef = 0;
   if (kEndsFree) {
@@ -396,9 +519,9 @@ __device__ __forceinline__ void loop_body(const Params& p) {
       wf0_lo = -pbf;
       wf0_hi = tbf;
     }
-    for (int i = tid; i < p.rows * W; i += T) {
-      const int k = kmin + i;
-      off[i] = (i < W && k >= wf0_lo && k <= wf0_hi) ? max(k, 0) : kNull;
+    for (int i = tid; i < p.rows * RS; i += T) {
+      const int k = kmin + wbase + i;
+      off[i] = (i < RS && k >= wf0_lo && k <= wf0_hi) ? max(k, 0) : kNull;
     }
     for (int i = tid; i < p.rows; i += T) {
       lohi[2 * i] = (i == 0) ? wf0_lo : 1;
@@ -424,7 +547,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
     hm_valid = carry[10] != 0;
     if (carry[11] != 0) {
       // a pair that is done: its result again, its state untouched
-      if (tid == 0) {
+      if (tid == 0 && rank == 0) {
         p.res[b] = status;
         p.res[p.B + b] = final_s;
         p.res[2 * p.B + b] = end_k;
@@ -433,12 +556,25 @@ __device__ __forceinline__ void loop_body(const Params& p) {
       return;
     }
     if (!ring_global) {
-      for (int i = tid; i < p.rows * W; i += T) off[i] = ring_g[i];
+      // this block's columns of the ring
+      for (int row = 0; row < p.rows; ++row) {
+        for (int j = tid; j < RS; j += T) {
+          off[row * RS + j] = ring_g[static_cast<size_t>(row) * W + wbase + j];
+        }
+      }
     }
     const int32_t* lg = p.lohi + static_cast<size_t>(b) * p.rows * 2;
     for (int i = tid; i < p.rows * 2; i += T) lohi[i] = lg[i];
   }
-  __syncthreads();
+  // the end cell k = tlen - plen; on the cluster build, end to end, the
+  // thread that owns it tells every CTA in term[0] whether it reached the
+  // end (none does when it lies outside the band)
+  const int ak = tlen - plen;
+  const int aw = ak - kmin;
+  if (kCluster && !kEndsFree && tid == 0) term[0] = 0;
+  // (the cluster build: every CTA of the cluster has started before any
+  // reads another's shared memory)
+  red_ops.sync();
 
   // each component's ring slot of score s (s % depth; the loop keeps it
   // without the modulo) and the band of its row of score s: M's, and the
@@ -454,7 +590,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
   int m_lo = g_lo[M], m_hi = g_hi[M];
 
   while (!done && s < seg_end) {
-    int* m_row = off + slot[M] * W;  // M owns rows [0, scope)
+    int* m_row = off + slot[M] * RS;  // M owns rows [0, scope)
     const bool m_null = m_lo > m_hi;
     // feasibility probe: a run of null steps longer than the scope
     if (m_null && nnull > scope) {
@@ -468,9 +604,9 @@ __device__ __forceinline__ void loop_body(const Params& p) {
     // packed equality words or by the run-length table ---
     int first_hit = W;
     if (!m_null) {
-      for (int w = tid; w < W; w = kNarrow ? W : w + T) {
+      for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
         const int k = kmin + w;
-        int m_off = m_row[w];
+        int m_off = m_row[w - wbase];
         const bool inband = k >= m_lo && k <= m_hi;
         if (inband && m_off >= 0 && m_off <= tlen) {
           if (table8 != nullptr) {
@@ -492,7 +628,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
                                : NQ32;
             m_off += fm - idx;
           }
-          m_row[w] = m_off;
+          m_row[w - wbase] = m_off;
         }
         if (kEndsFree) {
           // a cell on an end-free boundary: the text consumed with at most
@@ -507,26 +643,37 @@ __device__ __forceinline__ void loop_body(const Params& p) {
         }
       }
     }
-    if (kEndsFree) post_min(term, first_hit, lane, warp);
-    __syncthreads();
+    if (kEndsFree) red_ops.post_min(term, first_hit);
+    if constexpr (kCluster && !kEndsFree) {
+      if (aw >= w0 && aw < wend && (aw - w0) % T == 0) {
+        const int reached = !m_null && m_lo <= ak && ak <= m_hi &&
+                            m_row[aw - wbase] >= tlen;
+        for (int r = 0; r < C; ++r) {
+          cooperative_groups::this_cluster().map_shared_rank(
+              term, static_cast<unsigned>(r))[0] = reached;
+        }
+      }
+    }
+    red_ops.sync();
 
     // --- termination ---
     if (kEndsFree) {
-      const int first = fold_min(term, nwarps, lane);
+      const int first = red_ops.fold_min(term);
       if (first < W) {
         status = ST_END_REACHED;
         final_s = s;
         end_k = first + kmin;
-        end_off = m_row[first];
+        end_off = cell(slot[M], first);
         done = true;
         break;
       }
     } else {
-      // the end cell k = tlen - plen reached offset tlen
-      const int ak = tlen - plen;
-      const int aw = ak - kmin;
-      const int cell = (aw >= 0 && aw < W) ? m_row[aw] : 0;
-      if (!m_null && m_lo <= ak && ak <= m_hi && cell >= tlen) {
+      // the end cell reached offset tlen
+      const bool reached =
+          kCluster ? term[0] != 0
+                   : !m_null && m_lo <= ak && ak <= m_hi && aw >= 0 &&
+                         aw < W && cell(slot[M], aw) >= tlen;
+      if (reached) {
         status = ST_END_REACHED;
         final_s = s;
         end_k = ak;
@@ -560,31 +707,31 @@ __device__ __forceinline__ void loop_body(const Params& p) {
             return max(plen - v, tlen - m_off);
           };
           int mn = kBig;
-          for (int w = tid; w < W; w = kNarrow ? W : w + T) {
+          for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
             const int k = kmin + w;
             const bool hband = k >= cur_lo && k <= cur_hi;
-            mn = min(mn, hband ? dist_of(k, m_row[w]) : max(plen, tlen));
+            mn = min(mn, hband ? dist_of(k, m_row[w - wbase])
+                               : max(plen, tlen));
           }
-          post_min(hred, mn, lane, warp);
-          __syncthreads();
-          const int mind = fold_min(hred, nwarps, lane);
-          const int ak = tlen - plen;
+          red_ops.post_min(hred, mn);
+          red_ops.sync();
+          const int mind = red_ops.fold_min(hred);
           const int top_limit = min(ak, cur_hi);
           // the highest kept diagonal above ak is the highest above
           // max(ak, new lo) too, if any is
           int f = W, l = -1;
-          for (int w = tid; w < W; w = kNarrow ? W : w + T) {
+          for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
             const int k = kmin + w;
             const bool keep = k >= cur_lo && k <= cur_hi &&
-                              dist_of(k, m_row[w]) - mind <= p.max_dist;
+                              dist_of(k, m_row[w - wbase]) - mind <= p.max_dist;
             if (keep && k < top_limit) f = min(f, w);
             if (keep && k > ak) l = max(l, w);
           }
-          post_min(hred + 32, f, lane, warp);
-          post_max(hred + 64, l, lane, warp);
-          __syncthreads();
-          const int first = fold_min(hred + 32, nwarps, lane);
-          const int last = fold_max(hred + 64, nwarps, lane);
+          red_ops.post_min(hred + RR, f);
+          red_ops.post_max(hred + 2 * RR, l);
+          red_ops.sync();
+          const int first = red_ops.fold_min(hred + RR);
+          const int last = red_ops.fold_max(hred + 2 * RR);
           const int lo_red = first < W ? first + kmin : max(top_limit, cur_lo);
           const int new_lo = max(lo_red, cur_lo);
           const int bot_limit = max(ak, new_lo);
@@ -605,34 +752,34 @@ __device__ __forceinline__ void loop_body(const Params& p) {
                        : -kBig;
           };
           int mx = -kBig;
-          for (int w = tid; w < W; w = kNarrow ? W : w + T) {
-            mx = max(mx, sw_of(kmin + w, m_row[w]));
+          for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
+            mx = max(mx, sw_of(kmin + w, m_row[w - wbase]));
           }
-          post_max(hred + 96, mx, lane, warp);
-          __syncthreads();
-          const int cmax = fold_max(hred + 96, nwarps, lane);
+          red_ops.post_max(hred + 3 * RR, mx);
+          red_ops.sync();
+          const int cmax = red_ops.fold_max(hred + 3 * RR);
           const bool xd = (st & kXdrop) != 0;
           int ci = W, fx = W, lx = -1;
-          for (int w = tid; w < W; w = kNarrow ? W : w + T) {
-            const int sw = sw_of(kmin + w, m_row[w]);
+          for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
+            const int sw = sw_of(kmin + w, m_row[w - wbase]);
             if (sw == cmax) ci = min(ci, w);
             if (xd && sw > -kBig && hm_sw - sw < p.xdrop) {
               fx = min(fx, w);
               lx = max(lx, w);
             }
           }
-          post_min(hred + 128, ci, lane, warp);
+          red_ops.post_min(hred + 4 * RR, ci);
           if (xd) {
-            post_min(hred + 160, fx, lane, warp);
-            post_max(hred + 192, lx, lane, warp);
+            red_ops.post_min(hred + 5 * RR, fx);
+            red_ops.post_max(hred + 6 * RR, lx);
           }
-          __syncthreads();
-          const int cidx = fold_min(hred + 128, nwarps, lane);
+          red_ops.sync();
+          const int cidx = red_ops.fold_min(hred + 4 * RR);
           const bool improved = !hm_valid || cmax > hm_sw;
           if (xd) {
             if (hm_valid) {
-              const int firstx = fold_min(hred + 160, nwarps, lane);
-              const int lastx = fold_max(hred + 192, nwarps, lane);
+              const int firstx = red_ops.fold_min(hred + 5 * RR);
+              const int lastx = red_ops.fold_max(hred + 6 * RR);
               // in sequence: the new hi reads the new lo
               cur_lo = firstx < W ? firstx + kmin : cur_hi + 1;
               cur_hi = firstx < W ? lastx + kmin : cur_lo - 1;
@@ -647,7 +794,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
             if (improved) {
               hm_sw = cmax;
               hm_k = cidx + kmin;
-              hm_off = m_row[min(cidx, W - 1)];
+              hm_off = cell(slot[M], min(cidx, W - 1));
             }
             if (zdropped) {
               // the pair ends at the historic maximum's cell
@@ -676,7 +823,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
               // move the window of max_len diagonals toward the end whose
               // sampled cells are nearer the alignment's end
               auto dist_at = [&](int kq) {
-                const int o = m_row[min(max(kq - kmin, 0), W - 1)];
+                const int o = cell(slot[M], min(max(kq - kmin, 0), W - 1));
                 return o >= 0 ? max(plen - (o - kq), tlen - o) : -kNull;
               };
               const int leeway = (wf_len - max_len) / 2;
@@ -698,19 +845,19 @@ __device__ __forceinline__ void loop_body(const Params& p) {
           // score s to it (a null row stays null), and let the compute
           // of s + 1 see both; the barrier first: the banded-adaptive
           // cut above read cells of M's row that the install nulls
-          __syncthreads();
+          red_ops.sync();
 #pragma unroll
           for (int c = 1; c < kComps; ++c) {
             g_lo[c] = max(g_lo[c], cur_lo);
             g_hi[c] = min(g_hi[c], cur_hi);
           }
-          for (int w = tid; w < W; w = kNarrow ? W : w + T) {
+          for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
             const int k = kmin + w;
-            if (k < cur_lo || k > cur_hi) m_row[w] = kNull;
+            if (k < cur_lo || k > cur_hi) m_row[w - wbase] = kNull;
 #pragma unroll
             for (int c = 1; c < kComps; ++c) {
               if (k < g_lo[c] || k > g_hi[c]) {
-                off[(p.base[c] + slot[c]) * W + w] = kNull;
+                off[(p.base[c] + slot[c]) * RS + w - wbase] = kNull;
               }
             }
           }
@@ -724,7 +871,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
               lohi[2 * row + 1] = g_hi[c];
             }
           }
-          __syncthreads();
+          red_ops.sync();
         }
       }
     }
@@ -746,21 +893,21 @@ __device__ __forceinline__ void loop_body(const Params& p) {
     int lo_n, hi_n;
     bool all_null;
     if constexpr (kEditLike) {
-      mm = read_wf(off, lohi, p, M, slot1[M], 1, s1);
+      mm = read_wf(off, lohi, p, M, slot1[M], 1, s1, RS);
       lo_n = mm.lo - 1;
       hi_n = mm.hi + 1;
       all_null = mm.null_;
     } else if constexpr (kMetric == kLinear) {
-      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1);
-      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1);
+      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1, RS);
+      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1, RS);
       lo_n = min(lim_lo(mm, 0), lim_lo(op, 1));
       hi_n = max(lim_hi(mm, 0), lim_hi(op, 1));
       all_null = mm.null_ && op.null_;
     } else {
-      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1);
-      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1);
-      i1 = read_wf(off, lohi, p, I1, slot1[I1], p.e1, s1);
-      d1 = read_wf(off, lohi, p, D1, slot1[D1], p.e1, s1);
+      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1, RS);
+      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1, RS);
+      i1 = read_wf(off, lohi, p, I1, slot1[I1], p.e1, s1, RS);
+      d1 = read_wf(off, lohi, p, D1, slot1[D1], p.e1, s1, RS);
       lo_n = min(min(lim_lo(mm, 0), lim_lo(op, 1)),
                  min(lim_lo(i1, 1), lim_lo(d1, 1)));
       hi_n = max(max(lim_hi(mm, 0), lim_hi(op, 1)),
@@ -770,9 +917,9 @@ __device__ __forceinline__ void loop_body(const Params& p) {
       prod[D1] = !(op.null_ && d1.null_);
       if constexpr (kMetric == kAffine2p) {
         // I2 and D2 are the last two of the five components
-        op2 = read_wf(off, lohi, p, M, slot1[M], p.o2, s1);
-        i2 = read_wf(off, lohi, p, I2, slot1[kComps - 2], p.e2, s1);
-        d2 = read_wf(off, lohi, p, D2, slot1[kComps - 1], p.e2, s1);
+        op2 = read_wf(off, lohi, p, M, slot1[M], p.o2, s1, RS);
+        i2 = read_wf(off, lohi, p, I2, slot1[kComps - 2], p.e2, s1, RS);
+        d2 = read_wf(off, lohi, p, D2, slot1[kComps - 1], p.e2, s1, RS);
         lo_n = min(lo_n, min(lim_lo(op2, 1),
                              min(lim_lo(i2, 1), lim_lo(d2, 1))));
         hi_n = max(hi_n, max(lim_hi(op2, 1),
@@ -825,33 +972,33 @@ __device__ __forceinline__ void loop_body(const Params& p) {
       wmax[c] = -1;
     }
     int held[kComps], held_choice = 0;
-    for (int w = tid; w < W; w = kNarrow ? W : w + T) {
+    for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
       const int k = kmin + w;
       int arr[kComps];
       int choice, mval;
       if constexpr (kEditLike) {
         // every candidate comes from the wavefront of s
         int pm =
-            max(pack(at(mm, w + 1, W), 3), pack(at(mm, w - 1, W) + 1, 1));
+            max(pack(at_(mm, w + 1), 3), pack(at_(mm, w - 1) + 1, 1));
         if constexpr (kMetric == kEdit) {
-          pm = max(pack(at(mm, w, W) + 1, 5), pm);
+          pm = max(pack(at_(mm, w) + 1, 5), pm);
         }
         // an all-invalid cell stays negative; the bounds check nulls it
         mval = pm >> 3;
         choice = one_comp_source(pm);
       } else if constexpr (kMetric == kLinear) {
-        const int pm = max(pack(at(mm, w, W) + 1, 5),
-                           max(pack(at(op, w + 1, W), 3),
-                               pack(at(op, w - 1, W) + 1, 1)));
+        const int pm = max(pack(at_(mm, w) + 1, 5),
+                           max(pack(at_(op, w + 1), 3),
+                               pack(at_(op, w - 1) + 1, 1)));
         mval = pm < 0 ? kNull : (pm >> 3);
         choice = one_comp_source(pm);
       } else {
         int i1_ext, d1_ext;
         const int ins1 =
-            gap_cell(at(op, w - 1, W), at(i1, w - 1, W), 1, &i1_ext);
+            gap_cell(at_(op, w - 1), at_(i1, w - 1), 1, &i1_ext);
         const int del1 =
-            gap_cell(at(op, w + 1, W), at(d1, w + 1, W), 0, &d1_ext);
-        const int mis = at(mm, w, W) + 1;
+            gap_cell(at_(op, w + 1), at_(d1, w + 1), 0, &d1_ext);
+        const int mis = at_(mm, w) + 1;
         arr[I1] = ins1;
         arr[D1] = del1;
         // M by the packed (value << 3) | prio max
@@ -859,9 +1006,9 @@ __device__ __forceinline__ void loop_body(const Params& p) {
         if constexpr (kMetric == kAffine2p) {
           int i2_ext, d2_ext;
           const int ins2 =
-              gap_cell(at(op2, w - 1, W), at(i2, w - 1, W), 1, &i2_ext);
+              gap_cell(at_(op2, w - 1), at_(i2, w - 1), 1, &i2_ext);
           const int del2 =
-              gap_cell(at(op2, w + 1, W), at(d2, w + 1, W), 0, &d2_ext);
+              gap_cell(at_(op2, w + 1), at_(d2, w + 1), 0, &d2_ext);
           arr[kComps - 2] = ins2;
           arr[kComps - 1] = del2;
           // X(5) > D2(4) > D1(3) > I2(2) > I1(1)
@@ -917,7 +1064,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
         if (kNarrow) {
           held[c] = arr[c];
         } else {
-          off[(p.base[c] + slot1[c]) * W + w] = arr[c];
+          off[(p.base[c] + slot1[c]) * RS + w - wbase] = arr[c];
         }
       }
       if (kNarrow) {
@@ -929,18 +1076,18 @@ __device__ __forceinline__ void loop_body(const Params& p) {
     }
 #pragma unroll
     for (int c = 0; c < kComps; ++c) {
-      post_min(red + c * 32, wmin[c], lane, warp);
-      post_max(red + (kComps + c) * 32, wmax[c], lane, warp);
+      red_ops.post_min(red + c * RR, wmin[c]);
+      red_ops.post_max(red + (kComps + c) * RR, wmax[c]);
     }
-    __syncthreads();
+    red_ops.sync();
 
     // end trim per component: the cells of the row outside the trimmed
     // band go back to NULL (each thread trims the cells it wrote); the
     // narrow kernel writes its cell now, trimmed
 #pragma unroll
     for (int c = 0; c < kComps; ++c) {
-      const int first = fold_min(red + c * 32, nwarps, lane);
-      const int last = fold_max(red + (kComps + c) * 32, nwarps, lane);
+      const int first = red_ops.fold_min(red + c * RR);
+      const int last = red_ops.fold_max(red + (kComps + c) * RR);
       const bool keep = prod[c] && first < W;
       int tlo = keep ? first + kmin : 1;
       int thi = keep ? last + kmin : -1;
@@ -950,12 +1097,12 @@ __device__ __forceinline__ void loop_body(const Params& p) {
       }
       const int row = p.base[c] + slot1[c];
       if (kNarrow) {
-        const int k = kmin + tid;
-        off[row * W + tid] = (k >= tlo && k <= thi) ? held[c] : kNull;
+        const int k = kmin + w0;
+        off[row * RS + tid] = (k >= tlo && k <= thi) ? held[c] : kNull;
       } else if (tlo > lo_n || thi < hi_n || !keep) {
-        for (int w = tid; w < W; w = kNarrow ? W : w + T) {
+        for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
           const int k = kmin + w;
-          if (k < tlo || k > thi) off[row * W + w] = kNull;
+          if (k < tlo || k > thi) off[row * RS + w - wbase] = kNull;
         }
       }
       if (tid == 0) {
@@ -974,7 +1121,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
     }
 
     if (kNarrow && kRecord && held_choice != 0) {
-      choices[static_cast<size_t>(s1) * BW + tid] =
+      choices[static_cast<size_t>(s1 - seg_base) * BW + w0] =
           static_cast<uint8_t>(held_choice);
     }
 
@@ -989,16 +1136,25 @@ __device__ __forceinline__ void loop_body(const Params& p) {
     }
     s = s1;
   }
+  // the cluster build: every CTA is past its last read of another's shared
+  // memory before any leaves
+  if constexpr (kCluster) red_ops.sync();
   if (carry != nullptr) {
     // the state of a later segment: a pair still running stays running
     // there, whatever its result says below
-    __syncthreads();
+    if constexpr (!kCluster) __syncthreads();
     if (!ring_global) {
-      for (int i = tid; i < p.rows * W; i += T) ring_g[i] = off[i];
+      for (int row = 0; row < p.rows; ++row) {
+        for (int j = tid; j < RS; j += T) {
+          ring_g[static_cast<size_t>(row) * W + wbase + j] = off[row * RS + j];
+        }
+      }
     }
-    int32_t* lg = p.lohi + static_cast<size_t>(b) * p.rows * 2;
-    for (int i = tid; i < p.rows * 2; i += T) lg[i] = lohi[i];
-    if (tid == 0) {
+    if (rank == 0) {
+      int32_t* lg = p.lohi + static_cast<size_t>(b) * p.rows * 2;
+      for (int i = tid; i < p.rows * 2; i += T) lg[i] = lohi[i];
+    }
+    if (tid == 0 && rank == 0) {
       carry[0] = s;
       carry[1] = status;
       carry[2] = final_s;
@@ -1017,7 +1173,7 @@ __device__ __forceinline__ void loop_body(const Params& p) {
     status = ST_OVERFLOW_S;
     final_s = s;
   }
-  if (tid == 0) {
+  if (tid == 0 && rank == 0) {
     p.res[b] = status;
     p.res[p.B + b] = final_s;
     p.res[2 * p.B + b] = end_k;
@@ -1030,19 +1186,29 @@ __device__ __forceinline__ void loop_body(const Params& p) {
 // threads a wide band asks for.
 template <int kMetric, int kSpan, bool kRecord, bool kHeur>
 __global__ void __launch_bounds__(1024) fused_loop(Params p) {
-  loop_body<kMetric, kSpan, kRecord, kHeur, false>(p);
+  loop_body<kMetric, kSpan, kRecord, kHeur, kBuildGeneral>(p);
 }
 
 // The narrow kernel of short reads (loop_body's kNarrow): fewer registers,
 // so more blocks share an SM in a loop that waits on its barriers.
 template <int kMetric, int kSpan, bool kRecord, bool kHeur>
 __global__ void fused_loop_narrow(Params p) {
-  loop_body<kMetric, kSpan, kRecord, kHeur, true>(p);
+  loop_body<kMetric, kSpan, kRecord, kHeur, kBuildNarrow>(p);
+}
+
+// The cluster kernel of wide bands: a pair a cluster of Params::cluster
+// CTAs (the launch's cluster dimension), a slice of at most 1024 diagonals
+// a CTA, three a thread (pywfa_tpu_torch/ops/fused_loop.py::launch_shape),
+// so at most kClusterThreads threads; bounded for two CTAs an SM, which
+// leaves a thread 80 registers.
+template <int kMetric, int kSpan, bool kRecord, bool kHeur>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+    fused_loop_cluster(Params p) {
+  loop_body<kMetric, kSpan, kRecord, kHeur, kBuildCluster>(p);
 }
 
 // --- the warp build: one warp a pair, several pairs a block ---
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWarpMaxPairs = 8;
 constexpr int kExtChunks = 4;  // chunks of 32 diagonals an extension pass
 
@@ -1093,6 +1259,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
   constexpr bool kEndsFree = kSpan != kEndToEnd;
   constexpr bool kSeeding = kSpan == kSeeded;
   const int W = p.W;
+  const int RS = W;
   const int scope = p.scope;
   const int kmin = -(W / 2);
   const int klo = kmin + 2, khi = kmin + W - 3;
@@ -1102,9 +1269,23 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
   const int tlen = p.tlen[b];
   const size_t BW = static_cast<size_t>(p.B) * W;
   const size_t bW = static_cast<size_t>(b) * W;
-  const uint32_t* bits = p.bits + bW;
+  const uint32_t* bits = p.bits == nullptr ? nullptr : p.bits + bW;
+  const uint8_t* table8 =
+      p.table == nullptr
+          ? nullptr
+          : static_cast<const uint8_t*>(p.table) + (p.table_u8 ? bW : 2 * bW);
   uint8_t* choices = kRecord ? p.choices + bW : nullptr;
   const int NQ32 = p.NQ * 32;
+  const int seg_base = p.seg_base;
+  const int seg_end = seg_base + p.S_cap - 1;
+  // the state of a segmented run: this pair's ring [rows][W] and carry
+  int4* ring_g = p.ring == nullptr
+                     ? nullptr
+                     : reinterpret_cast<int4*>(
+                           p.ring + static_cast<size_t>(b) * p.rows * W);
+  int32_t* carry =
+      p.carry == nullptr ? nullptr : p.carry + static_cast<size_t>(b) * kCarry;
+  int4* off4 = reinterpret_cast<int4*>(off);
 
   int pbf = 0, pef = 0, tbf = 0, tef = 0;
   if (kEndsFree) {
@@ -1121,40 +1302,71 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
   int h_wait = p.steps_between;
   int hm_sw = 0, hm_k = 0, hm_off = kNull;
   bool hm_valid = false;
-  // WF0 (see loop_body)
-  int wf0_lo = 0, wf0_hi = 0;
-  if (kSpan == kEndsFreeWf0) {
-    wf0_lo = -pbf;
-    wf0_hi = tbf;
-  }
-  bool done = kSpan == kEndsFreeWf0 && (wf0_lo < klo || wf0_hi > khi);
-  if (done) {
-    status = ST_OVERFLOW_W;
-  } else {
+  bool done = false;
+  if (p.fresh) {
+    // WF0 (see loop_body)
+    int wf0_lo = 0, wf0_hi = 0;
+    if (kSpan == kEndsFreeWf0) {
+      wf0_lo = -pbf;
+      wf0_hi = tbf;
+    }
+    done = kSpan == kEndsFreeWf0 && (wf0_lo < klo || wf0_hi > khi);
+    if (done) status = ST_OVERFLOW_W;
     const int4 null4 = make_int4(kNull, kNull, kNull, kNull);
-    int4* off4 = reinterpret_cast<int4*>(off);
     for (int i = lane; i < p.rows * W / 4; i += 32) off4[i] = null4;
     for (int i = lane; i < p.rows; i += 32) {
       lohi[2 * i] = (i == 0) ? wf0_lo : 1;
       lohi[2 * i + 1] = (i == 0) ? wf0_hi : -1;
     }
     __syncwarp();
-    for (int k = wf0_lo + lane; k <= wf0_hi; k += 32) off[k - kmin] = max(k, 0);
-    __syncwarp();
+    // the seeds inside [0, W) (a pair done at WF0 still stores its state)
+    for (int k = max(wf0_lo, kmin) + lane; k <= min(wf0_hi, kmin + W - 1);
+         k += 32) {
+      off[k - kmin] = max(k, 0);
+    }
+  } else {
+    // a later segment: the carry, the bands and the ring from the state
+    s = carry[0];
+    status = carry[1];
+    final_s = carry[2];
+    end_k = carry[3];
+    end_off = carry[4];
+    nnull = carry[5];
+    h_wait = carry[6];
+    hm_sw = carry[7];
+    hm_k = carry[8];
+    hm_off = carry[9];
+    hm_valid = carry[10] != 0;
+    if (carry[11] != 0) {
+      // a pair that is done: its result again, its state untouched
+      if (lane == 0) {
+        p.res[b] = status;
+        p.res[p.B + b] = final_s;
+        p.res[2 * p.B + b] = end_k;
+        p.res[3 * p.B + b] = end_off;
+      }
+      return;
+    }
+    // the ring in coalesced 16-byte loads (W is a multiple of 32)
+    for (int i = lane; i < p.rows * W / 4; i += 32) off4[i] = ring_g[i];
+    const int32_t* lg = p.lohi + static_cast<size_t>(b) * p.rows * 2;
+    for (int i = lane; i < p.rows * 2; i += 32) lohi[i] = lg[i];
   }
+  __syncwarp();
 
-  // each component's ring slot of score s and the band of its row of
-  // score s (M owns rows [0, scope), its slot of score 0 is row 0)
+  // each component's ring slot of score s (s % depth) and the band of its
+  // row of score s (M owns rows [0, scope))
   int slot[kComps], g_lo[kComps], g_hi[kComps];
 #pragma unroll
   for (int c = 0; c < kComps; ++c) {
-    slot[c] = 0;
-    g_lo[c] = c == M ? wf0_lo : 1;
-    g_hi[c] = c == M ? wf0_hi : -1;
+    slot[c] = s % p.depth[c];
+    const int row = p.base[c] + slot[c];
+    g_lo[c] = lohi[2 * row];
+    g_hi[c] = lohi[2 * row + 1];
   }
-  int m_lo = wf0_lo, m_hi = wf0_hi;
+  int m_lo = g_lo[M], m_hi = g_hi[M];
 
-  while (!done && s < p.S_cap - 1) {
+  while (!done && s < seg_end) {
     int* m_row = off + slot[M] * W;
     const bool m_null = m_lo > m_hi;
     if (m_null && nnull > scope) {
@@ -1164,11 +1376,48 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
       break;
     }
 
-    // --- extension over M's band ---
-    // kExtChunks chunks at a time: their first words are loaded together,
-    // so a wide band waits on one load latency, not one a chunk
+    // --- extension over M's band, by the equality words or the run-length
+    // table (a branch uniform over the launch, outside the passes) ---
+    // kExtChunks chunks at a time: their first words (or their runs) are
+    // loaded together, so a wide band waits on one load latency, not one a
+    // chunk
     int first_hit = W;
-    if (!m_null) {
+    // a cell on an end-free boundary (see loop_body): the lowest wins
+    auto end_hit = [&](int k, int w, int mo) {
+      const int v = mo - k;
+      if (k <= m_hi && mo > kNullThreshold &&
+          ((mo >= tlen && plen - v <= pef) ||
+           (v >= plen && tlen - mo <= tef))) {
+        first_hit = min(first_hit, w);
+      }
+    };
+    if (!m_null && table8 != nullptr) {
+      const int16_t* table16 = reinterpret_cast<const int16_t*>(table8);
+      for (int k0 = m_lo; k0 <= m_hi; k0 += 32 * kExtChunks) {
+        int m_off[kExtChunks], run[kExtChunks];
+#pragma unroll
+        for (int j = 0; j < kExtChunks; ++j) {
+          const int k = k0 + 32 * j + lane;
+          m_off[j] = k <= m_hi ? m_row[k - kmin] : kNull;
+          const size_t at_h =
+              static_cast<size_t>(min(m_off[j], p.Ltp - 1)) * BW + (k - kmin);
+          run[j] = !(m_off[j] >= 0 && m_off[j] <= tlen) ? 0
+                   : p.table_u8 ? static_cast<int>(__ldg(table8 + at_h))
+                                : static_cast<int>(__ldg(table16 + at_h));
+        }
+#pragma unroll
+        for (int j = 0; j < kExtChunks; ++j) {
+          const int k = k0 + 32 * j + lane;
+          const int w = k - kmin;
+          int mo = m_off[j];
+          if (mo >= 0 && mo <= tlen) {
+            mo += run[j];
+            m_row[w] = mo;
+          }
+          if (kEndsFree) end_hit(k, w, mo);
+        }
+      }
+    } else if (!m_null) {
       for (int k0 = m_lo; k0 <= m_hi; k0 += 32 * kExtChunks) {
         int m_off[kExtChunks], idx[kExtChunks];
         uint32_t mq[kExtChunks];
@@ -1196,14 +1445,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
             mo += fm - idx[j];
             m_row[w] = mo;
           }
-          if (kEndsFree) {
-            const int v = mo - k;
-            if (k <= m_hi && mo > kNullThreshold &&
-                ((mo >= tlen && plen - v <= pef) ||
-                 (v >= plen && tlen - mo <= tef))) {
-              first_hit = min(first_hit, w);
-            }
-          }
+          if (kEndsFree) end_hit(k, w, mo);
         }
       }
     }
@@ -1415,21 +1657,21 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     int lo_n, hi_n;
     bool all_null;
     if constexpr (kEditLike) {
-      mm = read_wf(off, lohi, p, M, slot1[M], 1, s1);
+      mm = read_wf(off, lohi, p, M, slot1[M], 1, s1, RS);
       lo_n = mm.lo - 1;
       hi_n = mm.hi + 1;
       all_null = mm.null_;
     } else if constexpr (kMetric == kLinear) {
-      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1);
-      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1);
+      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1, RS);
+      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1, RS);
       lo_n = min(lim_lo(mm, 0), lim_lo(op, 1));
       hi_n = max(lim_hi(mm, 0), lim_hi(op, 1));
       all_null = mm.null_ && op.null_;
     } else {
-      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1);
-      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1);
-      i1 = read_wf(off, lohi, p, I1, slot1[I1], p.e1, s1);
-      d1 = read_wf(off, lohi, p, D1, slot1[D1], p.e1, s1);
+      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1, RS);
+      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1, RS);
+      i1 = read_wf(off, lohi, p, I1, slot1[I1], p.e1, s1, RS);
+      d1 = read_wf(off, lohi, p, D1, slot1[D1], p.e1, s1, RS);
       lo_n = min(min(lim_lo(mm, 0), lim_lo(op, 1)),
                  min(lim_lo(i1, 1), lim_lo(d1, 1)));
       hi_n = max(max(lim_hi(mm, 0), lim_hi(op, 1)),
@@ -1438,9 +1680,9 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
       prod[I1] = !(op.null_ && i1.null_);
       prod[D1] = !(op.null_ && d1.null_);
       if constexpr (kMetric == kAffine2p) {
-        op2 = read_wf(off, lohi, p, M, slot1[M], p.o2, s1);
-        i2 = read_wf(off, lohi, p, I2, slot1[kComps - 2], p.e2, s1);
-        d2 = read_wf(off, lohi, p, D2, slot1[kComps - 1], p.e2, s1);
+        op2 = read_wf(off, lohi, p, M, slot1[M], p.o2, s1, RS);
+        i2 = read_wf(off, lohi, p, I2, slot1[kComps - 2], p.e2, s1, RS);
+        d2 = read_wf(off, lohi, p, D2, slot1[kComps - 1], p.e2, s1, RS);
         lo_n = min(lo_n, min(lim_lo(op2, 1),
                              min(lim_lo(i2, 1), lim_lo(d2, 1))));
         hi_n = max(hi_n, max(lim_hi(op2, 1),
@@ -1572,7 +1814,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         off[(p.base[c] + slot1[c]) * W + w] = arr[c];
       }
       if (kRecord && choice != 0) {
-        choices[static_cast<size_t>(s1) * BW + w] =
+        choices[static_cast<size_t>(s1 - seg_base) * BW + w] =
             static_cast<uint8_t>(choice);
       }
     }
@@ -1631,6 +1873,28 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     }
     s = s1;
   }
+  if (carry != nullptr) {
+    // the state, byte for byte the general build's: a pair still running
+    // stays running there, whatever its result says below
+    __syncwarp();
+    for (int i = lane; i < p.rows * W / 4; i += 32) ring_g[i] = off4[i];
+    int32_t* lg = p.lohi + static_cast<size_t>(b) * p.rows * 2;
+    for (int i = lane; i < p.rows * 2; i += 32) lg[i] = lohi[i];
+    if (lane == 0) {
+      carry[0] = s;
+      carry[1] = status;
+      carry[2] = final_s;
+      carry[3] = end_k;
+      carry[4] = end_off;
+      carry[5] = nnull;
+      carry[6] = h_wait;
+      carry[7] = hm_sw;
+      carry[8] = hm_k;
+      carry[9] = hm_off;
+      carry[10] = hm_valid ? 1 : 0;
+      carry[11] = done ? 1 : 0;
+    }
+  }
   if (!done) {
     status = ST_OVERFLOW_S;
     final_s = s;
@@ -1669,37 +1933,51 @@ __global__ void __launch_bounds__(kWarpMaxPairs * 32)
   }
 }
 
-// the build codes of wfa_fused_loop (pywfa_tpu_torch/ops/fused_loop.py::BUILDS)
-constexpr int kBuildGeneral = 0;
-constexpr int kBuildNarrow = 1;
-constexpr int kBuildWarp = 2;
+
+// cudaOccupancyMaxActiveClusters of the last cluster launch
+// (wfa_fused_loop_active_clusters)
+int last_active_clusters = -1;
+
+// An error of a runtime call made for a launch: clear it from the
+// runtime's last error, so that it does not come back as the error of the
+// next launch, and return it.
+int failed(cudaError_t e) {
+  cudaGetLastError();
+  return static_cast<int>(e);
+}
 
 // The build the caller chose: the general kernel takes any launch; the
 // narrow one a one-shot run on the equality words with a thread a
-// diagonal and the ring in shared memory; the warp one a one-shot run on
-// the words with threads / 32 pairs a block, each pair's ring in shared
-// memory. Shared memory: the general and the narrow kernel hold the ring
-// (unless it lives in the caller's global ring [B, rows, W]), its bands
-// and the partials of the block reductions; the warp kernel a ring and
-// its bands a pair.
+// diagonal and the ring in shared memory; the warp one threads / 32 pairs
+// a block, each pair's ring in shared memory, one shot or a segment, on
+// the words or the table; the cluster one a pair a cluster of
+// Params::cluster CTAs, each a slice of W / cluster diagonals and its
+// columns of the ring. Shared memory: the general and the narrow kernel
+// hold the ring (unless it lives in the caller's global ring [B, rows,
+// W]), its bands and the partials of the block reductions; the warp
+// kernel a ring and its bands a pair; the cluster kernel its columns of
+// the ring, the bands and rows of C * nwarps partials.
 template <int kMetric, int kSpan, bool kRecord, bool kHeur>
 int launch(const Params& p, int build, cudaStream_t stream) {
   void (*kernel)(Params);
   size_t smem;
   int grid = p.B;
+  const int partials =
+      2 * n_comps(kMetric) + 1 + (kHeur ? kHeurReductions : 0);
   if (build == kBuildWarp) {
     const int pairs = p.threads / 32;
     kernel = fused_loop_warp<kMetric, kSpan, kRecord, kHeur>;
     smem = static_cast<size_t>(pairs) * warp_pair_ints(p.rows, p.W) *
            sizeof(int);
     grid = (p.B + pairs - 1) / pairs;
+  } else if (build == kBuildCluster) {
+    kernel = fused_loop_cluster<kMetric, kSpan, kRecord, kHeur>;
+    grid = p.B * p.cluster;
+    smem = 0;  // set below, with the cluster's launch attributes
   } else {
     const size_t ring =
         p.ring_global ? 0 : static_cast<size_t>(p.rows) * p.W;
-    smem = (ring + p.rows * 2 +
-            (2 * n_comps(kMetric) + 1 + (kHeur ? kHeurReductions : 0)) *
-                32) *
-           sizeof(int);
+    smem = (ring + p.rows * 2 + partials * 32) * sizeof(int);
     kernel = build == kBuildNarrow
                  ? fused_loop_narrow<kMetric, kSpan, kRecord, kHeur>
                  : fused_loop<kMetric, kSpan, kRecord, kHeur>;
@@ -1708,7 +1986,39 @@ int launch(const Params& p, int build, cudaStream_t stream) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return failed(e);
+  }
+  if (build == kBuildCluster) {
+    smem = (static_cast<size_t>(p.rows) * (p.W / p.cluster) + p.rows * 2 +
+            static_cast<size_t>(partials) * p.cluster * (p.threads / 32)) *
+           sizeof(int);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return failed(e);
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(grid);
+    config.blockDim = dim3(p.threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    // a cluster the card cannot schedule is refused here: no fallback
+    int clusters = 0;
+    cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (e != cudaSuccess) return failed(e);
+    last_active_clusters = clusters;
+    if (clusters == 0) return failed(cudaErrorInvalidConfiguration);
+    e = cudaLaunchKernelEx(&config, kernel, p);
+    if (e != cudaSuccess) return failed(e);
+    return static_cast<int>(cudaGetLastError());
   }
   if (build == kBuildWarp) {
     // no more blocks than the SMs hold at once (asked of the runtime once
@@ -1719,7 +2029,7 @@ int launch(const Params& p, int build, cudaStream_t stream) {
     static size_t cached_smem = 0;
     int device = 0, resident = 0;
     cudaError_t e = cudaGetDevice(&device);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return failed(e);
     {
       std::lock_guard<std::mutex> lock(mu);
       if (device != cached_device || p.threads != cached_threads ||
@@ -1731,7 +2041,7 @@ int launch(const Params& p, int build, cudaStream_t stream) {
           e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
               &per_sm, kernel, p.threads, smem);
         }
-        if (e != cudaSuccess) return static_cast<int>(e);
+        if (e != cudaSuccess) return failed(e);
         cached_device = device;
         cached_threads = p.threads;
         cached_smem = smem;
@@ -1743,7 +2053,7 @@ int launch(const Params& p, int build, cudaStream_t stream) {
     grid = min(grid, resident);
     if (static_cast<long long>(grid) * (p.threads / 32) < p.B) {
       e = cudaMemsetAsync(p.res + 4 * p.B, 0, sizeof(int32_t), stream);
-      if (e != cudaSuccess) return static_cast<int>(e);
+      if (e != cudaSuccess) return failed(e);
     }
   }
   kernel<<<grid, p.threads, smem, stream>>>(p);
@@ -1800,17 +2110,20 @@ extern "C" {
 // of the cascade's nine parameters (::heuristic_params), whose first, the
 // strategy bits, is 0 for the exact loop; seed_div is -match, read on the
 // seeded span. `build` is the kernel the caller chose (kBuild*; `threads`
-// is a block's threads, for the warp build 32 times its pairs); a launch
-// the build cannot take returns cudaErrorInvalidValue and runs nothing.
+// is a block's threads, for the warp build 32 times its pairs, for the
+// cluster build a CTA's, at most W / cluster and kClusterThreads,
+// `cluster` the CTAs a pair of the cluster build); a launch
+// the build cannot take returns cudaErrorInvalidValue and runs nothing,
+// and a cluster the card cannot schedule cudaErrorInvalidConfiguration.
 int wfa_fused_loop(const void* bits, const void* table, int table_u8,
                    int Ltp, const void* plen, const void* tlen,
                    const void* frees, void* choices, void* res, void* ring,
                    void* lohi, void* carry, int fresh, int ring_global,
-                   int seg_base, int build, int threads, const int* depths,
-                   int B, int W, int NQ, int S_cap, int scope, int x, int o1,
-                   int e1, int o2, int e2, int max_steps, int metric,
-                   int span, int record, const int* heur, int seed_div,
-                   void* stream) {
+                   int seg_base, int build, int threads, int cluster,
+                   const int* depths, int B, int W, int NQ,
+                   int S_cap, int scope, int x, int o1, int e1, int o2, int e2,
+                   int max_steps, int metric, int span, int record,
+                   const int* heur, int seed_div, void* stream) {
   if (B == 0) return 0;
   if ((span != kEndToEnd && frees == nullptr) ||
       (record && choices == nullptr) || depths == nullptr ||
@@ -1821,15 +2134,23 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
       (carry != nullptr && (ring == nullptr || lohi == nullptr)) ||
       (carry == nullptr && !fresh) || (ring_global && ring == nullptr) ||
       threads < 32 || threads > 1024 || threads % 32 != 0 ||
-      build < kBuildGeneral || build > kBuildWarp) {
+      build < kBuildGeneral || build > kBuildCluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // the narrow and the warp build: a one-shot run on the equality words,
-  // the ring in shared memory
+  // the narrow build: a one-shot run on the equality words, the ring in
+  // shared memory, a thread a diagonal; the warp build: the ring in shared
+  // memory, at most kWarpMaxPairs pairs a block; the cluster build: the
+  // ring in shared memory, W cut into `cluster` slices of whole warps, at
+  // most a thread a diagonal
   const bool one_shot = carry == nullptr && table == nullptr &&
                         !ring_global && fresh && seg_base == 0;
   if ((build == kBuildNarrow && !(one_shot && threads == W)) ||
-      (build == kBuildWarp && !(one_shot && threads <= 32 * kWarpMaxPairs))) {
+      (build == kBuildWarp &&
+       !(!ring_global && threads <= 32 * kWarpMaxPairs)) ||
+      (build == kBuildCluster &&
+       !(!ring_global && cluster >= 1 && cluster <= kClusterMax &&
+         W % (32 * cluster) == 0 && threads <= W / cluster &&
+         threads <= kClusterThreads))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -1849,6 +2170,7 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
   p.ring_global = ring_global;
   p.seg_base = seg_base;
   p.threads = threads;
+  p.cluster = build == kBuildCluster ? cluster : 1;
   p.B = B;
   p.W = W;
   p.NQ = NQ;
@@ -1891,6 +2213,10 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
       return launch_metric<kIndel>(p, build, span, record, heuristic, st);
   }
 }
+
+// cudaOccupancyMaxActiveClusters of the last launch of the cluster build
+// (-1 before the first)
+int wfa_fused_loop_active_clusters() { return last_active_clusters; }
 
 const char* wfa_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -100,9 +100,11 @@ def load(name: str = "fused_loop") -> ctypes.CDLL:
         ints = ctypes.POINTER(ci)
         if name == "fused_loop":
             lib.wfa_fused_loop.argtypes = (
-                [vp, vp, ci, ci] + [vp] * 8 + [ci] * 5 + [ints] + [ci] * 14
+                [vp, vp, ci, ci] + [vp] * 8 + [ci] * 6 + [ints] + [ci] * 14
                 + [ints, ci, vp])
             lib.wfa_fused_loop.restype = ci
+            lib.wfa_fused_loop_active_clusters.argtypes = []
+            lib.wfa_fused_loop_active_clusters.restype = ci
         else:
             lib.wfa_lcp_table.argtypes = [vp] * 3 + [ci] * 7 + [vp]
             lib.wfa_lcp_table.restype = ci

@@ -15,14 +15,17 @@ reference's `align_batch_pallas`.
 
 `align_batch_fused_loop` is the entry point. On CUDA tensors it launches
 the hand-written kernel in `csrc/fused_loop.cu`, in the build that
-`kernel_build` picks: for a one-shot run of a band of at most 1024
-diagonals on the equality words, the warp build (one warp a pair over the
-live band, several pairs a block), or the narrow build (one block a pair)
-at a terminal rung, whose score cap passes its width; the general build
-(one block a pair) for a segment's state, the run-length table, a ring in
-global memory or a wider band; on CPU tensors it runs
-`align_batch_fused_loop_ref`, the plain torch version, which is the Pallas
-kernel's own array program over [B, W] with a Python loop over scores.
+`kernel_build` picks: for a band of at most 1024 diagonals, the warp build
+(one warp a pair over the live band, several pairs a block; one shot or a
+segment, on the equality words or the run-length table), or the narrow
+build (one block a pair) for a one-shot terminal rung, whose score cap
+passes its width; for a band past 3072 diagonals or a ring past one
+block's shared memory the cluster build (one pair on a thread-block
+cluster of up to 8 CTAs, a slice of the band and of the ring each); else
+the general build (one block a pair); on CPU
+tensors it runs `align_batch_fused_loop_ref`, the plain torch version,
+which is the Pallas kernel's own array program over [B, W] with a Python
+loop over scores.
 
 A segmented run (the long-read path) keeps each pair's state in three
 int32 tensors that the kernel and the plain version share: `ring`
@@ -92,7 +95,7 @@ variant_launches = dict.fromkeys(VARIANTS + TABLE_VARIANTS, 0)
 
 # the kernel builds of csrc/fused_loop.cu, in the order of their codes,
 # and the launches align_batch_fused_loop made of each
-BUILDS = ("general", "narrow", "warp")
+BUILDS = ("general", "narrow", "warp", "cluster")
 build_launches = dict.fromkeys(BUILDS, 0)
 
 # shared memory one block may use on sm_90, shared memory of one SM, and
@@ -105,6 +108,21 @@ MAX_THREADS = 1024
 # H100 SXM, over which a small batch is spread
 WARP_MAX_PAIRS = 8
 SMS = 132
+# the cluster build: at most this many CTAs a pair (the portable cluster
+# size of sm_90)
+CLUSTER_MAX = 8
+# diagonals a thread of the cluster build (its CTAs run whole warps, the
+# last threads owning fewer): three was the fastest of one to four at
+# batch G's W=6912 and at W=2176, within 5% of two at W=3584 (PERF.md,
+# kernel table); so a CTA runs at most CLUSTER_THREADS threads, the
+# kernel's launch bound (csrc/fused_loop.cu, kClusterThreads)
+CLUSTER_DIAGONALS = 3
+CLUSTER_THREADS = 384
+# the most diagonals a thread of the general build owns (ceil(W / 1024))
+# where it stays the build of a band past 1024 diagonals whose ring fits
+# one block: at two and three (W=1792, 2176) it was as fast as the
+# cluster build or faster, at four (W=3584) 1.2x slower (time_builds.py)
+GENERAL_MAX_DIAGONALS = 3
 
 # one pair's carry in the state of a segmented run, in the kernel's order:
 # its score, status, result (final_s, end_k, end_off), null-step count, the
@@ -175,20 +193,78 @@ def warp_pairs(cfg: EngineConfig, B: int, sms: int = SMS) -> int:
     return min(best[1], -(-B // sms)) if best[1] else 0
 
 
+def cluster_smem_bytes(cfg: EngineConfig, C: int) -> int:
+    """Dynamic shared memory of one CTA of the cluster build with C CTAs a
+    pair: its columns of the ring [rows, W / C], the bands [rows, 2] and
+    the reductions' rows of C * (W / C / 32) partials each (see
+    smem_bytes)."""
+    rows = sum(ring_depths(cfg))
+    partials = (2 * cfg.n_comp + 1
+                + (HEUR_REDUCTIONS if cfg.strategy else 0))
+    T = cfg.W // C
+    return (rows * T + rows * 2 + partials * C * (T // 32)) * 4
+
+
+def cluster_size(cfg: EngineConfig) -> int:
+    """CTAs a pair of the cluster build: the smallest C up to CLUSTER_MAX
+    that cuts W into slices of whole warps, each of at most MAX_THREADS
+    diagonals (so that a CTA may run a thread a diagonal), whose columns of
+    the ring fit one CTA's shared memory; 0 when none does. Batch G's
+    W=6912: 8 slices of 864; W=2176: 4 of 544."""
+    warps = cfg.W // 32
+    for C in range(1, CLUSTER_MAX + 1):
+        if (cfg.W % 32 == 0 and warps % C == 0 and cfg.W // C <= MAX_THREADS
+                and cluster_smem_bytes(cfg, C) <= SMEM_LIMIT):
+            return C
+    return 0
+
+
 def kernel_build(cfg: EngineConfig, B: int, table=None, state=None) -> str:
     """The build of csrc/fused_loop.cu that a launch of B pairs takes (one
-    of BUILDS). The general build for a segment's state, the run-length
-    table, a ring in global memory or a band past MAX_THREADS diagonals
-    (the long-read paths). Else a one-shot run on the equality words: the
-    warp build (one warp a pair over the live band), unless the rung's
-    score cap passes its width, as at the terminal rungs, which are sized
-    for pairs as far apart as unrelated ones: their live bands fill W, and
-    a block a pair (the narrow build) walks such a band in one pass where
-    a warp walks it 32 diagonals at a time (PERF.md, kernel table)."""
-    if (state is not None or table is not None or ring_in_global(cfg)
-            or cfg.W > MAX_THREADS or warp_pairs(cfg, B) == 0):
-        return "general"
-    return "narrow" if cfg.S_cap > cfg.W else "warp"
+    of BUILDS). A band of at most MAX_THREADS diagonals whose ring fits a
+    warp's share of shared memory takes the warp build (one warp a pair
+    over the live band), with a segment's state or the run-length table
+    too (the segments of 1 kb reads), unless a one-shot run's score cap
+    passes its width, as at the terminal rungs, which are sized for pairs
+    as far apart as unrelated ones: their live bands fill W, and a block a
+    pair (the narrow build) walks such a band in one pass where a warp
+    walks it 32 diagonals at a time (PERF.md, kernel table). A wider band
+    takes the cluster build (a pair a cluster of cluster_size CTAs, the
+    ring in their shared memory) where a block a pair would give a thread
+    more than GENERAL_MAX_DIAGONALS diagonals or keep the ring in global
+    memory (the 5 kb pairs' W=3584, batch G's W=6912); else the general
+    build (a block a pair), which was as fast at W=1792 and W=2176, and
+    so does a ring that no cluster holds."""
+    if cfg.W <= MAX_THREADS and warp_pairs(cfg, B) > 0:
+        if state is None and table is None and cfg.S_cap > cfg.W:
+            return "narrow"
+        return "warp"
+    wide = (-(-cfg.W // MAX_THREADS) > GENERAL_MAX_DIAGONALS
+            or ring_in_global(cfg))
+    return "cluster" if wide and cluster_size(cfg) else "general"
+
+
+def launch_shape(cfg: EngineConfig, B: int, build: str, dev=None) -> tuple:
+    """(threads a block, CTAs a pair) of a launch of B pairs on `build`:
+    the warp build 32 a pair, as many pairs a block as warp_pairs gives
+    for the device's SMs; the cluster build CLUSTER_DIAGONALS diagonals a
+    thread of a CTA's slice, in whole warps, on each of cluster_size CTAs
+    (a band no cluster holds raises); the narrow build a thread a
+    diagonal; the general build block_threads."""
+    if build == "warp":
+        sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+               if dev is not None and torch.device(dev).type == "cuda"
+               else SMS)
+        return 32 * max(warp_pairs(cfg, B, sms), 1), 1
+    if build == "cluster":
+        C = cluster_size(cfg)
+        if C == 0:
+            raise RuntimeError(f"fused loop kernel launch failed (cluster "
+                               f"build): no cluster of at most {CLUSTER_MAX} "
+                               f"CTAs holds W={cfg.W} (rows "
+                               f"{sum(ring_depths(cfg))})")
+        return -(-cfg.W // (C * 32 * CLUSTER_DIAGONALS)) * 32, C
+    return (cfg.W if build == "narrow" else block_threads(cfg.W)), 1
 
 
 def block_threads(W: int) -> int:
@@ -421,11 +497,9 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     in_global = ring_in_global(cfg)
     if build is None:
         build = kernel_build(cfg, B, table, state)
-    if build == "warp":
-        threads = 32 * warp_pairs(
-            cfg, B, torch.cuda.get_device_properties(dev).multi_processor_count)
-    else:
-        threads = W if build == "narrow" else block_threads(W)
+    threads, cluster = launch_shape(cfg, B, build, dev)
+    # only the general build keeps the ring in global memory
+    in_global = in_global and build == "general"
     if state is not None:
         ring = state["ring"]
     else:
@@ -445,7 +519,7 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
             state["lohi"].data_ptr() if state is not None else None,
             state["carry"].data_ptr() if state is not None else None,
             int(fresh), int(in_global), seg_base, BUILDS.index(build),
-            threads,
+            threads, cluster,
             (ctypes.c_int * len(depths))(*depths), B, W, NQ,
             cfg.S_cap, cfg.scope, x, o1, e1, o2, e2, max_steps,
             METRIC_CODE[cfg.metric], span_code(cfg), int(record),
@@ -461,6 +535,14 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     if record:
         out["choices"] = choices
     return out
+
+
+def active_clusters() -> int:
+    """cudaOccupancyMaxActiveClusters of the last launch of the cluster
+    build in this process (-1 before the first): how many of its clusters
+    the card holds at once."""
+    from . import cuda_build
+    return int(cuda_build.load().wfa_fused_loop_active_clusters())
 
 
 def score_distances(cfg: EngineConfig) -> tuple:

@@ -599,9 +599,10 @@ def test_narrow_and_general_kernels_match_plain_version(dev, kw, frees_row):
                                                build="narrow")
     general = fused_loop.align_batch_fused_loop(
         cfg, *args, 2**31 - 1, state=fused_loop.new_state(cfg, len(pairs),
-                                                          dev), fresh=True)
+                                                          dev), fresh=True,
+        build="general")
     assert {k: v - before[k] for k, v in fused_loop.build_launches.items()
-            } == {"warp": 1, "narrow": 1, "general": 1}
+            } == {"warp": 1, "narrow": 1, "general": 1, "cluster": 0}
     plain = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
     torch.cuda.synchronize()
     for k in KEYS:
@@ -707,7 +708,7 @@ def test_warp_kernel_matches_plain_version(dev, case):
     general = fused_loop.align_batch_fused_loop(cfg, *args, max_steps,
                                                 build="general")
     assert {k: v - before[k] for k, v in fused_loop.build_launches.items()
-            } == {"warp": 1, "narrow": 0, "general": 1}
+            } == {"warp": 1, "narrow": 0, "general": 1, "cluster": 0}
     want = fused_loop.align_batch_fused_loop_ref(cfg, *args, max_steps)
     torch.cuda.synchronize()
     assert set(got) == set(want) == set(general)
@@ -727,22 +728,118 @@ def test_warp_kernel_matches_plain_version(dev, case):
         assert (status == C.ST_END_REACHED).all()
 
 
-def test_builds_refuse_launches_they_cannot_take(dev):
-    """The narrow and the warp build take only a one-shot run on the
-    equality words: given a state they raise, and nothing falls back."""
+def test_builds_refuse_launches_they_cannot_take(dev, monkeypatch):
+    """The narrow build takes only a one-shot run on the equality words,
+    the warp build only a ring that fits a warp's share of shared memory,
+    the cluster build only a band that a cluster of at most CLUSTER_MAX
+    CTAs holds, in CTAs of at most CLUSTER_THREADS threads: given more
+    they raise, and nothing falls back."""
     cfg = C.full_config(ATTR, 160, 160, W=256, S_cap=96)
     pairs = random_pairs(105, 8, 100, 150, 0.05, 0.0, as_bytes=True)
     args = _inputs(cfg, pairs, dev)
-    for build in ("warp", "narrow"):
-        with pytest.raises(RuntimeError, match=build):
-            fused_loop.align_batch_fused_loop(
-                cfg, *args, 2**31 - 1, build=build,
-                state=fused_loop.new_state(cfg, len(pairs), dev))
+    with pytest.raises(RuntimeError, match="narrow"):
+        fused_loop.align_batch_fused_loop(
+            cfg, *args, 2**31 - 1, build="narrow",
+            state=fused_loop.new_state(cfg, len(pairs), dev))
     with pytest.raises(RuntimeError, match="narrow"):
         fused_loop.align_batch_fused_loop(
             dataclasses.replace(cfg, W=1152), *_inputs(
                 dataclasses.replace(cfg, W=1152), pairs, dev), 2**31 - 1,
             build="narrow")
+    # a ring in global memory: no warp holds it
+    wide = C.full_config(ATTR, 1024, 1088, W=4096, S_cap=96)
+    assert fused_loop.ring_in_global(wide)
+    with pytest.raises(RuntimeError, match="warp"):
+        fused_loop.align_batch_fused_loop(wide, *_inputs(wide, pairs, dev),
+                                          2**31 - 1, build="warp")
+    # a scope whose ring no cluster of at most 8 CTAs holds
+    attr = RefAligner(backend="numpy", span="end-to-end",
+                      gap_opening=400)._attributes()
+    big = C.full_config(attr, 1024, 1088, W=2176, S_cap=96)
+    assert fused_loop.cluster_size(big) == 0
+    before = dict(fused_loop.build_launches)
+    with pytest.raises(RuntimeError, match="cluster"):
+        fused_loop.align_batch_fused_loop(big, *_inputs(big, pairs, dev),
+                                          2**31 - 1, build="cluster")
+    # a diagonal a thread: 1024 threads a CTA, past the kernel's launch
+    # bound, which the C side refuses
+    monkeypatch.setattr(fused_loop, "CLUSTER_DIAGONALS", 1)
+    assert fused_loop.launch_shape(wide, len(pairs), "cluster")[0] \
+        > fused_loop.CLUSTER_THREADS
+    with pytest.raises(RuntimeError, match="cluster"):
+        fused_loop.align_batch_fused_loop(wide, *_inputs(wide, pairs, dev),
+                                          2**31 - 1, build="cluster")
+    assert fused_loop.build_launches == before
+
+
+def _cluster_case(case):
+    """(config, pairs, frees row) of one cluster-build case: a band that
+    spans several CTAs' slices (diagonal 0 lies on a slice edge)."""
+    e2e = dict(span="end-to-end")
+    if case.startswith("metric_"):
+        _, metric, scope, W = case.split("_")
+        attr = _metric_attr(metric, scope=scope)
+        pairs = random_pairs(106, 6, 500, 700, 0.06, 0.04, unrelated=0.34,
+                             as_bytes=True)
+        return (C.full_config(attr, 768, 768, W=int(W), S_cap=700,
+                              record_choices=scope == "full"),
+                pairs, (0, 0, 0, 0))
+    # begin frees of 300 either side: WF0 alone spans 601 diagonals, more
+    # than a slice of 544 at W=2176
+    wide_free = dict(pattern_begin_free=300, pattern_end_free=40,
+                     text_begin_free=300, text_end_free=40)
+    pairs = random_pairs(107, 6, 500, 700, 0.08, 0.04, unrelated=0.34,
+                         as_bytes=True)
+    frees = (300, 40, 300, 40)
+    if case in ("endsfree", "endsfree_bonus"):
+        kw = dict(wide_free, **({"match": -1} if case.endswith("bonus")
+                                else {}))
+        attr = RefAligner(backend="numpy", **kw)._attributes()
+    else:
+        params = dict(HEURISTICS, banded=HeuristicParams(
+            strategy=HS.BANDED_ADAPTIVE, min_k=-300, max_k=300,
+            steps_between_cutoffs=1))[case]
+        attr = dataclasses.replace(
+            RefAligner(backend="numpy", **wide_free)._attributes(),
+            heuristic=params)
+    return C.full_config(attr, 768, 768, W=2176, S_cap=900), pairs, frees
+
+
+CLUSTER_CASES = ([f"metric_{m}_{s}_{W}" for m in ("affine",) + METRICS
+                  for s in ("full", "score") for W in (2176, 6912)]
+                 + ["endsfree", "endsfree_bonus", "wfadaptive", "xdrop",
+                    "zdrop", "banded"])
+
+
+@pytest.mark.parametrize("case", CLUSTER_CASES)
+def test_cluster_kernel_matches_plain_version(dev, case):
+    """The cluster build (a pair a cluster of CTAs, a slice of the band
+    each, cells across a slice edge through distributed shared memory, the
+    reductions the cluster's) against the plain version and the general
+    build, byte for byte on the whole choices tensor."""
+    cfg, pairs, frees_row = _cluster_case(case)
+    args = _inputs(cfg, pairs, dev, frees_row)
+    # the routing takes the cluster build past 3072 diagonals or where the
+    # ring passes one block
+    assert fused_loop.kernel_build(cfg, len(pairs)) == (
+        "cluster" if cfg.W > 3072 or fused_loop.ring_in_global(cfg)
+        else "general")
+    before = dict(fused_loop.build_launches)
+    got = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
+                                            build="cluster")
+    general = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
+                                                build="general")
+    assert {k: v - before[k] for k, v in fused_loop.build_launches.items()
+            } == {"warp": 0, "narrow": 0, "general": 1, "cluster": 1}
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
+    torch.cuda.synchronize()
+    assert set(got) == set(want) == set(general)
+    for k in (KEYS if cfg.record_choices else KEYS[:4]):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(general[k], want[k]), k
+    assert (got["status"] != C.ST_OVERFLOW_W).any()
+    if case.startswith("endsfree"):
+        assert (got["status"] == C.ST_END_REACHED).any()
 
 
 @pytest.mark.parametrize("kw,W,in_global", [
@@ -754,16 +851,26 @@ def test_builds_refuse_launches_they_cannot_take(dev):
     (dict(span="end-to-end", distance="indel"), 5120, False),
 ])
 def test_wide_band_layouts_match_plain_version(dev, kw, W, in_global):
+    """Bands past 1024 diagonals on the cluster build and on the general
+    build (several diagonals a thread; the ring in global memory where it
+    passes shared memory); the routing takes the cluster build past 3072
+    diagonals or where the ring passes one block."""
     attr = RefAligner(backend="numpy", **kw)._attributes()
     pairs = random_pairs(73, 6, 700, 1000, 0.04, 0.03, as_bytes=True)
     cfg = C.full_config(attr, 1024, 1088, W=W, S_cap=500)
     assert fused_loop.ring_in_global(cfg) == in_global
+    assert fused_loop.kernel_build(cfg, len(pairs)) == (
+        "cluster" if W > 3072 or in_global else "general")
     args = _inputs(cfg, pairs, dev)
-    got = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    got = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
+                                            build="cluster")
+    general = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
+                                                build="general")
     want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
     torch.cuda.synchronize()
     for k in KEYS:
         assert torch.equal(got[k], want[k]), k
+        assert torch.equal(general[k], want[k]), k
 
 
 @pytest.mark.parametrize("kw,W", [
@@ -812,6 +919,65 @@ def test_segments_match_plain_version(dev, kw, W, record):
                                             table=ext["table"])
     for k in KEYS[:4]:
         assert torch.equal(got[k], one[k]), k
+
+
+@pytest.mark.parametrize("W,seq", [
+    (896, ("warp",)), (896, ("general", "warp")), (896, ("warp", "general")),
+    (2176, ("cluster",)), (2176, ("general", "cluster")),
+    (2176, ("cluster", "general")),
+])
+@pytest.mark.parametrize("use_table", [True, False])
+@pytest.mark.parametrize("record", [False, True])
+def test_segments_change_build_between_segments(dev, W, seq, use_table,
+                                                record):
+    """Segment by segment on the table or the equality words, with pairs
+    that end in the first segment: each segment on the builds of `seq` in
+    turn gives the plain version's results, and a state byte-equal to a
+    run on the general build alone (a done pair's too), so a state passes
+    between builds."""
+    attr = RefAligner(backend="numpy", span="end-to-end")._attributes()
+    pairs = (random_pairs(108, 6, 700, 1000, 0.04, 0.03, as_bytes=True)
+             + random_pairs(109, 4, 60, 120, 0.02, 0.0, as_bytes=True))
+    cfg = C.full_config(attr, 1024, 1088, W=W, S_cap=150,
+                        record_choices=record)
+    pat, txt, plen, tlen, frees = _token_rows(cfg, pairs, dev)
+    bits = TE.build_eq_bits(cfg, pat, txt)
+    table = lcp_table.build_lcp_table_hmajor(W, cfg.kmin, -1, pat, txt) \
+        if use_table else None
+    ext_bits = None if use_table else bits
+
+    def run(fn, state, base, **kw):
+        return fn(cfg, ext_bits, plen, tlen, frees, 2**31 - 1, table=table,
+                  state=state, fresh=base == 0, seg_base=base, **kw)
+
+    sx, sg, sp = (fused_loop.new_state(cfg, len(pairs), dev)
+                  for _ in range(3))
+    base, n = 0, 0
+    while True:
+        build = seq[n % len(seq)]
+        before = fused_loop.build_launches[build]
+        got = run(fused_loop.align_batch_fused_loop, sx, base, build=build)
+        assert fused_loop.build_launches[build] == before + 1
+        gen = run(fused_loop.align_batch_fused_loop, sg, base,
+                  build="general")
+        want = run(fused_loop.align_batch_fused_loop_ref, sp, base)
+        torch.cuda.synchronize()
+        for k in KEYS:
+            if k in want:
+                assert torch.equal(got[k], want[k]), (n, build, k)
+                assert torch.equal(gen[k], want[k]), (n, k)
+        running = want["status"] == C.ST_OVERFLOW_S
+        for k in ("ring", "lohi", "carry"):
+            assert torch.equal(sx[k], sg[k]), (n, build, k)
+            assert torch.equal(sx[k][running], sp[k][running]), (n, k)
+        if n == 0:
+            assert (want["status"] == C.ST_END_REACHED).any()
+            assert running.any()
+        n += 1
+        base += cfg.S_cap - 1
+        if not bool(running.any()):
+            break
+    assert n >= 3
 
 
 @pytest.mark.parametrize("mode", ["medium", "low", "biwfa"])

@@ -4,12 +4,15 @@ the warp build rests on, checked on the CPU.
 `fused_loop.kernel_build` sends every short-read shape of the batch and
 API paths to the warp build (one warp a pair over the live band), the
 terminal rungs (a score cap past the band's width) to the narrow build
-(a block a pair) and the long-read shapes (a segment's state, the
-run-length table, a ring in global memory, a band past 1024 diagonals) to
-the general build. The warp
-build touches only each row's band, so it needs every ring cell outside
-its row's band to be NULL: that is checked on the plain version's state,
-which the general build's state equals byte for byte on the card.
+(a block a pair), the segments and the run-length table of bands up to
+1024 diagonals to the warp build too, bands past 3072 diagonals or with a
+ring past one block to the cluster build (a pair a cluster of CTAs, a
+slice of the band each), and the rest to the general build: bands of
+1025 to 3072 diagonals whose ring fits one block, and a ring that no
+cluster holds. The warp build touches
+only each row's band, so it needs every ring cell outside its row's band
+to be NULL: that is checked on the plain version's state, which every
+build's state equals byte for byte on the card.
 """
 import dataclasses
 
@@ -91,24 +94,144 @@ def test_short_read_shapes_take_the_warp_build(name, cfg, B):
 
 
 def test_long_read_shapes_take_the_general_build():
+    """Segments, the table and bands past 1024 diagonals: the warp build
+    up to 1024 diagonals; past them the cluster build where a block a
+    pair would give a thread more than three diagonals or keep the ring in
+    global memory, else the general build, which was as fast at W=1792
+    and W=2176, and the general build where no cluster holds the ring."""
     attr = _attr(span="end-to-end")
     cfg = C.full_config(attr, 160, 160, W=256, S_cap=96)
     assert TFL.kernel_build(cfg, 4096) == "warp"
     state = TFL.new_state(cfg, 4, "cpu")
-    assert TFL.kernel_build(cfg, 4, state=state) == "general"
+    assert TFL.kernel_build(cfg, 4, state=state) == "warp"
     table = torch.zeros((200, 4, cfg.W), dtype=torch.uint8)
-    assert TFL.kernel_build(cfg, 4, table=table) == "general"
+    assert TFL.kernel_build(cfg, 4, table=table) == "warp"
     wide = C.full_config(attr, 1024, 1088, W=1152, S_cap=500)
     assert not TFL.ring_in_global(wide)
     assert TFL.kernel_build(wide, 16) == "general"
+    # three diagonals a thread: 576 / 3 = 192
+    assert TFL.launch_shape(wide, 16, "cluster") == (192, 2)
     in_global = C.full_config(attr, 1024, 1088, W=4096, S_cap=500)
     assert TFL.ring_in_global(in_global)
-    assert TFL.kernel_build(in_global, 16) == "general"
+    assert TFL.kernel_build(in_global, 16) == "cluster"
+    assert TFL.launch_shape(in_global, 16, "cluster") == (352, 4)
+    assert TFL.launch_shape(in_global, 16, "general") == (1024, 1)
     # the widest band a warp build takes
     assert TFL.kernel_build(dataclasses.replace(cfg, W=1024), 16) == "warp"
     # stream E's second rung, one shot: 1 kb pairs, W=896, S_cap=768
     assert TFL.kernel_build(
         C.full_config(attr, 1024, 1024, W=896, S_cap=768), 256) == "warp"
+    # a scope whose ring fits no cluster of at most CLUSTER_MAX CTAs
+    big = C.full_config(_attr(span="end-to-end", gap_opening=400), 1024,
+                        1088, W=2176, S_cap=500)
+    assert TFL.ring_in_global(big)
+    assert TFL.cluster_size(big) == 0
+    assert TFL.kernel_build(big, 16) == "general"
+    with pytest.raises(RuntimeError, match="cluster"):
+        TFL.launch_shape(big, 16, "cluster")
+
+
+def _long_read_shapes():
+    """(name, cfg, B, table, state, build, (threads, cluster)) of the
+    long-read launches: stream F's segments (W=896, the table), resume,
+    batch G's rung 2 (W=6912, the ring past one block) and rung 1
+    (W=1792), the W=2176 shape and the 5 kb API pair's second rung
+    (W=3584, four diagonals a thread on a block)."""
+    attr = _attr(span="end-to-end")
+    f = C.full_config(attr, 1024, 1040, W=896, S_cap=292,
+                      record_choices=False)
+    g = C.full_config(attr, 10240, 10240, W=6912, S_cap=96,
+                      record_choices=False)
+    w2176 = C.full_config(attr, 1024, 1088, W=2176, S_cap=700)
+    api5k = C.full_config(_attr(), 8192, 8192, W=3584, S_cap=3456)
+    g1 = C.full_config(attr, 10240, 10240, W=1792, S_cap=1696)
+    a2p = C.full_config(_attr("affine2p", span="end-to-end"), 10240, 10240,
+                        W=6912, S_cap=96, record_choices=False)
+    table = torch.zeros((f.Lt + 1, 256, f.W), dtype=torch.int16)
+    state = TFL.new_state(dataclasses.replace(f, W=32), 256, "cpu")
+    return [
+        ("F_forward", f, 256, table, state, "warp", (64, 1)),
+        ("F_replay", dataclasses.replace(f, record_choices=True), 256, table,
+         state, "warp", (64, 1)),
+        ("resume", f, 256, table, None, "warp", (64, 1)),
+        ("G_forward", g, 16, None, state, "cluster", (288, 8)),
+        ("G_replay", dataclasses.replace(g, record_choices=True), 16, None,
+         state, "cluster", (288, 8)),
+        ("G_high_one_shot", dataclasses.replace(g, S_cap=2000), 16, None,
+         None, "cluster", (288, 8)),
+        ("affine2p_6912", a2p, 16, None, state, "cluster", (288, 8)),
+        ("G_rung1", g1, 16, None, None, "general", (896, 1)),
+        ("w2176", w2176, 8, None, None, "general", (736, 1)),
+        ("api_5kb", api5k, 16, None, None, "cluster", (320, 4)),
+    ]
+
+
+@pytest.mark.parametrize("name,cfg,B,table,state,build,shape",
+                         _long_read_shapes(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_long_read_shapes_take_the_new_builds(name, cfg, B, table, state,
+                                              build, shape):
+    assert TFL.kernel_build(cfg, B, table=table, state=state) == build, name
+    assert TFL.launch_shape(cfg, B, build) == shape
+    if build == "cluster":
+        assert TFL.ring_in_global(cfg) or cfg.W > 3 * TFL.MAX_THREADS
+        assert TFL.cluster_smem_bytes(cfg, shape[1]) <= TFL.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("W,P,resident", [(896, 4, 4), (1024, 3, 3)])
+def test_warp_build_holds_a_segment_at_wide_bands(W, P, resident):
+    """A segment's state at W=896 (stream F) and W=1024: a pair's ring and
+    bands, 15 rows at pywfa's penalties, fit a warp's share of one block;
+    P pairs a block keep `resident` pairs an SM, and a 256-pair batch is cut
+    to ceil(256 / SMs) = 2 pairs a block."""
+    cfg = C.full_config(_attr(span="end-to-end"), 1024, 1040, W=W,
+                        S_cap=292, record_choices=False)
+    per = TFL.warp_pair_bytes(cfg)
+    assert per == -(-15 * (W + 2) // 4) * 16
+    assert TFL.warp_pairs(cfg, 4096) == P
+    assert P * per <= TFL.SMEM_LIMIT
+    assert P * (TFL.SM_SMEM // (P * per + TFL.BLOCK_SMEM_RESERVED)) \
+        == resident
+    assert TFL.warp_pairs(cfg, 256) == 2
+    assert TFL.kernel_build(cfg, 256,
+                            state=TFL.new_state(cfg, 2, "cpu")) == "warp"
+
+
+@pytest.mark.parametrize("W", [1152, 2176, 4096, 5120, 6912, 8192])
+@pytest.mark.parametrize("metric", METRICS)
+def test_cluster_slices_cover_the_band(metric, W):
+    """The cluster build's C slices of W / C diagonals cover [0, W) in
+    whole warps, each at most 1024 diagonals, and each CTA's columns of
+    the ring, its bands and its reductions' rows fit one CTA's shared
+    memory, for every metric at pywfa's penalties, with and without the
+    cascade; C is the smallest such cluster; a CTA's threads, three
+    diagonals each, cover its slice within the kernel's launch bound; the routing takes the cluster build
+    where the general build's threads would own four diagonals or more
+    (W > 3072) or its ring would live in global memory."""
+    for heur in (None, "adaptive"):
+        kw = dict(span="end-to-end")
+        if heur:
+            kw["heuristic"] = heur
+        cfg = C.full_config(_attr(metric, **kw), W, W, W=W, S_cap=96)
+        Cn = TFL.cluster_size(cfg)
+        assert 2 <= Cn <= TFL.CLUSTER_MAX, (metric, W)
+        T = W // Cn
+        assert T * Cn == W and T % 32 == 0 and T <= TFL.MAX_THREADS
+        slices = [range(r * T, (r + 1) * T) for r in range(Cn)]
+        assert [w for sl in slices for w in sl] == list(range(W))
+        rows = sum(TFL.ring_depths(cfg))
+        smem = TFL.cluster_smem_bytes(cfg, Cn)
+        assert smem >= rows * T * 4 and smem <= TFL.SMEM_LIMIT
+        assert all((W // 32) % c or W // c > TFL.MAX_THREADS
+                   or TFL.cluster_smem_bytes(cfg, c) > TFL.SMEM_LIMIT
+                   for c in range(1, Cn))
+        threads, ctas = TFL.launch_shape(cfg, 16, "cluster")
+        assert ctas == Cn and threads % 32 == 0
+        assert threads <= TFL.CLUSTER_THREADS
+        assert threads * TFL.CLUSTER_DIAGONALS >= T > (threads - 32) \
+            * TFL.CLUSTER_DIAGONALS
+        assert TFL.kernel_build(cfg, 16) == (
+            "cluster" if W > 3072 or TFL.ring_in_global(cfg) else "general")
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -120,8 +243,9 @@ def test_terminal_rungs_take_the_narrow_build(metric):
     want = "warp" if metric in ("levenshtein", "indel") else "narrow"
     assert (cfg.S_cap > cfg.W) == (want == "narrow")
     assert TFL.kernel_build(cfg, 256) == want
+    # a segment at the same band: the warp build
     assert TFL.kernel_build(cfg, 4, state=TFL.new_state(cfg, 4, "cpu")) \
-        == "general"
+        == "warp"
 
 
 @pytest.mark.parametrize("metric", METRICS)

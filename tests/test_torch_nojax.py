@@ -90,6 +90,7 @@ def test_sources_that_run_on_the_card_never_import_the_jax_package():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     paths = [os.path.join(root, "chip_smoke.py"),
              os.path.join(root, "profile_torch.py"),
+             os.path.join(root, "time_builds.py"),
              os.path.join(root, "tests", "test_torch_cuda.py")]
     for dirpath, _, files in os.walk(os.path.join(root, "pywfa_tpu_torch")):
         paths += [os.path.join(dirpath, n) for n in files
