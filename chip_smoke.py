@@ -11,22 +11,25 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    (K3) and the fused-loop kernel (52 variants: 5 distance
    metrics x 2 spans x 2 scopes, each with and without the heuristic
    cascade, plus the seeded ends-free span of the 3 metrics with a match
-   weight, each built four ways: warp, narrow, cluster and general) from
+   weight, each built four ways: group, narrow, cluster and general) from
    the checkout; prints ptxas' registers and spills per kernel.
 3. Each kernel variant against its plain torch version on the card, byte
-   for byte, at the main paths' shapes, through every build the routing
-   can give it: the warp build (one warp a pair over the live band,
-   several pairs a block, a persistent grid: what
-   `fused_loop.kernel_build` picks for every short-read shape), the narrow
-   build (one block a pair, a thread a diagonal: what it picks at a
-   terminal rung, whose score cap passes its width) and the general build
-   (one block a pair, any band, the build of a segment's state). Each
-   line names the build the routing picks; its time is the `ms` of the
-   kernels line. (The fourth build, the cluster build, is for bands past
-   1024 diagonals: phase 10.) Gap-affine: end to end with the choice
-   record, 4096 pairs of 150 bp at 2% divergence at the first rung
-   (W=256, S_cap=96) and at W=128, and 256 pairs (64 unrelated) at the
-   terminal rung (W=384, S_cap=649); ends-free with the record, 4096
+   for byte, at the main paths' shapes, through every build of
+   `fused_loop.BUILDS` that takes a band of at most 1024 diagonals: the
+   group build (G warps a pair over the live band, a persistent grid:
+   what `fused_loop.kernel_build` picks for every short-read shape but a
+   one-shot terminal rung, at the G of `fused_loop.group_size`, and at
+   G = 1 too where that G is larger), the narrow build (a block a pair, a
+   thread a diagonal: what it picks at a one-shot terminal rung, whose
+   score cap passes its width) and the general build (one block a pair,
+   any band). Each line names the build and the G the routing picks; its
+   time is the `ms` of the kernels line. (The fourth build, the cluster
+   build, is for bands past 1024 diagonals: phase 10.)
+   Gap-affine: end to end with the choice record, 4096 pairs of 150 bp
+   at 2% divergence at the first rung (W=256, S_cap=96) and at W=128, and
+   256 pairs (64 unrelated) at the terminal rung (W=384, S_cap=649), and
+   the probe batch's own terminal launch (its two pairs over disjoint
+   alphabets padded to 16); ends-free with the record, 4096
    150 bp reads in 200 bp windows with text frees of 50 at their first
    rung, and the main pairs with all frees 0; score only, the end-to-end
    rung-1 and terminal sets and the windows; one WavefrontAligner call
@@ -44,13 +47,20 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    wf-adaptive at the terminal rung; affine2p under wf-adaptive at its
    first rung; and one WavefrontAligner call for every heuristic or
    seeded variant of every metric. Every build is held to max_abs_err 0.
-   Times by CUDA events, the narrow and the warp build in turns (narrow,
-   warp, warp, narrow), the general build once; beside them memset_ms,
+   Times by CUDA events in turns: at a terminal rung the narrow build and
+   the group build at its G (narrow, group, group, narrow), elsewhere the
+   group build at G = 1 and at its G (1, G, G, 1) where they differ; the
+   general build once; beside them the kernel alone (torch.profiler) and
+   memset_ms,
    the [S_cap, B, W] torch.zeros of the choice record alone (inside every
    recording time), and the bound, the least time the card could take:
    the eq words read once plus the choice levels these pairs write over
    3.35 TB/s, or the cells these pairs compute times an operation count
    a cell over 67 Tops/s, whichever is larger (the memset is not in it).
+   Then the step sweep at the gap-affine terminal rung on the narrow build
+   and on the group build at its routed G (`step_sweep`): us a score step
+   for B of 16 (the probe's terminal launch), 132, 256 and 512 pairs and
+   max_steps of 50, 100, 200 and 386, log lines only.
 4. Stream: BatchWavefrontAligner(distance="affine", span="end-to-end",
    device="cuda").align_stream over 8 batches of 4096 pairs (timed:
    alignments/s), then over one probe batch (25% divergence, unrelated
@@ -100,8 +110,9 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    bits variant at that 1 kb shape, as the segments stream F runs (first
    segment from WF0, then a later one from the stored state; the forward
    scope without the record and the replay scope with it), with the times
-   of both extensions, on the warp build (a segment's state and the table
-   at W=896) against the general build, which must leave the same state.
+   of both extensions, on the group build (a segment's state and the
+   table at W=896) against the general build, which must leave the same
+   state.
    The wide bands against plain: W=2176 (8 pairs, one shot); the
    second rung of 10 kb reads with batch G's 16 pairs (W=6912) and of the
    same pairs cut to 5 kb (W=3584), each a later segment of 96 scores from
@@ -129,16 +140,18 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    through align_pairs_resumable, then align_pairs_resume, equal to the
    fresh results; and WavefrontAligner(device="cuda") on single 1 kb and
    5 kb pairs in both scopes. No pair of these phases may go to the host
-   oracle; streams E and F and the resume must launch the warp build and
+   oracle; streams E and F and the resume must launch the group build and
    not the general build, batch G the cluster build (for its second rung;
    its first, W=1792, takes the general build) and the long API pairs the
    cluster build (the 5 kb pair's second rung, W=3584) and not the
    general build.
 
-Each main-path phase zeroes the kernels' launch counts (by variant and by
-build) and the count of pairs sent to the host oracle just before it and
-reads them just after; it fails unless its kernel variants launched,
-unless a short-read phase (4-9) launched the warp build, unless a
+Each main-path phase zeroes the kernels' launch counts (by variant, by
+build and the group build's by G) and the count of pairs sent to the host
+oracle just before it and reads them just after; it fails unless its
+kernel variants launched, unless a short-read phase (4-9) launched the
+group build (a probe batch with G > 1, the stream's first rung with
+G = 1), unless a
 long-read phase (10) launched the build its band routes to, if a timed
 stream or an API phase sent any pair to the oracle, or if any phase did
 so for an inconsistent walk. The line before the last is the kernels' JSON record;
@@ -307,38 +320,59 @@ def make_ont_pairs(rng, n, length, sub, ind):
 
 
 def reset_counts():
-    """Zero the kernels' launch counts (the fused loop's by variant, the
-    run-length table's), the count of pairs sent to the host oracle, by
-    reason, and the segmented executor's counts."""
+    """Zero the kernels' launch counts (the fused loop's by variant, by
+    build and the group build's by G, the run-length table's), the count
+    of pairs sent to the host oracle, by reason, and the segmented
+    executor's counts."""
     from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch.ops import fused_loop, lcp_table
     for counts in (fused_loop.variant_launches, fused_loop.build_launches,
-                   lcp_table.launches, PB.oracle_fallbacks,
-                   PB.segmented_runs):
+                   fused_loop.group_launches, lcp_table.launches,
+                   PB.oracle_fallbacks, PB.segmented_runs):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts():
-    """The launch counts: the fused loop's by variant and, under
-    "build_<name>", by build; the run-length table's."""
+    """The launch counts: the fused loop's by variant, under
+    "build_<name>" by build and under "group_G<n>" the group build's by
+    G; the run-length table's."""
     from pywfa_tpu_torch.ops import fused_loop, lcp_table
     builds = {"build_" + k: v for k, v in fused_loop.build_launches.items()}
-    return dict(fused_loop.variant_launches, **lcp_table.launches, **builds)
+    groups = {f"group_G{g}": v
+              for g, v in sorted(fused_loop.group_launches.items()) if v}
+    return dict(fused_loop.variant_launches, **lcp_table.launches, **builds,
+                **groups)
 
 
-def check_warp(phase, counts):
-    """A short-read main path runs on the warp build: fail unless it
-    launched it; print what each build launched."""
+def group_counts(counts):
+    """The group build's launches by G, from read_counts."""
+    return {int(k[7:]): v for k, v in counts.items()
+            if k.startswith("group_G")}
+
+
+def check_group(phase, counts, wide=False, one=False):
+    """A short-read main path runs on the group build: fail unless it
+    launched it, with G > 1 warps a pair at least once where `wide` (a
+    probe batch, whose terminal rung walks a band of hundreds of
+    diagonals) and with one warp a pair where `one` (the first rung of
+    4096 pairs); print what each build and each G launched."""
     builds = {k[6:]: v for k, v in counts.items() if k.startswith("build_")}
-    log(f"builds [{phase}]: {builds}")
-    if builds["warp"] == 0:
-        raise AssertionError(f"{phase} never launched the warp build")
+    by_g = group_counts(counts)
+    log(f"builds [{phase}]: {builds}; group build by G: {by_g}")
+    if builds["group"] == 0:
+        raise AssertionError(f"{phase} never launched the group build")
+    if wide and not any(v for g, v in by_g.items() if g > 1):
+        raise AssertionError(f"{phase} never launched the group build with "
+                             f"G > 1: {by_g}")
+    if one and not by_g.get(1):
+        raise AssertionError(f"{phase} never launched the group build with "
+                             f"G = 1: {by_g}")
 
 
 def check_build(phase, counts, build, general=False):
     """A long-read main path runs on the build `kernel_build` names for its
-    band (the warp build up to 1024 diagonals, the cluster build past 3072
+    band (the group build up to 1024 diagonals, the cluster build past 3072
     diagonals or where the ring passes one block): fail unless it launched that
     build, or if it launched the general build where none of its bands
     routes there (`general` False); print what each build launched."""
@@ -513,6 +547,30 @@ def phase_device():
     log(f"native host library loaded: {native.lib() is not None}")
 
 
+def ptxas_lines(lib, output):
+    """ptxas' registers and spills, one line a kernel of nvcc's output for
+    `lib`: the fused loop's kernels by build and template arguments
+    <metric, span, record, heuristic>, the table's by output type."""
+    lines = []
+    name = "?"
+    spills = ""
+    for line in output.splitlines():
+        m = re.search(r"fused_loop(_[a-z]+)?ILi(\d)ELi(\d)ELb([01])ELb([01])E",
+                      line)
+        t = re.search(r"lcp_tableI(\w)E", line)
+        if m and "Compiling" in line:
+            name = "{}<{}, {}, {}, {}>".format(m.group(1) or "",
+                                               *m.groups()[1:])
+        elif t and "Compiling" in line:
+            name = "<uint8>" if t.group(1) == "h" else "<int16>"
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            lines.append(f"ptxas {lib}{name}: "
+                         f"{line.split(':', 1)[1].strip()}; {spills}")
+    return lines
+
+
 def phase_build():
     from pywfa_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -523,24 +581,81 @@ def phase_build():
         f"side ({', '.join(sorted(paths.values()))})")
     for lib, (seconds, output) in sorted(cuda_build.last_build.items()):
         log(f"  nvcc {lib}.cu: done after {seconds:.2f} s")
-        # one line a kernel: the fused loop's template arguments <metric,
-        # span, record, heuristic>, the table's output type
-        name = "?"
-        spills = ""
-        for line in output.splitlines():
-            m = re.search(r"fused_loop(_narrow|_warp|_cluster)?ILi(\d)ELi(\d)"
-                          r"ELb([01])ELb([01])E", line)
-            t = re.search(r"lcp_tableI(\w)E", line)
-            if m and "Compiling" in line:
-                name = "{}<{}, {}, {}, {}>".format(m.group(1) or "",
-                                                   *m.groups()[1:])
-            elif t and "Compiling" in line:
-                name = "<uint8>" if t.group(1) == "h" else "<int16>"
-            elif "spill" in line:
-                spills = line.strip()
-            elif "registers" in line:
-                log(f"  ptxas {lib}{name}: "
-                    f"{line.split(':', 1)[1].strip()}; {spills}")
+        for line in ptxas_lines(lib, output):
+            log("  " + line)
+
+
+# the step sweep at the gap-affine terminal rung: batch sizes and step caps
+SWEEP_B = (16, 132, 256, 512)
+SWEEP_STEPS = (50, 100, 200, 386)
+
+
+def terminal_pairs(rng):
+    """The terminal shape's pairs, drawn after the main pairs: 192 related
+    150 bp pairs and 64 unrelated ones, whose live bands fill W."""
+    related = make_pairs(rng, 192, L, DIV)
+    unrelated = (make_pairs(rng, 64, L, 0.0)[0],
+                 make_pairs(rng, 64, L, 0.0)[0])
+    return related, unrelated
+
+
+def sweep_batches():
+    """(B, pairs) of the step sweep: the probe batch's own terminal launch
+    (its two pairs over disjoint alphabets, padded with "A" / "A" pairs to
+    16 as batch._bucket_B pads), then the terminal shape's 64 unrelated
+    pairs replicated to each larger B."""
+    rng = np.random.default_rng(SEED)
+    for _ in range(N_BATCHES):
+        make_pairs(rng, B_MAIN, L, DIV)
+    pats, txts = make_probe(rng)
+    lone = (pats[38:40] + [b"A"] * 14, txts[38:40] + [b"A"] * 14)
+    rng = np.random.default_rng(SEED + 1)
+    make_pairs(rng, B_MAIN, L, DIV)
+    _, (up, ut) = terminal_pairs(rng)
+    out = [(16, lone)]
+    for B in SWEEP_B[1:]:
+        out.append((B, ((up * -(-B // 64))[:B], (ut * -(-B // 64))[:B])))
+    return out
+
+
+def step_sweep(dev, attr, builds, emit=log):
+    """The µs a score step of each build at the gap-affine terminal rung
+    (W=384, S_cap=649): every batch of sweep_batches, each step cap of
+    SWEEP_STEPS through align_batch_fused_loop's max_steps. Per point the
+    kernel's own device time (kernel_only_ms) and the call's (CUDA
+    events; at a few steps it is the host's, not the kernel's); the slope
+    of the kernel's time between two caps is a step's cost at the bands
+    those steps reach. `builds` maps a label to the `build` argument (and,
+    for the group build, the G) a launch takes; returns the points."""
+    from pywfa_tpu_torch.ops import config as C
+    from pywfa_tpu_torch.ops import fused_loop
+    cfg = C.full_config(attr, 160, 160)
+    points = []
+    for B, (pats, txts) in sweep_batches():
+        args = _device_inputs(cfg, pats, txts, dev)
+        for label, kw in builds.items():
+            prev = None
+            for steps in SWEEP_STEPS:
+                def run():
+                    return fused_loop.align_batch_fused_loop(cfg, *args,
+                                                             steps, **kw)
+                ms = cuda_ms(run, 5)
+                alone = kernel_only_ms(run, 3)
+                per = 1e3 * (alone if alone is not None else ms) / steps
+                slope = None
+                if prev is not None and alone is not None:
+                    slope = 1e3 * (alone - prev[1]) / (steps - prev[0])
+                prev = (steps, alone)
+                point = dict(build=label, B=B, max_steps=steps, ms=ms,
+                             kernel_only_ms=alone, us_a_step=per,
+                             slope_us_a_step=slope)
+                points.append(point)
+                emit(f"step sweep [{label}] B={B} W={cfg.W} "
+                     f"max_steps={steps} ms={ms:.4f} "
+                     f"kernel_only_ms={_fmt(alone)} us_a_step={per:.3f} "
+                     f"slope_us_a_step="
+                     + ("-" if slope is None else f"{slope:.3f}"))
+    return points
 
 
 def _device_inputs(cfg, pats, txts, dev, frees_row=(0, 0, 0, 0)):
@@ -623,15 +738,18 @@ def kernel_bound(cfg, args, out, cells, seg_base=0, state_bytes=0,
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _build_label(key):
+    """A (build, G) key of phase 3's times as its log label."""
+    return key[0] if key[1] is None else f"group_G{key[1]}"
+
+
 def phase_kernel_vs_plain(attr, dev, long_inputs):
     from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
     from pywfa_tpu_torch.ops import config as C
     from pywfa_tpu_torch.ops import fused_loop
     rng = np.random.default_rng(SEED + 1)
     main = make_pairs(rng, B_MAIN, L, DIV)
-    related = make_pairs(rng, 192, L, DIV)
-    unrelated = (make_pairs(rng, 64, L, 0.0)[0],
-                 make_pairs(rng, 64, L, 0.0)[0])
+    related, unrelated = terminal_pairs(rng)
     term = (related[0] + unrelated[0], related[1] + unrelated[1])
     windows = make_windows(rng, B_MAIN, L, WINDOW, DIV)
     ef_attr = RefAligner(backend="numpy", text_begin_free=WINDOW_FREE,
@@ -649,6 +767,9 @@ def phase_kernel_vs_plain(attr, dev, long_inputs):
         ("rung1", main, rung1, zero),
         ("w128", main, C.full_config(attr, 160, 160, W=128, S_cap=96), zero),
         ("terminal", term, terminal, zero),
+        # the probe batch's own terminal launch: two pairs over disjoint
+        # alphabets padded to 16
+        ("terminal_probe", sweep_batches()[0][1], terminal, zero),
         ("endsfree_window", windows, win_cfg, wfree),
         ("endsfree_default", main, rung1_config(default_attr, *main), zero),
         ("score_rung1", main,
@@ -687,22 +808,27 @@ def phase_kernel_vs_plain(attr, dev, long_inputs):
     shapes.append(("e_rung2", (pats1k, txts1k),
                    rung2_config(attr, pats1k, txts1k, B_LONG), zero))
     records = {}
+    # the builds a short-read shape can take (the cluster build is for
+    # bands past 1024 diagonals: phase 10)
+    builds = [b for b in fused_loop.BUILDS if b != "cluster"]
     for name, (pats, txts), cfg, frees_row in shapes:
         args = _device_inputs(cfg, pats, txts, dev, frees_row)
         B = len(pats)
         build = fused_loop.kernel_build(cfg, B)
+        G = fused_loop.launch_shape(cfg, B, "group", dev)[1]
 
-        def run(b):
+        def run(b, g=None):
             return fused_loop.align_batch_fused_loop(cfg, *args, MAXS,
-                                                     build=b)
+                                                     build=b, group=g)
 
         want = fused_loop.align_batch_fused_loop_ref(cfg, *args, MAXS)
         torch.cuda.synchronize()
         err = 0
-        # the builds a short-read shape can take (the cluster build is for
-        # bands past 1024 diagonals: phase 10)
-        for b in ("general", "narrow", "warp"):
-            got = run(b)
+        # every build at its routed shape, and the group build at one warp
+        # a pair too where the routing gives it more
+        for b, g in [(b, None) for b in builds] + (
+                [("group", 1)] if G > 1 else []):
+            got = run(b, g)
             torch.cuda.synchronize()
             if set(got) != set(want) or (
                     "choices" in got) != cfg.record_choices:
@@ -710,20 +836,30 @@ def phase_kernel_vs_plain(attr, dev, long_inputs):
                                      f"vs {sorted(want)}")
             e = _max_err(name, got, want, LOOP_KEYS)
             if e != 0:
-                raise AssertionError(f"{name}: the {b} build differs from "
-                                     f"the plain version ({e})")
+                raise AssertionError(f"{name}: the {b} build (G={g or G}) "
+                                     f"differs from the plain version ({e})")
             err = max(err, e)
         got = run(build)
         status = torch.bincount(got["status"].long(), minlength=6).tolist()
-        # the old and the new short-read build in turns, then the rest
+        # in turns: the narrow build and the group build at its G where the
+        # routing takes the narrow build, else the group build at its G and
+        # at one warp a pair where they differ; then the general build
+        if build == "narrow":
+            order = (("narrow", None), ("group", G), ("group", G),
+                     ("narrow", None))
+        elif G > 1:
+            order = (("group", 1), ("group", G), ("group", G), ("group", 1))
+        else:
+            order = (("group", G), ("group", G))
         times = collections.defaultdict(list)
-        for b in ("narrow", "warp", "warp", "narrow"):
-            times[b].append(cuda_ms(lambda: run(b), 10))
-        times["general"].append(cuda_ms(lambda: run("general"), 10))
-        t_ms = {b: float(np.mean(v)) for b, v in times.items()}
+        for key in order:
+            times[key].append(cuda_ms(lambda: run(*key), 10))
+        general_ms = cuda_ms(lambda: run("general"), 10)
+        t_ms = {key: float(np.mean(v)) for key, v in times.items()}
         # the kernel alone, where the event time above is a call's host
         # time (a small batch, a few steps)
-        only = {b: kernel_only_ms(lambda: run(b)) for b in ("warp", "narrow")}
+        only = {key: kernel_only_ms(lambda: run(*key)) for key in t_ms}
+        routed = ("narrow", None) if build == "narrow" else ("group", G)
         memset_ms = cuda_ms(lambda: torch.zeros(
             (cfg.S_cap, B, cfg.W), dtype=torch.uint8, device=dev), 20) \
             if cfg.record_choices else 0.0
@@ -738,20 +874,22 @@ def phase_kernel_vs_plain(attr, dev, long_inputs):
             f"B={B} W={cfg.W} S_cap={cfg.S_cap} Lp={cfg.Lp} "
             f"Lt={cfg.Lt} NQ={args[0].shape[0]} "
             f"steps={int(got['steps'])} "
-            f"status_counts={status} max_abs_err={err} build={build} "
-            f"pairs_a_block={fused_loop.warp_pairs(cfg, B)} "
-            f"warp_ms={t_ms['warp']:.4f} ({times['warp'][0]:.4f}, "
-            f"{times['warp'][1]:.4f}) narrow_ms={t_ms['narrow']:.4f} "
-            f"({times['narrow'][0]:.4f}, {times['narrow'][1]:.4f}) "
-            f"general_ms={t_ms['general']:.4f} memset_ms={memset_ms:.4f} "
-            f"kernel_only_ms warp={_fmt(only['warp'])} "
-            f"narrow={_fmt(only['narrow'])} "
+            f"status_counts={status} max_abs_err={err} build={build} G={G} "
+            f"pairs_a_block={fused_loop.group_pairs(cfg, B, G)} "
+            + "".join(f"{_build_label(key)}_ms={t_ms[key]:.4f} "
+                      f"({', '.join(f'{t:.4f}' for t in times[key])}) "
+                      for key in t_ms)
+            + f"general_ms={general_ms:.4f} memset_ms={memset_ms:.4f} "
+            f"kernel_only_ms "
+            f"{', '.join(f'{_build_label(k)}={_fmt(v)}' for k, v in only.items())} "
             f"plain_ms={p_ms:.2f} "
             f"bound_ms={b_ms:.3g} bound_by={b_by} cells={cells} "
-            f"warp_smem={fused_loop.warp_pairs(cfg, B) * fused_loop.warp_pair_bytes(cfg)} "
+            f"group_smem={fused_loop.group_pairs(cfg, B, G) * fused_loop.group_pair_bytes(cfg, G)} "
             f"block_smem={fused_loop.smem_bytes(cfg)}")
         records[name] = dict(variant=fused_loop.variant(cfg), err=err,
-                             build=build, ms=t_ms[build], plain_ms=p_ms,
+                             build=build,
+                             G=G if build == "group" else None,
+                             ms=t_ms[routed], plain_ms=p_ms,
                              bound_ms=b_ms, bound_by=b_by, B=B)
     return records
 
@@ -859,7 +997,7 @@ def phase_stream(dev):
     probe_wall = time.perf_counter() - t0
     check_fallbacks("stream e2e + probe", timed=False)
     counts = read_counts()
-    check_warp("stream e2e + probe", counts)
+    check_group("stream e2e + probe", counts, wide=True, one=True)
     launches = counts["e2e"]
     n_main = N_BATCHES * B_MAIN
     log(f"stream: {N_BATCHES} batches, {n_main} pairs in {wall:.3f} s = "
@@ -1020,7 +1158,7 @@ def phase_api(dev):
         per_call[scope] = 1e3 * float(np.median(times))
     counts = read_counts()
     check_fallbacks("api", timed=True)
-    check_warp("api", counts)
+    check_group("api", counts)
     a = pywfa_tpu_torch.WavefrontAligner(GOLDEN[0][0], device=dev)
     if (a.wavefront_align(GOLDEN[0][1]), a.cigarstring) != (
             -24, "3M1X4M1D7M1I9M1X6M"):
@@ -1079,7 +1217,7 @@ def phase_new_streams(dev):
     for name, variant, aligner, batches in streams:
         results, wall, c = _timed_stream(aligner, batches)
         check_fallbacks(f"stream {name}", timed=True)
-        check_warp(f"stream {name}", c)
+        check_group(f"stream {name}", c)
         n = N_NEW_BATCHES * B_MAIN
         log(f"stream [{name}]: {N_NEW_BATCHES} batches, {n} pairs in "
             f"{wall:.3f} s = {n / wall:.0f} alignments/s "
@@ -1140,7 +1278,7 @@ def phase_metrics(dev):
         wall = time.perf_counter() - t0
         c = read_counts()
         fb = check_fallbacks(f"probe {metric}", timed=False)
-        check_warp(f"probe {metric}", c)
+        check_group(f"probe {metric}", c, wide=True)
         if c[prefix + "e2e"] < 2:
             raise AssertionError(f"probe {metric}: {c[prefix + 'e2e']} "
                                  "launches; the batch must escalate")
@@ -1180,7 +1318,7 @@ def phase_metrics(dev):
             per_call[scope] = 1e3 * float(np.median(times))
         c = read_counts()
         check_fallbacks(f"api {metric}", timed=True)
-        check_warp(f"api {metric}", c)
+        check_group(f"api {metric}", c)
         log(f"api [{metric}]: {2 * len(singles)} calls equal to the oracle; "
             f"median ms/call full={per_call['full']:.3f} "
             f"score={per_call['score']:.3f}; launches {launched(c)}")
@@ -1248,7 +1386,7 @@ def phase_slice_streams(dev):
         wall = time.perf_counter() - t0
         c = read_counts()
         check_fallbacks(f"stream {name}", timed=True)
-        check_warp(f"stream {name}", c)
+        check_group(f"stream {name}", c)
         n = N_SLICE_BATCHES * B_MAIN
         flat = [r for rs in results for r in rs]
         partial = sum(r.status == 1 for r in flat)
@@ -1301,7 +1439,7 @@ def phase_slice_api(dev):
         wall = time.perf_counter() - t0
         c = read_counts()
         fb = check_fallbacks(f"probe {hname}", timed=False)
-        check_warp(f"probe {hname}", c)
+        check_group(f"probe {hname}", c, wide=True)
         if c["e2e_heur"] < 2:
             raise AssertionError(f"probe {hname}: {c['e2e_heur']} launches; "
                                  "the batch must escalate")
@@ -1350,7 +1488,7 @@ def phase_slice_api(dev):
                     n_calls += 1
         c = read_counts()
         check_fallbacks(f"slice api {metric}", timed=True)
-        check_warp(f"slice api {metric}", c)
+        check_group(f"slice api {metric}", c)
         med = ", ".join(f"{cn} {sc}={1e3 * float(np.median(v)):.3f}"
                         for (cn, sc), v in times.items())
         log(f"slice api [{metric}]: {n_calls} calls equal to the oracle; "
@@ -1571,6 +1709,7 @@ def phase_long_kernels(dev, long_inputs):
         t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
         t_ops = 1e3 * cells * OPS_PER_CELL[cfg.n_comp] / PEAK_OPS_PER_S
         variant = fused_loop.variant(cfg, table=True)
+        G = fused_loop.launch_shape(cfg, B_LONG, "group", dev)[1]
         log(f"kernel vs plain [{name}] variant={variant} B={B_LONG} "
             f"W={cfg.W} K={K} Ltp={table.shape[0]} segments=2 "
             f"status_counts={status} max_abs_err={err} build={new} "
@@ -1581,13 +1720,13 @@ def phase_long_kernels(dev, long_inputs):
             f"plain_ms={p_ms:.2f} bound_ms={max(t_bytes, t_ops):.3g} "
             f"bound_by={'bytes' if t_bytes >= t_ops else 'operations'} "
             f"cells={cells} "
-            f"pairs_a_block={fused_loop.warp_pairs(cfg, B_LONG)}")
+            f"G={G} pairs_a_block={fused_loop.group_pairs(cfg, B_LONG, G)}")
         if err != 0:
             raise AssertionError(f"{name}: the table variant differs from "
                                  "its plain version, the bits variant or "
                                  "the general build")
         records[name] = dict(
-            variant=variant, err=err, build=new, ms=t_ms[new],
+            variant=variant, err=err, build=new, G=G, ms=t_ms[new],
             plain_ms=p_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations", B=B_LONG)
     del table, bits
@@ -1840,7 +1979,7 @@ def phase_long_reads(dev, long_inputs):
     if c["e2e"] < 2 * N_LONG_BATCHES or seg["runs"]:
         raise AssertionError("stream E must escalate past its first rung in "
                              f"one shot: launches {launched(c)}, {seg}")
-    check_build("stream E", c, "warp")
+    check_build("stream E", c, "group")
     pats = [p for b in batches for p in b[0]]
     txts = [t for b in batches for t in b[1]]
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
@@ -1859,8 +1998,8 @@ def phase_long_reads(dev, long_inputs):
         if c[variant] < N_LONG_BATCHES:
             raise AssertionError(f"stream F launched {variant} "
                                  f"{c[variant]} times")
-    # its segments (W=896, the table) on the warp build
-    check_build("stream F", c, "warp")
+    # its segments (W=896, the table) on the group build
+    check_build("stream F", c, "group")
     if list(map(_result_fields, f_res)) != list(map(_result_fields, e_res)):
         raise AssertionError("stream F differs from stream E")
     log(f"stream [F] equals stream [E] pair for pair ({n} pairs, every "
@@ -1928,7 +2067,7 @@ def phase_long_reads(dev, long_inputs):
         f"steps, resumed "
         f"equal to the fresh results in {wall:.3f} s; segmented "
         f"{dict(PB.segmented_runs)}; launches {launched(c)}")
-    check_build("resume", c, "warp")
+    check_build("resume", c, "group")
     total.update(c)
 
     # --- WavefrontAligner on single long pairs, both scopes ---
@@ -1955,7 +2094,7 @@ def phase_long_reads(dev, long_inputs):
     check_fallbacks("api long", timed=True)
     log(f"api long: launches {launched(c)}")
     # the 5 kb pair's second rung (W=3584) on the cluster build, the
-    # other rungs on the warp build
+    # other rungs on the group build
     check_build("api long", c, "cluster")
     total.update(c)
     return total
@@ -1969,6 +2108,8 @@ def main():
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     long_inputs = make_long_inputs()
     records = phase_kernel_vs_plain(attr, dev, long_inputs)
+    step_sweep(dev, attr, {"narrow": dict(build="narrow"),
+                           "group": dict(build="group")})
     # launches of the main paths only: each phase zeroes the counts before
     # its path and reads them after it
     records.update(phase_long_kernels(dev, long_inputs))
@@ -1993,7 +2134,8 @@ def kernel_records(records, launches):
     """One entry a kernel variant for the JSON line: its launches on the
     main paths, and the error, times and bound of the largest shape it was
     held at against its plain version, with the build the main path takes
-    at that shape (the build whose time `ms` is)."""
+    at that shape (the build whose time `ms` is) and, on the group build,
+    its G."""
     from pywfa_tpu_torch.ops import fused_loop
     pallas = "pywfa_tpu/ops/pallas/fused_loop.py"
     # the Pallas lines each variant replaces: the heuristic cascade, the
@@ -2049,7 +2191,8 @@ def kernel_records(records, launches):
             "max_abs_err": max(r["err"] for r in held),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": None, "build": timed.get("build", "general")})
+            "library_ms": None, "build": timed.get("build", "general"),
+            "G": timed.get("G")})
     return kernels
 
 

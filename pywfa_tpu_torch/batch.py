@@ -67,7 +67,6 @@ from .constants import (
     DIAGONAL_NULL,
     AlignmentScope,
     AlignmentSpan,
-    DistanceMetric,
     HeuristicStrategy,
     MemoryMode,
     OFFSET_NULL,
@@ -399,17 +398,9 @@ def _band_for_score(attr, S: int, maxLp: int, maxLt: int) -> int:
     text_begin_free], a floor on the band (WF-extension has none)."""
     pen = attr.penalties
     pad = pen.max_score_scope + 4
-    m = pen.distance_metric
-    if m == DistanceMetric.GAP_AFFINE:
-        den = max(1, pen.gap_extension1)
-    elif m == DistanceMetric.GAP_AFFINE_2P:
-        den = max(1, min(pen.gap_extension1, pen.gap_extension2))
-    elif m == DistanceMetric.GAP_LINEAR:
-        den = max(1, pen.gap_opening1)
-    else:
-        den = 1
-    reach = min(S, S // den + 1)
-    band = 2 * (reach + abs(maxLp - maxLt)) + 2 * pad + 8
+    band = C.score_band(pen.distance_metric, pen.gap_opening1,
+                        pen.gap_extension1, pen.gap_extension2,
+                        pen.max_score_scope, S, abs(maxLp - maxLt))
     h = attr.heuristic
     strat = int(h.strategy)
     diff2 = 2 * abs(maxLp - maxLt)

@@ -20,24 +20,33 @@
 // the one a launch takes (pywfa_tpu_torch/ops/fused_loop.py::kernel_build);
 // a launch that build cannot take fails, nothing falls back.
 //
-// - The warp build (fused_loop_warp, warp_pair): one warp a pair, up to 8
-//   pairs a block, a persistent grid whose warps take the next pair from
-//   a counter. Every per-cell pass runs over the live band only, 32
-//   diagonals a chunk, folds its minima and maxima with one
-//   __reduce_*_sync a pass and orders its shared-memory writes with
-//   __syncwarp: no block barrier, and a pair never waits on another's
-//   steps. It rests on one invariant: every ring cell outside its row's
-//   band is NULL. It takes any launch whose ring fits a warp's share of
-//   the block (bands up to 1024 diagonals at pywfa's penalties): one shot
-//   or a segment (the ring, its bands and the carry copied in with
-//   coalesced 16-byte loads and out the same way), on the words or the
-//   run-length table. Bounded by the latency of a step: an extension load
-//   from global memory, then 6-10 dependent warp reductions.
+// - The group build (fused_loop_group, group_pair): G warps a pair (G from
+//   1 to 8, pywfa_tpu_torch/ops/fused_loop.py::group_size, from the band
+//   the rung's score cap allows and the pairs an SM holds), up to 8 pairs
+//   a block at G == 1 and one at G > 1, a persistent grid whose groups take the next pair from a
+//   counter. Every per-cell pass runs over the live band only, 32 * G
+//   diagonals a stride, and folds its minima and maxima in registers,
+//   one group reduction a pass: with G == 1 a __reduce_*_sync and a
+//   __syncwarp, with G > 1 a warp reduction, one partial a warp in the
+//   pair's shared memory and the pair's own named barrier, two a step (no
+//   block barrier: a pair never waits on another's steps). It rests on one
+//   invariant: every ring cell outside its row's band is NULL. It takes
+//   any launch whose ring fits a group's share of the block (bands up to
+//   1024 diagonals at pywfa's penalties): one shot or a segment (the ring,
+//   its bands and the carry copied in with coalesced 16-byte loads and
+//   out the same way), on the words or the run-length table. Bounded by
+//   the latency of a step: an extension load from global memory, then the
+//   dependent folds, about 1.0 us at G == 1 and 1.2-1.5 at G > 1 (every
+//   warp of a pair runs the step's uniform chain); a wide band takes
+//   several warps so that a pass walks it in a few strides, a batch of
+//   many pairs one warp.
 // - The narrow build (loop_body, kBuildNarrow): one block a pair, a thread
 //   a diagonal, the one-shot run on the words; each thread's cell of s + 1
 //   waits in registers for the trim. It walks a band that fills W in one
-//   pass, where a warp walks it 32 diagonals at a time: the terminal rungs.
-//   Bounded by two to five __syncthreads a step.
+//   pass with the leanest step of all (1.10 us at one pair an SM at
+//   W = 384), and stays the build of the one-shot terminal rungs, where the
+//   group build lost to it at every G (measured: PERF.md, kernel table).
+//   Bounded by two to five __syncthreads a step over all W diagonals.
 // - The cluster build (fused_loop_cluster, loop_body with kBuildCluster):
 //   one pair on a thread-block cluster of C CTAs (launched with the
 //   cluster dimension, C at most 8). CTA r owns the slice of diagonals
@@ -191,7 +200,7 @@ constexpr int D2 = 4;
 // the build codes of wfa_fused_loop (pywfa_tpu_torch/ops/fused_loop.py::BUILDS)
 constexpr int kBuildGeneral = 0;
 constexpr int kBuildNarrow = 1;
-constexpr int kBuildWarp = 2;
+constexpr int kBuildGroup = 2;
 constexpr int kBuildCluster = 3;
 constexpr int kClusterMax = 8;  // the portable cluster size
 // threads of one CTA of the cluster build: a slice of at most 1024
@@ -215,7 +224,7 @@ struct Params {
   const int32_t* frees;  // [B, 4]: pattern begin/end, text begin/end free
   uint8_t* choices;      // [S_cap, B, W], zero on entry; unused unless kRecord
   int32_t* res;          // [4, B]: status, final_s, end_k, end_off;
-                         // then the warp build's pair counter
+                         // then the group build's pair counter
   // a segmented run's state, read unless `fresh` and written at the end:
   // the ring [B, rows, W], its bands [B, rows, 2] and the carry
   // [B, kCarry]; all nullptr for a one-shot run. `ring` alone is also the
@@ -227,8 +236,9 @@ struct Params {
   // the segment covers scores [seg_base, seg_base + S_cap - 1]; the choice
   // level of score s is s - seg_base
   int seg_base;
-  // threads of a block; each owns diagonals tid, tid + T, ... (the
-  // cluster build: CTAs a pair, each owning W / cluster diagonals)
+  // threads of a block, and units a pair: the group build's G warps,
+  // the cluster build's CTAs (each owning W / cluster diagonals), 1 on
+  // the general build, whose threads own diagonals tid, tid + T, ...
   int threads, cluster;
   int B, W, NQ, S_cap, scope, max_steps;
   // the heuristic cascade (read when kHeur): HeuristicStrategy bits and
@@ -1207,53 +1217,154 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
   loop_body<kMetric, kSpan, kRecord, kHeur, kBuildCluster>(p);
 }
 
-// --- the warp build: one warp a pair, several pairs a block ---
+// --- the group build: G warps a pair, several pairs a block ---
 
-constexpr int kWarpMaxPairs = 8;
-constexpr int kExtChunks = 4;  // chunks of 32 diagonals an extension pass
+// pairs a block of the group build, whatever G, and the threads of its
+// largest block, the kernel's launch bound: eight warps, the most the
+// routing gives (eight pairs of one warp, or one pair of up to eight)
+// (pywfa_tpu_torch/ops/fused_loop.py::GROUP_MAX_PAIRS, GROUP_MAX_THREADS)
+constexpr int kGroupMaxPairs = 8;
+constexpr int kGroupMaxThreads = 256;
+// named barriers a block may use besides id 0 (__syncthreads): one a pair
+// when G > 1
+constexpr int kNamedBarriers = 15;
+constexpr int kExtChunks = 4;  // lanes' strides an extension pass loads
 
-// ints of shared memory one pair of the warp build takes: its ring
-// [rows][W] and its lo/hi pairs [rows][2], rounded up to whole int4s so
-// that the next pair's ring starts 16-byte aligned
-// (pywfa_tpu_torch/ops/fused_loop.py::warp_pair_bytes)
-__host__ __device__ constexpr int warp_pair_ints(int rows, int W) {
-  return (rows * (W + 2) + 3) & ~3;
+// rows of the group's fold partials (G > 1), in a pair's shared memory:
+// the trim's 2 * kComps, then the ends-free first hit, then the cascade's
+constexpr int kRowTerm = 2 * kMaxComps;
+constexpr int kRowHeur = kRowTerm + 1;
+
+// ints of shared memory one pair of the group build takes: its ring
+// [rows][W] and its lo/hi pairs [rows][2]; with G > 1 warps a pair also
+// `partials` rows of G fold partials and two slots of the next pair's
+// index; rounded up to whole int4s so that the next pair's ring starts
+// 16-byte aligned (pywfa_tpu_torch/ops/fused_loop.py::group_pair_bytes)
+__host__ __device__ constexpr int group_pair_ints(int rows, int W, int G,
+                                                  int partials) {
+  return (rows * (W + 2) + (G > 1 ? partials * G + 2 : 0) + 3) & ~3;
+}
+
+// The threads of one pair: G warps, t = 32 * (warp in the group) + lane.
+// Every per-cell pass strides by GT = 32 * G. With G == 1 (a branch
+// uniform over the launch) a fold is one __reduce_*_sync and a barrier a
+// __syncwarp; with G > 1 a fold is a warp
+// reduction, lane 0 of each warp posting its partial into the pair's row
+// `row` of `red`, the group's named barrier (bar.sync 1 + the pair's slot
+// in the block, GT threads; id 0 stays __syncthreads; a __syncwarp first,
+// so that every warp arrives converged, as the aligned form wants), then
+// every warp
+// folding the G partials with one more warp reduction. A row is posted
+// again only after a later barrier of the group, so no fold reads a
+// partial of the next use.
+struct Group {
+  int t, lane, g, G, GT, bar;
+  int* red;  // [partials][G] (G > 1)
+
+  __device__ __forceinline__ void sync() const {
+    if (G == 1) {
+      __syncwarp();
+    } else {
+      __syncwarp();
+      asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(GT) : "memory");
+    }
+  }
+  __device__ __forceinline__ void post_min(int row, int v) const {
+    v = __reduce_min_sync(kFull, v);
+    if (lane == 0) red[row * G + g] = v;
+  }
+  __device__ __forceinline__ void post_max(int row, int v) const {
+    v = __reduce_max_sync(kFull, v);
+    if (lane == 0) red[row * G + g] = v;
+  }
+  __device__ __forceinline__ int fold_min(int row) const {
+    return __reduce_min_sync(kFull, lane < G ? red[row * G + lane] : kBig);
+  }
+  __device__ __forceinline__ int fold_max(int row) const {
+    return __reduce_max_sync(kFull, lane < G ? red[row * G + lane] : -kBig);
+  }
+  // a whole reduction over the pair's threads
+  __device__ __forceinline__ int reduce_min(int row, int v) const {
+    if (G == 1) return __reduce_min_sync(kFull, v);
+    post_min(row, v);
+    sync();
+    return fold_min(row);
+  }
+  __device__ __forceinline__ int reduce_max(int row, int v) const {
+    if (G == 1) return __reduce_max_sync(kFull, v);
+    post_max(row, v);
+    sync();
+    return fold_max(row);
+  }
+};
+
+// The wavefront of component `comp` at score s1 - dist in the group
+// build's ring, as read_wf reads it, with no test for a negative score:
+// there every row holds NULL outside its band, and the row of a negative
+// score (slot s1 - dist + depth, a score not reached yet) was never
+// written, so it is all NULL and its band empty. The compute reads its
+// cells as row[w - 1], row[w], row[w + 1] with no bounds test: its
+// diagonals lie in [kmin + 2, kmin + W - 3], their neighbours in [0, W).
+__device__ __forceinline__ Wf ring_wf(const int* off, const int* lohi,
+                                      const Params& p, int comp, int slot1,
+                                      int dist, int W) {
+  int j = slot1 - dist;
+  if (j < 0) j += p.depth[comp];
+  const int i = p.base[comp] + j;
+  Wf f;
+  f.row = off + i * W;
+  f.lo = lohi[2 * i];
+  f.hi = lohi[2 * i + 1];
+  f.null_ = f.lo > f.hi;
+  return f;
 }
 
 // Set to NULL the cells of a ring row in [lo, hi] (diagonals, w = k - kmin)
 // that lie outside [keep_lo, keep_hi]: the two flanks [lo, keep_lo - 1]
 // and [keep_hi + 1, hi] (which cover all of [lo, hi] when the kept band is
-// empty, keep_lo > keep_hi), one lane a diagonal, 32 at a time, so a step
-// whose band barely moves writes a chunk or two however wide the band.
+// empty, keep_lo > keep_hi), one thread a diagonal, GT at a time, so a
+// step whose band barely moves writes a stride or two however wide the
+// band.
 __device__ __forceinline__ void null_outside(int* row, int lo, int hi,
                                              int keep_lo, int keep_hi,
-                                             int kmin, int lane) {
+                                             int kmin, const Group& grp) {
   const int left_hi = min(hi, keep_lo - 1);
-  for (int k = lo + lane; k <= left_hi; k += 32) row[k - kmin] = kNull;
-  for (int k = max(lo, keep_hi + 1) + lane; k <= hi; k += 32) {
+  for (int k = lo + grp.t; k <= left_hi; k += grp.GT) row[k - kmin] = kNull;
+  for (int k = max(lo, keep_hi + 1) + grp.t; k <= hi; k += grp.GT) {
     row[k - kmin] = kNull;
   }
 }
 
-// The loop of one pair on one warp: the one-shot run on the equality
-// words (no state, no table, the ring in shared memory), as loop_body's
-// narrow build computes it, cell for cell. Every per-cell pass runs over
-// the live band only, 32 diagonals a chunk (lane i owns k = k0 + i), and
-// folds its minima and maxima in registers, one warp reduction a pass; a
-// __syncwarp orders each pass's writes before the next pass's reads of
-// other lanes' cells. The invariant that replaces writing all W cells a
-// step: every cell of a ring row outside the row's band is NULL. WF0
-// fills the whole ring with NULL once; a step nulls, in the recycled row
-// of s + 1, what its old band (score s + 1 - depth) and the untrimmed new
-// band hold outside the trimmed one; the cascade's install nulls what it
-// cuts. Out-of-band cells then read NULL as before, and the two folds of
-// the cascade that saw every diagonal of [0, W) keep their value: the
-// band never covers w = 0 (klo = kmin + 2), so wf-adaptive folds
-// max(plen, tlen) once, and x-drop / z-drop take diagonal 0 (w = 0) as
-// the maximum's index when no cell of the band is valid.
+// The loop of one pair on one group of G warps: one shot or a segment, on
+// the equality words or the run-length table, the ring in shared memory,
+// as loop_body computes it, cell for cell. Every per-cell pass runs over
+// the live band only, GT diagonals a stride (thread t owns k = k0 + t), and
+// folds its minima and maxima in registers, one group reduction a pass
+// (Group). The invariant that replaces writing all W cells a step: every
+// cell of a ring row outside the row's band is NULL. WF0 fills the whole
+// ring with NULL once; a step nulls, in the recycled row of s + 1, what its
+// old band (score s + 1 - depth) and the untrimmed new band hold outside
+// the trimmed one; the cascade's install nulls what it cuts. Out-of-band
+// cells then read NULL as before, and the two folds of the cascade that
+// saw every diagonal of [0, W) keep their value: the band never covers
+// w = 0 (klo = kmin + 2), so wf-adaptive folds max(plen, tlen) once, and
+// x-drop / z-drop take diagonal 0 (w = 0) as the maximum's index when no
+// cell of the band is valid.
+//
+// Barriers a step, with G > 1: two. One after the extension (it carries
+// the ends-free first hit's partials, and orders the extension's cells
+// and the last step's trim before the termination, the cascade and the
+// compute read them), one after the compute of s + 1 (it carries the
+// 2 * kComps trim bounds, posted together). The trim's writes need none
+// of their own: they null cells outside the trimmed bands and set the
+// bands, which the next step's extension does not touch (it reads and
+// writes M's cells inside its band) and everything after it reads behind
+// that step's first barrier. The cascade adds one a fold and two around
+// its install, on the steps it cuts. With G == 1 a step keeps its three
+// __syncwarp.
 template <int kMetric, int kSpan, bool kRecord, bool kHeur>
-__device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
-                                          int lane) {
+__device__ __forceinline__ void group_pair(const Params& p, int b, int* off,
+                                           const Group& grp) {
   constexpr int kComps = n_comps(kMetric);
   constexpr bool kEditLike = kMetric == kEdit || kMetric == kIndel;
   constexpr bool kEndsFree = kSpan != kEndToEnd;
@@ -1263,7 +1374,9 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
   const int scope = p.scope;
   const int kmin = -(W / 2);
   const int klo = kmin + 2, khi = kmin + W - 3;
-  // this warp's ring [rows][W] and bands [rows][2]
+  const int t = grp.t, GT = grp.GT;
+  const bool one = grp.G == 1;
+  // this pair's ring [rows][W] and bands [rows][2]
   int* lohi = off + p.rows * W;
   const int plen = p.plen[b];
   const int tlen = p.tlen[b];
@@ -1296,7 +1409,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     tef = fr[3];
   }
 
-  // warp-uniform state, as loop_body's block-uniform state
+  // group-uniform state, as loop_body's block-uniform state
   int s = 0, status = 0, final_s = 0, end_k = 0, end_off = kNull;
   int nnull = 0;
   int h_wait = p.steps_between;
@@ -1313,15 +1426,15 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     done = kSpan == kEndsFreeWf0 && (wf0_lo < klo || wf0_hi > khi);
     if (done) status = ST_OVERFLOW_W;
     const int4 null4 = make_int4(kNull, kNull, kNull, kNull);
-    for (int i = lane; i < p.rows * W / 4; i += 32) off4[i] = null4;
-    for (int i = lane; i < p.rows; i += 32) {
+    for (int i = t; i < p.rows * W / 4; i += GT) off4[i] = null4;
+    for (int i = t; i < p.rows; i += GT) {
       lohi[2 * i] = (i == 0) ? wf0_lo : 1;
       lohi[2 * i + 1] = (i == 0) ? wf0_hi : -1;
     }
-    __syncwarp();
+    grp.sync();
     // the seeds inside [0, W) (a pair done at WF0 still stores its state)
-    for (int k = max(wf0_lo, kmin) + lane; k <= min(wf0_hi, kmin + W - 1);
-         k += 32) {
+    for (int k = max(wf0_lo, kmin) + t; k <= min(wf0_hi, kmin + W - 1);
+         k += GT) {
       off[k - kmin] = max(k, 0);
     }
   } else {
@@ -1339,7 +1452,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     hm_valid = carry[10] != 0;
     if (carry[11] != 0) {
       // a pair that is done: its result again, its state untouched
-      if (lane == 0) {
+      if (t == 0) {
         p.res[b] = status;
         p.res[p.B + b] = final_s;
         p.res[2 * p.B + b] = end_k;
@@ -1348,11 +1461,11 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
       return;
     }
     // the ring in coalesced 16-byte loads (W is a multiple of 32)
-    for (int i = lane; i < p.rows * W / 4; i += 32) off4[i] = ring_g[i];
+    for (int i = t; i < p.rows * W / 4; i += GT) off4[i] = ring_g[i];
     const int32_t* lg = p.lohi + static_cast<size_t>(b) * p.rows * 2;
-    for (int i = lane; i < p.rows * 2; i += 32) lohi[i] = lg[i];
+    for (int i = t; i < p.rows * 2; i += GT) lohi[i] = lg[i];
   }
-  __syncwarp();
+  grp.sync();
 
   // each component's ring slot of score s (s % depth) and the band of its
   // row of score s (M owns rows [0, scope))
@@ -1378,9 +1491,9 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
 
     // --- extension over M's band, by the equality words or the run-length
     // table (a branch uniform over the launch, outside the passes) ---
-    // kExtChunks chunks at a time: their first words (or their runs) are
-    // loaded together, so a wide band waits on one load latency, not one a
-    // chunk
+    // up to kExtChunks strides at a time, as many as the band reaches:
+    // their first words (or their runs) are loaded together, so a wide
+    // band waits on one load latency, not one a stride
     int first_hit = W;
     // a cell on an end-free boundary (see loop_body): the lowest wins
     auto end_hit = [&](int k, int w, int mo) {
@@ -1393,11 +1506,12 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     };
     if (!m_null && table8 != nullptr) {
       const int16_t* table16 = reinterpret_cast<const int16_t*>(table8);
-      for (int k0 = m_lo; k0 <= m_hi; k0 += 32 * kExtChunks) {
+      for (int k0 = m_lo; k0 <= m_hi; k0 += GT * kExtChunks) {
         int m_off[kExtChunks], run[kExtChunks];
 #pragma unroll
         for (int j = 0; j < kExtChunks; ++j) {
-          const int k = k0 + 32 * j + lane;
+          if (j > 0 && k0 + GT * j > m_hi) break;
+          const int k = k0 + GT * j + t;
           m_off[j] = k <= m_hi ? m_row[k - kmin] : kNull;
           const size_t at_h =
               static_cast<size_t>(min(m_off[j], p.Ltp - 1)) * BW + (k - kmin);
@@ -1407,7 +1521,8 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         }
 #pragma unroll
         for (int j = 0; j < kExtChunks; ++j) {
-          const int k = k0 + 32 * j + lane;
+          if (j > 0 && k0 + GT * j > m_hi) break;
+          const int k = k0 + GT * j + t;
           const int w = k - kmin;
           int mo = m_off[j];
           if (mo >= 0 && mo <= tlen) {
@@ -1418,12 +1533,13 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         }
       }
     } else if (!m_null) {
-      for (int k0 = m_lo; k0 <= m_hi; k0 += 32 * kExtChunks) {
+      for (int k0 = m_lo; k0 <= m_hi; k0 += GT * kExtChunks) {
         int m_off[kExtChunks], idx[kExtChunks];
         uint32_t mq[kExtChunks];
 #pragma unroll
         for (int j = 0; j < kExtChunks; ++j) {
-          const int k = k0 + 32 * j + lane;
+          if (j > 0 && k0 + GT * j > m_hi) break;
+          const int k = k0 + GT * j + t;
           m_off[j] = k <= m_hi ? m_row[k - kmin] : kNull;
           idx[j] = min(m_off[j], NQ32 - 1);
           mq[j] = (m_off[j] >= 0 && m_off[j] <= tlen)
@@ -1433,7 +1549,8 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         }
 #pragma unroll
         for (int j = 0; j < kExtChunks; ++j) {
-          const int k = k0 + 32 * j + lane;
+          if (j > 0 && k0 + GT * j > m_hi) break;
+          const int k = k0 + GT * j + t;
           const int w = k - kmin;
           int mo = m_off[j];
           if (mo >= 0 && mo <= tlen) {
@@ -1449,11 +1566,14 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         }
       }
     }
-    __syncwarp();
+    // the step's first barrier, with the first hit's partials
+    if (kEndsFree && !one) grp.post_min(kRowTerm, first_hit);
+    grp.sync();
 
     // --- termination ---
     if (kEndsFree) {
-      const int first = __reduce_min_sync(kFull, first_hit);
+      const int first = one ? __reduce_min_sync(kFull, first_hit)
+                            : grp.fold_min(kRowTerm);
       if (first < W) {
         status = ST_END_REACHED;
         final_s = s;
@@ -1464,9 +1584,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
       }
     } else {
       const int ak = tlen - plen;
-      const int aw = ak - kmin;
-      const int cell = (aw >= 0 && aw < W) ? m_row[aw] : 0;
-      if (!m_null && m_lo <= ak && ak <= m_hi && cell >= tlen) {
+      if (!m_null && m_lo <= ak && ak <= m_hi && m_row[ak - kmin] >= tlen) {
         status = ST_END_REACHED;
         final_s = s;
         end_k = ak;
@@ -1497,24 +1615,33 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
           // the diagonals outside the band count max(plen, tlen): w = 0
           // always is one
           int mn = max(plen, tlen);
-          for (int k0 = cur_lo; k0 <= cur_hi; k0 += 32) {
-            const int k = k0 + lane;
+          for (int k0 = cur_lo; k0 <= cur_hi; k0 += GT) {
+            const int k = k0 + t;
             if (k <= cur_hi) mn = min(mn, dist_of(k, m_row[k - kmin]));
           }
-          const int mind = __reduce_min_sync(kFull, mn);
+          const int mind = grp.reduce_min(kRowHeur, mn);
           const int ak = tlen - plen;
           const int top_limit = min(ak, cur_hi);
           int f = W, l = -1;
-          for (int k0 = cur_lo; k0 <= cur_hi; k0 += 32) {
-            const int k = k0 + lane;
+          for (int k0 = cur_lo; k0 <= cur_hi; k0 += GT) {
+            const int k = k0 + t;
             const int w = k - kmin;
             const bool keep =
                 k <= cur_hi && dist_of(k, m_row[w]) - mind <= p.max_dist;
             if (keep && k < top_limit) f = min(f, w);
             if (keep && k > ak) l = max(l, w);
           }
-          const int first = __reduce_min_sync(kFull, f);
-          const int last = __reduce_max_sync(kFull, l);
+          int first, last;
+          if (one) {
+            first = __reduce_min_sync(kFull, f);
+            last = __reduce_max_sync(kFull, l);
+          } else {
+            grp.post_min(kRowHeur + 1, f);
+            grp.post_max(kRowHeur + 2, l);
+            grp.sync();
+            first = grp.fold_min(kRowHeur + 1);
+            last = grp.fold_max(kRowHeur + 2);
+          }
           const int lo_red = first < W ? first + kmin : max(top_limit, cur_lo);
           const int new_lo = max(lo_red, cur_lo);
           const int bot_limit = max(ak, new_lo);
@@ -1531,15 +1658,15 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
                               : -kBig;
           };
           int mx = -kBig;
-          for (int k0 = cur_lo; k0 <= cur_hi; k0 += 32) {
-            const int k = k0 + lane;
+          for (int k0 = cur_lo; k0 <= cur_hi; k0 += GT) {
+            const int k = k0 + t;
             if (k <= cur_hi) mx = max(mx, sw_of(k, m_row[k - kmin]));
           }
-          const int cmax = __reduce_max_sync(kFull, mx);
+          const int cmax = grp.reduce_max(kRowHeur + 3, mx);
           const bool xd = (st & kXdrop) != 0;
           int ci = W, fx = W, lx = -1;
-          for (int k0 = cur_lo; k0 <= cur_hi; k0 += 32) {
-            const int k = k0 + lane;
+          for (int k0 = cur_lo; k0 <= cur_hi; k0 += GT) {
+            const int k = k0 + t;
             const int w = k - kmin;
             const int sw = k <= cur_hi ? sw_of(k, m_row[w]) : -kBig;
             if (sw == cmax) ci = min(ci, w);
@@ -1548,14 +1675,33 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
               lx = max(lx, w);
             }
           }
+          // the maximum's first diagonal, and x-drop's kept span, in one
+          // fold
+          int ci_band, firstx = W, lastx = -1;
+          if (one) {
+            ci_band = __reduce_min_sync(kFull, ci);
+            if (xd) {
+              firstx = __reduce_min_sync(kFull, fx);
+              lastx = __reduce_max_sync(kFull, lx);
+            }
+          } else {
+            grp.post_min(kRowHeur + 4, ci);
+            if (xd) {
+              grp.post_min(kRowHeur + 5, fx);
+              grp.post_max(kRowHeur + 6, lx);
+            }
+            grp.sync();
+            ci_band = grp.fold_min(kRowHeur + 4);
+            if (xd) {
+              firstx = grp.fold_min(kRowHeur + 5);
+              lastx = grp.fold_max(kRowHeur + 6);
+            }
+          }
           // no valid cell in the band: every diagonal scores -kBig, and
           // the first of them is w = 0
-          const int ci_band = __reduce_min_sync(kFull, ci);
           const int cidx = cmax == -kBig ? 0 : ci_band;
           const bool improved = !hm_valid || cmax > hm_sw;
           if (xd) {
-            const int firstx = __reduce_min_sync(kFull, fx);
-            const int lastx = __reduce_max_sync(kFull, lx);
             if (hm_valid) {
               cur_lo = firstx < W ? firstx + kmin : cur_hi + 1;
               cur_hi = firstx < W ? lastx + kmin : cur_lo - 1;
@@ -1613,20 +1759,20 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         if (cur_lo != m_lo || cur_hi != m_hi) {
           // install M's pruned band and cut every gap component's row of
           // score s to it: null what each row's old band loses, after
-          // every lane's reads of M's row above (the banded-adaptive cut
+          // every thread's reads of M's row above (the banded-adaptive cut
           // reads cells that the install nulls)
-          __syncwarp();
-          null_outside(m_row, m_lo, m_hi, cur_lo, cur_hi, kmin, lane);
+          grp.sync();
+          null_outside(m_row, m_lo, m_hi, cur_lo, cur_hi, kmin, grp);
 #pragma unroll
           for (int c = 1; c < kComps; ++c) {
             const int nlo = max(g_lo[c], cur_lo);
             const int nhi = min(g_hi[c], cur_hi);
             null_outside(off + (p.base[c] + slot[c]) * W, g_lo[c], g_hi[c],
-                         nlo, nhi, kmin, lane);
+                         nlo, nhi, kmin, grp);
             g_lo[c] = nlo;
             g_hi[c] = nhi;
           }
-          if (lane == 0) {
+          if (t == 0) {
             lohi[2 * slot[M]] = cur_lo;
             lohi[2 * slot[M] + 1] = cur_hi;
 #pragma unroll
@@ -1636,7 +1782,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
               lohi[2 * row + 1] = g_hi[c];
             }
           }
-          __syncwarp();
+          grp.sync();
         }
       }
     }
@@ -1657,21 +1803,21 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     int lo_n, hi_n;
     bool all_null;
     if constexpr (kEditLike) {
-      mm = read_wf(off, lohi, p, M, slot1[M], 1, s1, RS);
+      mm = ring_wf(off, lohi, p, M, slot1[M], 1, W);
       lo_n = mm.lo - 1;
       hi_n = mm.hi + 1;
       all_null = mm.null_;
     } else if constexpr (kMetric == kLinear) {
-      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1, RS);
-      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1, RS);
+      mm = ring_wf(off, lohi, p, M, slot1[M], p.x, W);
+      op = ring_wf(off, lohi, p, M, slot1[M], p.o1, W);
       lo_n = min(lim_lo(mm, 0), lim_lo(op, 1));
       hi_n = max(lim_hi(mm, 0), lim_hi(op, 1));
       all_null = mm.null_ && op.null_;
     } else {
-      mm = read_wf(off, lohi, p, M, slot1[M], p.x, s1, RS);
-      op = read_wf(off, lohi, p, M, slot1[M], p.o1, s1, RS);
-      i1 = read_wf(off, lohi, p, I1, slot1[I1], p.e1, s1, RS);
-      d1 = read_wf(off, lohi, p, D1, slot1[D1], p.e1, s1, RS);
+      mm = ring_wf(off, lohi, p, M, slot1[M], p.x, W);
+      op = ring_wf(off, lohi, p, M, slot1[M], p.o1, W);
+      i1 = ring_wf(off, lohi, p, I1, slot1[I1], p.e1, W);
+      d1 = ring_wf(off, lohi, p, D1, slot1[D1], p.e1, W);
       lo_n = min(min(lim_lo(mm, 0), lim_lo(op, 1)),
                  min(lim_lo(i1, 1), lim_lo(d1, 1)));
       hi_n = max(max(lim_hi(mm, 0), lim_hi(op, 1)),
@@ -1680,9 +1826,9 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
       prod[I1] = !(op.null_ && i1.null_);
       prod[D1] = !(op.null_ && d1.null_);
       if constexpr (kMetric == kAffine2p) {
-        op2 = read_wf(off, lohi, p, M, slot1[M], p.o2, s1, RS);
-        i2 = read_wf(off, lohi, p, I2, slot1[kComps - 2], p.e2, s1, RS);
-        d2 = read_wf(off, lohi, p, D2, slot1[kComps - 1], p.e2, s1, RS);
+        op2 = ring_wf(off, lohi, p, M, slot1[M], p.o2, W);
+        i2 = ring_wf(off, lohi, p, I2, slot1[kComps - 2], p.e2, W);
+        d2 = ring_wf(off, lohi, p, D2, slot1[kComps - 1], p.e2, W);
         lo_n = min(lo_n, min(lim_lo(op2, 1),
                              min(lim_lo(i2, 1), lim_lo(d2, 1))));
         hi_n = max(hi_n, max(lim_hi(op2, 1),
@@ -1720,50 +1866,71 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     for (int c = 1; c < kComps; ++c) prod[c] = prod[c] && write;
 
     // the cells of [lo_n, hi_n], untrimmed, into each component's row of
-    // s + 1 (no source row shares that slot), with each lane's first and
-    // last in-bounds diagonal for the trim
+    // s + 1 (no source row shares that slot), with each thread's first and
+    // last in-bounds diagonal for the trim; two strides an iteration, the
+    // source cells of both read before either's cells are written, so that
+    // their loads and their arithmetic overlap
     int wmin[kComps], wmax[kComps];
 #pragma unroll
     for (int c = 0; c < kComps; ++c) {
       wmin[c] = W;
       wmax[c] = -1;
     }
-    for (int k0 = lo_n; write && k0 <= hi_n; k0 += 32) {
-      const int k = k0 + lane;
-      if (k > hi_n) continue;
+    constexpr int kSrc =
+        (kEditLike || kMetric == kLinear) ? 3 : (kMetric == kAffine ? 5 : 9);
+    // the source cells of diagonal w: the neighbours the compute reads
+    auto gather = [&](int w, int* v) {
+      if constexpr (kEditLike) {
+        v[0] = mm.row[w + 1];
+        v[1] = mm.row[w - 1];
+        v[2] = mm.row[w];
+      } else if constexpr (kMetric == kLinear) {
+        v[0] = mm.row[w];
+        v[1] = op.row[w + 1];
+        v[2] = op.row[w - 1];
+      } else {
+        v[0] = op.row[w - 1];
+        v[1] = i1.row[w - 1];
+        v[2] = op.row[w + 1];
+        v[3] = d1.row[w + 1];
+        v[4] = mm.row[w];
+        if constexpr (kMetric == kAffine2p) {
+          v[5] = op2.row[w - 1];
+          v[6] = i2.row[w - 1];
+          v[7] = op2.row[w + 1];
+          v[8] = d2.row[w + 1];
+        }
+      }
+    };
+    // diagonal k's cells of s + 1 from its source cells v
+    auto compute = [&](int k, const int* v) {
       const int w = k - kmin;
       int arr[kComps];
       int choice, mval;
       if constexpr (kEditLike) {
-        int pm =
-            max(pack(at(mm, w + 1, W), 3), pack(at(mm, w - 1, W) + 1, 1));
+        int pm = max(pack(v[0], 3), pack(v[1] + 1, 1));
         if constexpr (kMetric == kEdit) {
-          pm = max(pack(at(mm, w, W) + 1, 5), pm);
+          pm = max(pack(v[2] + 1, 5), pm);
         }
         mval = pm >> 3;
         choice = one_comp_source(pm);
       } else if constexpr (kMetric == kLinear) {
-        const int pm = max(pack(at(mm, w, W) + 1, 5),
-                           max(pack(at(op, w + 1, W), 3),
-                               pack(at(op, w - 1, W) + 1, 1)));
+        const int pm = max(pack(v[0] + 1, 5),
+                           max(pack(v[1], 3), pack(v[2] + 1, 1)));
         mval = pm < 0 ? kNull : (pm >> 3);
         choice = one_comp_source(pm);
       } else {
         int i1_ext, d1_ext;
-        const int ins1 =
-            gap_cell(at(op, w - 1, W), at(i1, w - 1, W), 1, &i1_ext);
-        const int del1 =
-            gap_cell(at(op, w + 1, W), at(d1, w + 1, W), 0, &d1_ext);
-        const int mis = at(mm, w, W) + 1;
+        const int ins1 = gap_cell(v[0], v[1], 1, &i1_ext);
+        const int del1 = gap_cell(v[2], v[3], 0, &d1_ext);
+        const int mis = v[4] + 1;
         arr[I1] = ins1;
         arr[D1] = del1;
         int pm, raw;
         if constexpr (kMetric == kAffine2p) {
           int i2_ext, d2_ext;
-          const int ins2 =
-              gap_cell(at(op2, w - 1, W), at(i2, w - 1, W), 1, &i2_ext);
-          const int del2 =
-              gap_cell(at(op2, w + 1, W), at(d2, w + 1, W), 0, &d2_ext);
+          const int ins2 = gap_cell(v[5], v[6], 1, &i2_ext);
+          const int del2 = gap_cell(v[7], v[8], 0, &d2_ext);
           arr[kComps - 2] = ins2;
           arr[kComps - 1] = del2;
           pm = max(max(pack(mis, 5), pack(del2, 4)),
@@ -1806,8 +1973,8 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
 #pragma unroll
       for (int c = 0; c < kComps; ++c) {
         if (!prod[c]) arr[c] = kNull;
-        const int v = arr[c] - k;
-        if (arr[c] >= 0 && arr[c] <= tlen && v >= 0 && v <= plen) {
+        const int d = arr[c] - k;
+        if (arr[c] >= 0 && arr[c] <= tlen && d >= 0 && d <= plen) {
           wmin[c] = min(wmin[c], w);
           wmax[c] = max(wmax[c], w);
         }
@@ -1817,16 +1984,34 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         choices[static_cast<size_t>(s1 - seg_base) * BW + w] =
             static_cast<uint8_t>(choice);
       }
+    };
+    for (int k0 = lo_n; write && k0 <= hi_n; k0 += 2 * GT) {
+      const int ka = k0 + t, kb = ka + GT;
+      int va[kSrc], vb[kSrc];
+      if (ka <= hi_n) gather(ka - kmin, va);
+      if (kb <= hi_n) gather(kb - kmin, vb);
+      if (ka <= hi_n) compute(ka, va);
+      if (kb <= hi_n) compute(kb, vb);
     }
-    __syncwarp();
+    // the step's second barrier, with the 2 * kComps trim bounds
+    if (!one) {
+#pragma unroll
+      for (int c = 0; c < kComps; ++c) {
+        grp.post_min(c, wmin[c]);
+        grp.post_max(kComps + c, wmax[c]);
+      }
+    }
+    grp.sync();
 
     // end trim per component: of the row's old band and of the cells just
     // written, what lies outside the trimmed band goes back to NULL
     int t_lo[kComps], t_hi[kComps];
 #pragma unroll
     for (int c = 0; c < kComps; ++c) {
-      const int first = __reduce_min_sync(kFull, wmin[c]);
-      const int last = __reduce_max_sync(kFull, wmax[c]);
+      const int first = one ? __reduce_min_sync(kFull, wmin[c])
+                            : grp.fold_min(c);
+      const int last = one ? __reduce_max_sync(kFull, wmax[c])
+                           : grp.fold_max(kComps + c);
       const bool keep = prod[c] && first < W;
       int tlo = keep ? first + kmin : 1;
       int thi = keep ? last + kmin : -1;
@@ -1841,7 +2026,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         hi_x = max(hi_x, hi_n);
       }
       null_outside(off + (p.base[c] + slot1[c]) * W, lo_x, hi_x, tlo, thi,
-                   kmin, lane);
+                   kmin, grp);
       t_lo[c] = tlo;
       t_hi[c] = thi;
       slot[c] = slot1[c];
@@ -1853,7 +2038,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         if (kEditLike && tlo > thi) nnull = kBig;
       }
     }
-    if (lane == 0) {
+    if (t == 0) {
 #pragma unroll
       for (int c = 0; c < kComps; ++c) {
         const int row = p.base[c] + slot1[c];
@@ -1861,7 +2046,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
         lohi[2 * row + 1] = t_hi[c];
       }
     }
-    __syncwarp();
+    if (one) __syncwarp();
 
     if (overflow) {
       status = ST_OVERFLOW_W;
@@ -1876,11 +2061,11 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
   if (carry != nullptr) {
     // the state, byte for byte the general build's: a pair still running
     // stays running there, whatever its result says below
-    __syncwarp();
-    for (int i = lane; i < p.rows * W / 4; i += 32) ring_g[i] = off4[i];
+    grp.sync();
+    for (int i = t; i < p.rows * W / 4; i += GT) ring_g[i] = off4[i];
     int32_t* lg = p.lohi + static_cast<size_t>(b) * p.rows * 2;
-    for (int i = lane; i < p.rows * 2; i += 32) lg[i] = lohi[i];
-    if (lane == 0) {
+    for (int i = t; i < p.rows * 2; i += GT) lg[i] = lohi[i];
+    if (t == 0) {
       carry[0] = s;
       carry[1] = status;
       carry[2] = final_s;
@@ -1899,7 +2084,7 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
     status = ST_OVERFLOW_S;
     final_s = s;
   }
-  if (lane == 0) {
+  if (t == 0) {
     p.res[b] = status;
     p.res[p.B + b] = final_s;
     p.res[2 * p.B + b] = end_k;
@@ -1907,29 +2092,55 @@ __device__ __forceinline__ void warp_pair(const Params& p, int b, int* off,
   }
 }
 
-// A persistent grid of warps, as many as the SMs hold at once: warp i of
-// block j starts on pair j * P + i, then takes the next pair from the
+// A persistent grid of groups, as many as the SMs hold at once: group i of
+// block j (Params::cluster warps each, threads [32 * G * i, 32 * G * (i +
+// 1))) starts on pair j * P + i, then takes the next pair from the
 // launch's counter (res[4 * B], zeroed before a launch that has fewer
-// warps than pairs), so a warp whose
-// pair ends early takes another instead of idling until the slowest pair
-// of its block ends.
+// groups than pairs), so a group whose pair ends early takes another
+// instead of idling until the slowest pair of its block ends. With G > 1
+// the group's thread 0 posts the next pair in one of two slots of its
+// shared memory, in turns, behind the group's barrier: a slot is written
+// again only after a later barrier that every reader of it has passed.
 template <int kMetric, int kSpan, bool kRecord, bool kHeur>
-__global__ void __launch_bounds__(kWarpMaxPairs * 32)
-    fused_loop_warp(Params p) {
-  extern __shared__ __align__(16) int smem_warp[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int* off = smem_warp + warp * warp_pair_ints(p.rows, p.W);
-  const int warps = gridDim.x * (blockDim.x >> 5);
-  int b = blockIdx.x * (blockDim.x >> 5) + warp;
+__global__ void __launch_bounds__(kGroupMaxThreads)
+    fused_loop_group(Params p) {
+  extern __shared__ __align__(16) int smem_group[];
+  constexpr int kPartials =
+      2 * kMaxComps + 1 + (kHeur ? kHeurReductions : 0);
+  const int G = p.cluster;
+  const int GT = 32 * G;
+  const int P = blockDim.x / GT;
+  const int slot = threadIdx.x / GT;
+  int* off =
+      smem_group + slot * group_pair_ints(p.rows, p.W, G, kPartials);
+  int* red = off + p.rows * (p.W + 2);
+  int* next = red + kPartials * G;
+  Group grp;
+  grp.t = threadIdx.x - slot * GT;
+  grp.lane = threadIdx.x & 31;
+  grp.g = grp.t >> 5;
+  grp.G = G;
+  grp.GT = GT;
+  grp.bar = 1 + slot;
+  grp.red = red;
+  const int groups = gridDim.x * P;
+  int b = blockIdx.x * P + slot;
+  int turn = 0;
   while (b < p.B) {
-    warp_pair<kMetric, kSpan, kRecord, kHeur>(p, b, off, lane);
-    if (warps >= p.B) break;  // a warp a pair: the counter is not zeroed
-    int next = 0;
-    if (lane == 0) next = atomicAdd(p.res + 4 * p.B, 1);
-    b = warps + __shfl_sync(kFull, next, 0);
-    // the last pair's reads of its ring before the next pair's fill
-    __syncwarp();
+    group_pair<kMetric, kSpan, kRecord, kHeur>(p, b, off, grp);
+    if (groups >= p.B) break;  // a group a pair: the counter is not zeroed
+    if (G == 1) {
+      int n = 0;
+      if (grp.lane == 0) n = atomicAdd(p.res + 4 * p.B, 1);
+      b = groups + __shfl_sync(kFull, n, 0);
+      // the last pair's reads of its ring before the next pair's fill
+      __syncwarp();
+    } else {
+      if (grp.t == 0) next[turn] = atomicAdd(p.res + 4 * p.B, 1);
+      grp.sync();
+      b = groups + next[turn];
+      turn ^= 1;
+    }
   }
 }
 
@@ -1948,15 +2159,16 @@ int failed(cudaError_t e) {
 
 // The build the caller chose: the general kernel takes any launch; the
 // narrow one a one-shot run on the equality words with a thread a
-// diagonal and the ring in shared memory; the warp one threads / 32 pairs
-// a block, each pair's ring in shared memory, one shot or a segment, on
-// the words or the table; the cluster one a pair a cluster of
-// Params::cluster CTAs, each a slice of W / cluster diagonals and its
-// columns of the ring. Shared memory: the general and the narrow kernel
-// hold the ring (unless it lives in the caller's global ring [B, rows,
-// W]), its bands and the partials of the block reductions; the warp
-// kernel a ring and its bands a pair; the cluster kernel its columns of
-// the ring, the bands and rows of C * nwarps partials.
+// diagonal and the ring in shared memory; the group one threads / (32 *
+// G) pairs a block, G = Params::cluster warps each, each pair's ring in
+// shared memory, one shot or a segment, on the words or the table; the
+// cluster one a pair a cluster of Params::cluster CTAs, each a slice of
+// W / cluster diagonals and its columns of the ring. Shared memory: the
+// general and the narrow kernel hold the ring (unless it lives in the
+// caller's global ring [B, rows, W]), its bands and the partials of the
+// block reductions; the group kernel a ring, its bands and (G > 1) its
+// fold partials a pair; the cluster kernel its columns of the ring, the
+// bands and rows of C * nwarps partials.
 template <int kMetric, int kSpan, bool kRecord, bool kHeur>
 int launch(const Params& p, int build, cudaStream_t stream) {
   void (*kernel)(Params);
@@ -1964,10 +2176,13 @@ int launch(const Params& p, int build, cudaStream_t stream) {
   int grid = p.B;
   const int partials =
       2 * n_comps(kMetric) + 1 + (kHeur ? kHeurReductions : 0);
-  if (build == kBuildWarp) {
-    const int pairs = p.threads / 32;
-    kernel = fused_loop_warp<kMetric, kSpan, kRecord, kHeur>;
-    smem = static_cast<size_t>(pairs) * warp_pair_ints(p.rows, p.W) *
+  if (build == kBuildGroup) {
+    const int pairs = p.threads / (32 * p.cluster);
+    kernel = fused_loop_group<kMetric, kSpan, kRecord, kHeur>;
+    smem = static_cast<size_t>(pairs) *
+           group_pair_ints(p.rows, p.W, p.cluster,
+                           2 * kMaxComps + 1 +
+                               (kHeur ? kHeurReductions : 0)) *
            sizeof(int);
     grid = (p.B + pairs - 1) / pairs;
   } else if (build == kBuildCluster) {
@@ -2020,10 +2235,10 @@ int launch(const Params& p, int build, cudaStream_t stream) {
     if (e != cudaSuccess) return failed(e);
     return static_cast<int>(cudaGetLastError());
   }
-  if (build == kBuildWarp) {
+  if (build == kBuildGroup) {
     // no more blocks than the SMs hold at once (asked of the runtime once
     // a device, block size and shared memory); the pair counter at 0
-    // unless every pair has a warp of its own
+    // unless every pair has a group of its own
     static std::mutex mu;
     static int cached_device = -1, cached_threads = 0, cached_resident = 0;
     static size_t cached_smem = 0;
@@ -2051,7 +2266,8 @@ int launch(const Params& p, int build, cudaStream_t stream) {
     }
     if (resident == 0) return static_cast<int>(cudaErrorInvalidValue);
     grid = min(grid, resident);
-    if (static_cast<long long>(grid) * (p.threads / 32) < p.B) {
+    if (static_cast<long long>(grid) * (p.threads / (32 * p.cluster)) <
+        p.B) {
       e = cudaMemsetAsync(p.res + 4 * p.B, 0, sizeof(int32_t), stream);
       if (e != cudaSuccess) return failed(e);
     }
@@ -2096,7 +2312,7 @@ extern "C" {
 // Launch the loop for B pairs on `stream`; returns the cudaError_t of the
 // launch (0 on success). All pointers are device pointers; `frees` is
 // read only on an ends-free span, `choices` written only when record;
-// `res` holds 4 * B + 1 ints, the last the warp build's pair counter.
+// `res` holds 4 * B + 1 ints, the last the group build's pair counter.
 // The extension reads `table` ([Ltp, B, W], uint8 when table_u8 else
 // int16) when it is not nullptr, else `bits`. `ring`, `lohi` and `carry`
 // are the state of a segmented run (all nullptr for a one-shot run),
@@ -2110,11 +2326,12 @@ extern "C" {
 // of the cascade's nine parameters (::heuristic_params), whose first, the
 // strategy bits, is 0 for the exact loop; seed_div is -match, read on the
 // seeded span. `build` is the kernel the caller chose (kBuild*; `threads`
-// is a block's threads, for the warp build 32 times its pairs, for the
-// cluster build a CTA's, at most W / cluster and kClusterThreads,
-// `cluster` the CTAs a pair of the cluster build); a launch
-// the build cannot take returns cudaErrorInvalidValue and runs nothing,
-// and a cluster the card cannot schedule cudaErrorInvalidConfiguration.
+// is a block's threads, for the group build 32 * G times its pairs, for
+// the cluster build a CTA's, at most W / cluster and kClusterThreads;
+// `cluster` the units a pair: the group build's G warps, the cluster
+// build's CTAs); a launch the build cannot take returns
+// cudaErrorInvalidValue and runs nothing, and a cluster the card cannot
+// schedule cudaErrorInvalidConfiguration.
 int wfa_fused_loop(const void* bits, const void* table, int table_u8,
                    int Ltp, const void* plen, const void* tlen,
                    const void* frees, void* choices, void* res, void* ring,
@@ -2138,15 +2355,20 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the narrow build: a one-shot run on the equality words, the ring in
-  // shared memory, a thread a diagonal; the warp build: the ring in shared
-  // memory, at most kWarpMaxPairs pairs a block; the cluster build: the
-  // ring in shared memory, W cut into `cluster` slices of whole warps, at
-  // most a thread a diagonal
+  // shared memory, a thread a diagonal; the group build: the ring in
+  // shared memory, whole groups of G warps in a block of at most
+  // kGroupMaxThreads threads, at most kGroupMaxPairs pairs a block, and
+  // with G > 1 a named barrier a pair; the cluster build: the ring in
+  // shared memory, W cut into `cluster` slices of whole warps, at most a
+  // thread a diagonal
   const bool one_shot = carry == nullptr && table == nullptr &&
                         !ring_global && fresh && seg_base == 0;
+  const int group_pairs = cluster >= 1 ? threads / (32 * cluster) : 0;
   if ((build == kBuildNarrow && !(one_shot && threads == W)) ||
-      (build == kBuildWarp &&
-       !(!ring_global && threads <= 32 * kWarpMaxPairs)) ||
+      (build == kBuildGroup &&
+       !(!ring_global && cluster >= 1 && threads % (32 * cluster) == 0 &&
+         threads <= kGroupMaxThreads && group_pairs <= kGroupMaxPairs &&
+         (cluster == 1 || group_pairs <= kNamedBarriers))) ||
       (build == kBuildCluster &&
        !(!ring_global && cluster >= 1 && cluster <= kClusterMax &&
          W % (32 * cluster) == 0 && threads <= W / cluster &&
@@ -2170,7 +2392,7 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
   p.ring_global = ring_global;
   p.seg_base = seg_base;
   p.threads = threads;
-  p.cluster = build == kBuildCluster ? cluster : 1;
+  p.cluster = (build == kBuildGroup || build == kBuildCluster) ? cluster : 1;
   p.B = B;
   p.W = W;
   p.NQ = NQ;

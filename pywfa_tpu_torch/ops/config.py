@@ -179,6 +179,28 @@ def full_config(attr, plen: int, tlen: int, wildcard: int = -1,
     )
 
 
+def score_band(metric, gap_opening1: int, gap_extension1: int,
+               gap_extension2: int, scope: int, S: int, diff: int) -> int:
+    """Band width sufficient for any alignment of score <= S between
+    sequences whose lengths differ by `diff`: a wavefront grows at most
+    one diagonal a side every gap-extension step (every gap-opening one
+    under gap-linear, every step under edit and indel), plus the target
+    diagonal's offset, padded by the scope as full_config pads W. The
+    batch path sizes a rung's W by it (batch._band_for_score), the fused
+    loop the group build's warps a pair
+    (ops/fused_loop.py::group_size)."""
+    if metric == DistanceMetric.GAP_AFFINE:
+        den = max(1, gap_extension1)
+    elif metric == DistanceMetric.GAP_AFFINE_2P:
+        den = max(1, min(gap_extension1, gap_extension2))
+    elif metric == DistanceMetric.GAP_LINEAR:
+        den = max(1, gap_opening1)
+    else:
+        den = 1
+    reach = min(S, S // den + 1)
+    return 2 * (reach + diff) + 2 * (scope + 4) + 8
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 

@@ -15,11 +15,12 @@ reference's `align_batch_pallas`.
 
 `align_batch_fused_loop` is the entry point. On CUDA tensors it launches
 the hand-written kernel in `csrc/fused_loop.cu`, in the build that
-`kernel_build` picks: for a band of at most 1024 diagonals, the warp build
-(one warp a pair over the live band, several pairs a block; one shot or a
-segment, on the equality words or the run-length table), or the narrow
-build (one block a pair) for a one-shot terminal rung, whose score cap
-passes its width; for a band past 3072 diagonals or a ring past one
+`kernel_build` picks: for a band of at most 1024 diagonals, the group
+build (G warps a pair over the live band, G from `group_size`; one shot
+or a segment, on the equality words or the run-length table), or the
+narrow build (one block a pair, a thread a diagonal) for a one-shot
+terminal rung, whose score cap passes its width, where the group build
+lost to it on the card; for a band past 3072 diagonals or a ring past one
 block's shared memory the cluster build (one pair on a thread-block
 cluster of up to 8 CTAs, a slice of the band and of the ring each); else
 the general build (one block a pair); on CPU
@@ -55,7 +56,7 @@ from .config import (
     D1, D2, I1, I2, M, MSRC_D1, MSRC_D2, MSRC_I1, MSRC_I2, MSRC_NONE,
     MSRC_SEED, MSRC_X,
     NULL, NULL_THRESHOLD, ST_END_REACHED, ST_END_UNREACHABLE, ST_MAX_STEPS,
-    ST_OVERFLOW_S, ST_OVERFLOW_W, ST_RUNNING, EngineConfig,
+    ST_OVERFLOW_S, ST_OVERFLOW_W, ST_RUNNING, EngineConfig, score_band,
 )
 
 # the kernel's metric codes (csrc/fused_loop.cu) and the variant-name
@@ -94,9 +95,11 @@ TABLE_VARIANTS = tuple(v + "_table" for v in VARIANTS)
 variant_launches = dict.fromkeys(VARIANTS + TABLE_VARIANTS, 0)
 
 # the kernel builds of csrc/fused_loop.cu, in the order of their codes,
-# and the launches align_batch_fused_loop made of each
-BUILDS = ("general", "narrow", "warp", "cluster")
+# and the launches align_batch_fused_loop made of each; of the group
+# build's, by its G (warps a pair), in group_launches
+BUILDS = ("general", "narrow", "group", "cluster")
 build_launches = dict.fromkeys(BUILDS, 0)
+group_launches = {}
 
 # shared memory one block may use on sm_90, shared memory of one SM, and
 # what the card sets aside of it for each resident block (bytes)
@@ -104,10 +107,21 @@ SMEM_LIMIT = 232448
 SM_SMEM = 233472
 BLOCK_SMEM_RESERVED = 1024
 MAX_THREADS = 1024
-# the warp build: at most this many pairs (warps) a block; the SMs of an
-# H100 SXM, over which a small batch is spread
-WARP_MAX_PAIRS = 8
+# the group build (csrc/fused_loop.cu, kGroupMaxPairs, kGroupMaxThreads,
+# kNamedBarriers): at most this many pairs a block, threads a block (its
+# launch bound), and pairs a block with G > 1 (a named barrier each); the
+# SMs of an H100 SXM, over which a small batch is spread
+GROUP_MAX_PAIRS = 8
+GROUP_MAX_THREADS = 256
+NAMED_BARRIERS = 15
 SMS = 132
+# the warps of the group build an SM keeps issuing before its issue
+# slots, not a step's dependent chain, set the step: every warp of a pair
+# runs the step's uniform chain, and at the terminal rung 4 warps a pair
+# took 1.56 us a step at one pair an SM and 1.72 at two, 8 warps 1.55 and
+# 1.88, 12 warps 1.66 at one; at four pairs an SM 1 or 2 warps were best
+# (PERF.md, the step sweep); G is cut to GROUP_WARPS_A_SM / (pairs an SM)
+GROUP_WARPS_A_SM = 8
 # the cluster build: at most this many CTAs a pair (the portable cluster
 # size of sm_90)
 CLUSTER_MAX = 8
@@ -170,27 +184,70 @@ def ring_in_global(cfg: EngineConfig) -> bool:
     return smem_bytes(cfg) > SMEM_LIMIT
 
 
-def warp_pair_bytes(cfg: EngineConfig) -> int:
-    """Shared memory one pair of the warp build takes: its ring
-    [rows, W] and its bands [rows, 2], int32, rounded up to 16 bytes."""
+# rows of the group build's fold partials a pair with G > 1: the trim's
+# 2 * 5 (every metric's, the 2-piece metric's five components), the
+# ends-free first hit, the cascade's (csrc/fused_loop.cu, kRowTerm)
+GROUP_PARTIALS = 2 * 5 + 1
+
+
+def group_pair_bytes(cfg: EngineConfig, G: int = 1) -> int:
+    """Shared memory one pair of the group build takes with G warps: its
+    ring [rows, W] and its bands [rows, 2], int32, and with G > 1 the
+    rows of G fold partials and two slots of the next pair's index;
+    rounded up to 16 bytes."""
     rows = sum(ring_depths(cfg))
-    return -(-rows * (cfg.W + 2) // 4) * 16
+    ints = rows * (cfg.W + 2)
+    if G > 1:
+        partials = GROUP_PARTIALS + (HEUR_REDUCTIONS if cfg.strategy else 0)
+        ints += partials * G + 2
+    return -(-ints // 4) * 16
 
 
-def warp_pairs(cfg: EngineConfig, B: int, sms: int = SMS) -> int:
-    """Pairs a block of the warp build. Shared memory bounds the pairs an
-    SM holds, so P is the one up to WARP_MAX_PAIRS whose blocks keep the
+def group_pairs(cfg: EngineConfig, B: int, G: int = 1,
+                sms: int = SMS) -> int:
+    """Pairs a block of the group build at G warps a pair; 0 when one
+    pair's ring passes a block's shared memory or one group a block's
+    GROUP_MAX_THREADS threads. With G > 1, one pair a block, so that the
+    few long pairs of a rung, which set its time, land on SMs of their
+    own instead of sharing one with their neighbours in the batch (two a
+    block put the e2e terminal rung's 64 unrelated pairs of 256 on 32 SMs,
+    two by two). With one warp a pair, shared memory bounds the pairs an SM
+    holds, so P is the one up to GROUP_MAX_PAIRS whose blocks keep the
     most pairs resident on an SM (the largest such), cut to ceil(B / sms)
-    so that a small batch spreads over the SMs; 0 when one pair's ring
-    passes a block's shared memory."""
-    per = warp_pair_bytes(cfg)
-    best = (0, 0)
-    for P in range(1, WARP_MAX_PAIRS + 1):
-        if P * per > SMEM_LIMIT:
-            break
-        resident = P * (SM_SMEM // (P * per + BLOCK_SMEM_RESERVED))
-        best = max(best, (resident, P))
-    return min(best[1], -(-B // sms)) if best[1] else 0
+    so that a small batch spreads over the SMs."""
+    per = group_pair_bytes(cfg, G)
+    if per > SMEM_LIMIT or 32 * G > GROUP_MAX_THREADS:
+        return 0
+    if G > 1:
+        return 1
+    best = max((P * (SM_SMEM // (P * per + BLOCK_SMEM_RESERVED)), P)
+               for P in range(1, GROUP_MAX_PAIRS + 1)
+               if P * per <= SMEM_LIMIT)
+    return min(best[1], -(-B // sms))
+
+
+def live_band(cfg: EngineConfig) -> int:
+    """Diagonals a pair's band can hold at this rung: what the score cap
+    allows (config.score_band, the reach the batch path sizes W by), at
+    most the W - 4 the kernel keeps inside [kmin + 2, kmin + W - 3]."""
+    return min(cfg.W - 4, score_band(cfg.metric, cfg.gap_opening1,
+                                     cfg.gap_extension1, cfg.gap_extension2,
+                                     cfg.scope, cfg.S_cap,
+                                     abs(cfg.Lp - cfg.Lt)))
+
+
+def group_size(cfg: EngineConfig, B: int, sms: int = SMS) -> int:
+    """G, the warps a pair of the group build: enough that one stride of
+    32 * G diagonals covers the live band (live_band), cut so that the
+    pairs an SM holds, ceil(B / sms), keep at most GROUP_WARPS_A_SM warps
+    issuing, and to a block's GROUP_MAX_THREADS; at least one. A rung of
+    many pairs (the first rung, 4096 pairs) gets one warp a pair; a rung
+    of a few hundred pairs over a band of hundreds of diagonals (stream
+    E's second rung, stream F's segments: 4) or of a few pairs (a probe
+    batch's rungs, one WavefrontAligner call: 3-8) several."""
+    per_sm = -(-B // sms)
+    return max(1, min(-(-live_band(cfg) // 32), GROUP_WARPS_A_SM // per_sm,
+                      GROUP_MAX_THREADS // 32))
 
 
 def cluster_smem_bytes(cfg: EngineConfig, C: int) -> int:
@@ -222,40 +279,53 @@ def cluster_size(cfg: EngineConfig) -> int:
 def kernel_build(cfg: EngineConfig, B: int, table=None, state=None) -> str:
     """The build of csrc/fused_loop.cu that a launch of B pairs takes (one
     of BUILDS). A band of at most MAX_THREADS diagonals whose ring fits a
-    warp's share of shared memory takes the warp build (one warp a pair
-    over the live band), with a segment's state or the run-length table
-    too (the segments of 1 kb reads), unless a one-shot run's score cap
-    passes its width, as at the terminal rungs, which are sized for pairs
-    as far apart as unrelated ones: their live bands fill W, and a block a
-    pair (the narrow build) walks such a band in one pass where a warp
-    walks it 32 diagonals at a time (PERF.md, kernel table). A wider band
-    takes the cluster build (a pair a cluster of cluster_size CTAs, the
-    ring in their shared memory) where a block a pair would give a thread
-    more than GENERAL_MAX_DIAGONALS diagonals or keep the ring in global
-    memory (the 5 kb pairs' W=3584, batch G's W=6912); else the general
-    build (a block a pair), which was as fast at W=1792 and W=2176, and
-    so does a ring that no cluster holds."""
-    if cfg.W <= MAX_THREADS and warp_pairs(cfg, B) > 0:
+    pair's share of a block takes the group build (G warps a pair over
+    the live band, G from group_size), one shot or a segment's state, on
+    the words or the run-length table: the first rungs at one warp a pair,
+    a batch's second rung, a segment and a few pairs over a wide band at
+    several; unless a one-shot run's score cap passes its width, as at the
+    terminal rungs, which are sized for pairs as far apart as unrelated
+    ones: their live bands fill W, and there a block a pair, a thread a
+    diagonal (the narrow build), took 0.448 ms alone at the gap-affine
+    terminal rung where the group build took 0.561 (PERF.md, kernel
+    table). A wider band takes the
+    cluster build (a pair a cluster of cluster_size CTAs, the ring in
+    their shared memory) where a block a pair would give a thread more
+    than GENERAL_MAX_DIAGONALS diagonals or keep the ring in global memory
+    (the 5 kb pairs' W=3584, batch G's W=6912); else the general build (a
+    block a pair), which was as fast at W=1792 and W=2176, and so does a
+    ring that no cluster holds."""
+    if cfg.W <= MAX_THREADS and group_pairs(cfg, B) > 0:
         if state is None and table is None and cfg.S_cap > cfg.W:
             return "narrow"
-        return "warp"
+        return "group"
     wide = (-(-cfg.W // MAX_THREADS) > GENERAL_MAX_DIAGONALS
             or ring_in_global(cfg))
     return "cluster" if wide and cluster_size(cfg) else "general"
 
 
-def launch_shape(cfg: EngineConfig, B: int, build: str, dev=None) -> tuple:
-    """(threads a block, CTAs a pair) of a launch of B pairs on `build`:
-    the warp build 32 a pair, as many pairs a block as warp_pairs gives
-    for the device's SMs; the cluster build CLUSTER_DIAGONALS diagonals a
-    thread of a CTA's slice, in whole warps, on each of cluster_size CTAs
-    (a band no cluster holds raises); the narrow build a thread a
-    diagonal; the general build block_threads."""
-    if build == "warp":
+def launch_shape(cfg: EngineConfig, B: int, build: str, dev=None,
+                 group=None) -> tuple:
+    """(threads a block, units a pair) of a launch of B pairs on `build`:
+    the group build G = group_size warps a pair (or `group`), as many
+    pairs a block as group_pairs gives for the device's SMs, 32 * G
+    threads each (a G no block holds raises); the cluster build
+    CLUSTER_DIAGONALS diagonals a thread of a CTA's slice, in whole warps,
+    on each of cluster_size CTAs (a band no cluster holds raises); the
+    narrow build a thread a diagonal; the general build block_threads, one
+    block a pair."""
+    if build == "group":
         sms = (torch.cuda.get_device_properties(dev).multi_processor_count
                if dev is not None and torch.device(dev).type == "cuda"
                else SMS)
-        return 32 * max(warp_pairs(cfg, B, sms), 1), 1
+        G = group_size(cfg, B, sms) if group is None else int(group)
+        P = group_pairs(cfg, B, G, sms) if G >= 1 else 0
+        if P == 0:
+            raise RuntimeError(f"fused loop kernel launch failed (group "
+                               f"build): no block holds a pair of G={G} "
+                               f"warps at W={cfg.W} (rows "
+                               f"{sum(ring_depths(cfg))})")
+        return 32 * G * P, G
     if build == "cluster":
         C = cluster_size(cfg)
         if C == 0:
@@ -443,7 +513,7 @@ def _check(cfg: EngineConfig, bits, plen, tlen, frees, table, state, fresh):
 def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
                            max_steps: int, table=None, state=None,
                            fresh: bool = True, seg_base: int = 0,
-                           build=None) -> dict:
+                           build=None, group=None) -> dict:
     """Run the fused score loop over B pairs.
 
     bits: [NQ, B, W] int32 bit patterns (engine.build_eq_bits), or None
@@ -458,12 +528,15 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     dict(status, final_s, end_k, end_off, steps), plus choices
     [S_cap, B, W] uint8 when cfg.record_choices (levels a pair never
     reaches read 0; the level of score s is s - seg_base). `build` (one
-    of BUILDS) overrides kernel_build's choice on CUDA tensors; a build
-    the launch cannot take raises.
+    of BUILDS) overrides kernel_build's choice on CUDA tensors, and
+    `group` the group build's G (group_size); a build or a G the launch
+    cannot take raises.
     """
     _check(cfg, bits, plen, tlen, frees, table, state, fresh)
     if build is not None and build not in BUILDS:
         raise ValueError(f"build must be one of {BUILDS}, got {build!r}")
+    if group is not None and build not in (None, "group"):
+        raise ValueError(f"G is the group build's, not the {build} build's")
     max_steps = min(int(max_steps), 2**31 - 1)
     ext = table if table is not None else bits
     if ext.device.type == "cpu":
@@ -489,7 +562,7 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     # score-only scope: no [S_cap, B, W] record, so no memset of it either
     choices = (torch.zeros((cfg.S_cap, B, W), dtype=torch.uint8, device=dev)
                if record else None)
-    # status, final_s, end_k, end_off; then the warp build's pair counter
+    # status, final_s, end_k, end_off; then the group build's pair counter
     res = torch.empty(4 * B + 1, dtype=torch.int32, device=dev)
     x, o1, e1, o2, e2 = score_distances(cfg)
     depths = ring_depths(cfg)
@@ -497,7 +570,9 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     in_global = ring_in_global(cfg)
     if build is None:
         build = kernel_build(cfg, B, table, state)
-    threads, cluster = launch_shape(cfg, B, build, dev)
+    # units a pair: the group build's warps, the cluster build's CTAs
+    threads, units = launch_shape(cfg, B, build, dev,
+                                  group if build == "group" else None)
     # only the general build keeps the ring in global memory
     in_global = in_global and build == "general"
     if state is not None:
@@ -519,7 +594,7 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
             state["lohi"].data_ptr() if state is not None else None,
             state["carry"].data_ptr() if state is not None else None,
             int(fresh), int(in_global), seg_base, BUILDS.index(build),
-            threads, cluster,
+            threads, units,
             (ctypes.c_int * len(depths))(*depths), B, W, NQ,
             cfg.S_cap, cfg.scope, x, o1, e1, o2, e2, max_steps,
             METRIC_CODE[cfg.metric], span_code(cfg), int(record),
@@ -529,6 +604,8 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
                            "build): " + cuda_build.error_string(rc))
     variant_launches[variant(cfg, table is not None)] += 1
     build_launches[build] += 1
+    if build == "group":
+        group_launches[units] = group_launches.get(units, 0) + 1
     res = res[:4 * B].view(4, B)
     out = dict(status=res[0], final_s=res[1], end_k=res[2], end_off=res[3],
                steps=res[1].max())

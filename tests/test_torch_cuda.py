@@ -584,17 +584,22 @@ def test_table_variants_match_plain_and_bits(dev, kw, frees_row, W):
 ])
 def test_narrow_and_general_kernels_match_plain_version(dev, kw, frees_row):
     """A one-shot run of a band of at most 1024 diagonals on the equality
-    words launches the warp build; the narrow build takes the same run,
-    and the general one the same run with a state to fill. All three give
-    the plain version's bytes."""
+    words launches the group build; at G = 1, 2, 4 and 8 warps a pair (a
+    stride of 32, 64, 128 and 256 diagonals; 8 is the widest group a block
+    of the kernel's launch bound holds) it gives the plain version's bytes,
+    and so do the narrow build on the same run and the general build with
+    a state to fill."""
     attr = RefAligner(backend="numpy", **kw)._attributes()
     pairs = _window_pairs(75, 24, 300, 20 if frees_row[2] else 0)
     cfg = C.full_config(attr, 320, 352, W=512, S_cap=400,
                         record_choices=kw.get("scope") != "score")
     args = _inputs(cfg, pairs, dev, frees_row)
-    assert fused_loop.kernel_build(cfg, len(pairs)) == "warp"
+    assert fused_loop.kernel_build(cfg, len(pairs)) == "group"
+    gs = (1, 2, 4, fused_loop.GROUP_MAX_THREADS // 32)
     before = dict(fused_loop.build_launches)
-    warp = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    before_g = {G: fused_loop.group_launches.get(G, 0) for G in gs}
+    groups = {G: fused_loop.align_batch_fused_loop(
+        cfg, *args, 2**31 - 1, build="group", group=G) for G in gs}
     narrow = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
                                                build="narrow")
     general = fused_loop.align_batch_fused_loop(
@@ -602,15 +607,98 @@ def test_narrow_and_general_kernels_match_plain_version(dev, kw, frees_row):
                                                           dev), fresh=True,
         build="general")
     assert {k: v - before[k] for k, v in fused_loop.build_launches.items()
-            } == {"warp": 1, "narrow": 1, "general": 1, "cluster": 0}
+            } == {"group": len(gs), "narrow": 1, "general": 1, "cluster": 0}
+    assert all(fused_loop.group_launches[G] == before_g[G] + 1 for G in gs)
     plain = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
     torch.cuda.synchronize()
     for k in KEYS:
         if k in plain:
-            assert torch.equal(warp[k], plain[k]), k
+            for G in gs:
+                assert torch.equal(groups[G][k], plain[k]), (G, k)
             assert torch.equal(narrow[k], plain[k]), k
             assert torch.equal(general[k], plain[k]), k
     assert int((plain["status"] == C.ST_END_REACHED).sum()) >= 12
+
+
+def _terminal_case(case):
+    """(config, pairs, frees row) of one terminal-rung case of the group
+    build: 150 bp reads, half of them unrelated, whose live bands grow to
+    hundreds of diagonals."""
+    pairs = random_pairs(110, 32, 120, 150, 0.1, 0.05, unrelated=0.5,
+                         as_bytes=True)
+    if case.startswith("metric_"):
+        _, metric, scope = case.split("_")
+        attr = _metric_attr(metric, scope=scope)
+        return (C.full_config(attr, 160, 160, record_choices=scope == "full"),
+                pairs, (0, 0, 0, 0))
+    if case.startswith("endsfree"):
+        kw = dict(BONUS["affine"]) if case.endswith("bonus") else {}
+        attr = RefAligner(backend="numpy", pattern_begin_free=10,
+                          pattern_end_free=10, text_begin_free=30,
+                          text_end_free=30, **kw)._attributes()
+        return C.full_config(attr, 160, 160), pairs, (10, 10, 30, 30)
+    # every heuristic, at parameters that leave bands wider than 64
+    # diagonals (two warps' stride) on the unrelated pairs
+    params = {
+        "wfadaptive": HeuristicParams(
+            strategy=HS.WFADAPTIVE, min_wavefront_length=5,
+            max_distance_threshold=120, steps_between_cutoffs=1),
+        "wfmash": HeuristicParams(
+            strategy=HS.WFMASH, min_wavefront_length=5,
+            max_distance_threshold=100, steps_between_cutoffs=1),
+        "xdrop": HeuristicParams(strategy=HS.XDROP, xdrop=150,
+                                 steps_between_cutoffs=1),
+        "zdrop": HeuristicParams(strategy=HS.ZDROP, zdrop=200,
+                                 steps_between_cutoffs=2),
+        "banded_static": HeuristicParams(strategy=HS.BANDED_STATIC,
+                                         min_k=-100, max_k=100),
+        "banded_adaptive": HeuristicParams(strategy=HS.BANDED_ADAPTIVE,
+                                           min_k=-90, max_k=90,
+                                           steps_between_cutoffs=2),
+    }[case]
+    attr = dataclasses.replace(_metric_attr("affine"), heuristic=params)
+    return C.full_config(attr, 160, 160), pairs, (0, 0, 0, 0)
+
+
+TERMINAL_CASES = ([f"metric_{m}_{s}" for m in ("affine",) + METRICS
+                   for s in ("full", "score")]
+                  + ["endsfree", "endsfree_bonus", "wfadaptive", "wfmash",
+                     "xdrop", "zdrop", "banded_static", "banded_adaptive"])
+
+
+@pytest.mark.parametrize("case", TERMINAL_CASES)
+def test_group_build_matches_plain_at_terminal_shapes(dev, case):
+    """The terminal rung of 150 bp reads (W=384, or 512 under the 2-piece
+    metric) on the group build, at the G the rule gives 32 pairs (8: two
+    strides over the widest band) and at G = 2 (several strides a pass),
+    and on the build the routing takes (the narrow build where the score
+    cap passes W, else the group build), against the plain version byte
+    for byte: every metric in both scopes, ends-free with and without a
+    match bonus, every heuristic over bands wider than 32 * G."""
+    cfg, pairs, frees_row = _terminal_case(case)
+    args = _inputs(cfg, pairs, dev, frees_row)
+    G = fused_loop.group_size(cfg, len(pairs))
+    assert G > 2
+    routed = fused_loop.kernel_build(cfg, len(pairs))
+    assert routed == ("narrow" if cfg.S_cap > cfg.W else "group")
+    outs = {g: fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
+                                                 build="group", group=g)
+            for g in (G, 2)}
+    outs[routed] = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1)
+    want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
+    torch.cuda.synchronize()
+    for g, got in outs.items():
+        assert set(got) == set(want)
+        for k in (KEYS if cfg.record_choices else KEYS[:4]):
+            assert torch.equal(got[k], want[k]), (g, k)
+    # bands past two warps' stride: some pair reaches a score whose
+    # wavefront may span more than 64 diagonals
+    pad = 2 * (cfg.scope + 4) + 8
+    reach = max((C.score_band(cfg.metric, cfg.gap_opening1,
+                              cfg.gap_extension1, cfg.gap_extension2,
+                              cfg.scope, int(s), 0) - pad) // 2
+                for s in want["final_s"])
+    assert reach > 32
 
 
 def _warp_case(case):
@@ -677,7 +765,7 @@ def _warp_case(case):
     # ragged: 1000 pairs, seven a block, the last block holds six
     attr = RefAligner(backend="numpy", **e2e)._attributes()
     cfg = C.full_config(attr, 96, 96, W=256, S_cap=96)
-    assert fused_loop.warp_pairs(cfg, 1000) == 7
+    assert fused_loop.group_pairs(cfg, 1000) == 7
     return (cfg, random_pairs(104, 1000, 40, 80, 0.05, 0.02, as_bytes=True),
             (0, 0, 0, 0), 2**31 - 1)
 
@@ -691,9 +779,11 @@ WARP_CASES = ([f"metric_{m}_{s}" for m in ("affine",) + METRICS
 
 @pytest.mark.parametrize("case", WARP_CASES)
 def test_warp_kernel_matches_plain_version(dev, case):
-    """The warp build (a warp a pair over the live band, several pairs a
-    block) against the plain version and the general build, byte for byte
-    on the whole choices tensor. Two folds of the cascade ran over every
+    """The group build at one warp a pair (several pairs a block; the
+    ragged case seven pairs a block, the last holding six) and at the G
+    the routing gives, against the plain version and the general build,
+    byte for byte on the whole choices tensor. Two folds of the cascade
+    ran over every
     diagonal of [0, W) and now run over the band: wf-adaptive's minimum
     takes max(plen, tlen) once for the diagonals outside it, and x-drop /
     z-drop name diagonal 0 when no cell of the band is valid. A one-shot
@@ -704,16 +794,19 @@ def test_warp_kernel_matches_plain_version(dev, case):
     args = _inputs(cfg, pairs, dev, frees_row)
     before = dict(fused_loop.build_launches)
     got = fused_loop.align_batch_fused_loop(cfg, *args, max_steps,
-                                            build="warp")
+                                            build="group", group=1)
+    routed = fused_loop.align_batch_fused_loop(cfg, *args, max_steps,
+                                               build="group")
     general = fused_loop.align_batch_fused_loop(cfg, *args, max_steps,
                                                 build="general")
     assert {k: v - before[k] for k, v in fused_loop.build_launches.items()
-            } == {"warp": 1, "narrow": 0, "general": 1, "cluster": 0}
+            } == {"group": 2, "narrow": 0, "general": 1, "cluster": 0}
     want = fused_loop.align_batch_fused_loop_ref(cfg, *args, max_steps)
     torch.cuda.synchronize()
-    assert set(got) == set(want) == set(general)
+    assert set(got) == set(want) == set(general) == set(routed)
     for k in (KEYS if cfg.record_choices else KEYS[:4]):
         assert torch.equal(got[k], want[k]), k
+        assert torch.equal(routed[k], want[k]), k
         assert torch.equal(general[k], want[k]), k
     status = got["status"]
     if case == "overflow_w":
@@ -730,13 +823,15 @@ def test_warp_kernel_matches_plain_version(dev, case):
 
 def test_builds_refuse_launches_they_cannot_take(dev, monkeypatch):
     """The narrow build takes only a one-shot run on the equality words,
-    the warp build only a ring that fits a warp's share of shared memory,
+    the group build only a ring that fits a pair's share of shared memory,
+    in whole groups of G warps, at most GROUP_MAX_THREADS threads a block;
     the cluster build only a band that a cluster of at most CLUSTER_MAX
     CTAs holds, in CTAs of at most CLUSTER_THREADS threads: given more
-    they raise, and nothing falls back."""
+    they raise, the wrapper or the C side, and nothing falls back."""
     cfg = C.full_config(ATTR, 160, 160, W=256, S_cap=96)
     pairs = random_pairs(105, 8, 100, 150, 0.05, 0.0, as_bytes=True)
     args = _inputs(cfg, pairs, dev)
+    before = dict(fused_loop.build_launches)
     with pytest.raises(RuntimeError, match="narrow"):
         fused_loop.align_batch_fused_loop(
             cfg, *args, 2**31 - 1, build="narrow",
@@ -746,18 +841,35 @@ def test_builds_refuse_launches_they_cannot_take(dev, monkeypatch):
             dataclasses.replace(cfg, W=1152), *_inputs(
                 dataclasses.replace(cfg, W=1152), pairs, dev), 2**31 - 1,
             build="narrow")
-    # a ring in global memory: no warp holds it
+    # a G no block holds: the wrapper raises
+    with pytest.raises(RuntimeError, match="group"):
+        fused_loop.align_batch_fused_loop(
+            cfg, *args, 2**31 - 1, build="group",
+            group=fused_loop.GROUP_MAX_THREADS // 32 + 1)
+    with pytest.raises(ValueError, match="group"):
+        fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
+                                          build="general", group=2)
+    # a G that does not divide the block, and a block past the kernel's
+    # launch bound: the C side refuses
+    real_shape = fused_loop.launch_shape
+    for shape in ((96, 2), (1024, 2)):
+        monkeypatch.setattr(fused_loop, "launch_shape",
+                            lambda *a, shape=shape, **k: shape)
+        with pytest.raises(RuntimeError, match="group"):
+            fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
+                                              build="group")
+    monkeypatch.setattr(fused_loop, "launch_shape", real_shape)
+    # a ring in global memory: no group holds it
     wide = C.full_config(ATTR, 1024, 1088, W=4096, S_cap=96)
     assert fused_loop.ring_in_global(wide)
-    with pytest.raises(RuntimeError, match="warp"):
+    with pytest.raises(RuntimeError, match="group"):
         fused_loop.align_batch_fused_loop(wide, *_inputs(wide, pairs, dev),
-                                          2**31 - 1, build="warp")
+                                          2**31 - 1, build="group")
     # a scope whose ring no cluster of at most 8 CTAs holds
     attr = RefAligner(backend="numpy", span="end-to-end",
                       gap_opening=400)._attributes()
     big = C.full_config(attr, 1024, 1088, W=2176, S_cap=96)
     assert fused_loop.cluster_size(big) == 0
-    before = dict(fused_loop.build_launches)
     with pytest.raises(RuntimeError, match="cluster"):
         fused_loop.align_batch_fused_loop(big, *_inputs(big, pairs, dev),
                                           2**31 - 1, build="cluster")
@@ -830,7 +942,7 @@ def test_cluster_kernel_matches_plain_version(dev, case):
     general = fused_loop.align_batch_fused_loop(cfg, *args, 2**31 - 1,
                                                 build="general")
     assert {k: v - before[k] for k, v in fused_loop.build_launches.items()
-            } == {"warp": 0, "narrow": 0, "general": 1, "cluster": 1}
+            } == {"group": 0, "narrow": 0, "general": 1, "cluster": 1}
     want = fused_loop.align_batch_fused_loop_ref(cfg, *args, 2**31 - 1)
     torch.cuda.synchronize()
     assert set(got) == set(want) == set(general)
@@ -882,7 +994,10 @@ def test_wide_band_layouts_match_plain_version(dev, kw, W, in_global):
 def test_segments_match_plain_version(dev, kw, W, record):
     """Start and resume segment by segment, kernel and plain each from
     its own state: equal results, and equal states for the pairs still
-    running; the last segment's result is the one-shot run's."""
+    running (pairs done in an earlier segment return at once); the last
+    segment's result is the one-shot run's. At W=896 the segments run on
+    the group build with G > 1, on the table or, with match classes, on
+    the words."""
     attr = RefAligner(backend="numpy", **kw)._attributes()
     pairs = random_pairs(74, 8, 700, 1000, 0.04, 0.03, as_bytes=True)
     whole = C.full_config(attr, 1024, 1088, W=W, S_cap=1200,
@@ -891,6 +1006,9 @@ def test_segments_match_plain_version(dev, kw, W, record):
     pat, txt, plen, tlen, frees = _token_rows(cfg, pairs, dev)
     ext = TE.build_extension(cfg, pat, txt)
     assert (ext["table"] is not None) == (not cfg.match_classes)
+    if cfg.W <= 1024:
+        assert fused_loop.kernel_build(cfg, len(pairs)) == "group"
+        assert fused_loop.group_size(cfg, len(pairs)) > 1
 
     def run(fn, state, fresh, base):
         return fn(cfg, ext["bits"], plen, tlen, frees, 2**31 - 1,
@@ -922,7 +1040,10 @@ def test_segments_match_plain_version(dev, kw, W, record):
 
 
 @pytest.mark.parametrize("W,seq", [
-    (896, ("warp",)), (896, ("general", "warp")), (896, ("warp", "general")),
+    (896, ("group",)), (896, ("general", "group")),
+    (896, ("group", "general")),
+    # the group build at G = 1, 4 and the routed G in turns
+    (896, ("group:1", "group:4", "group")),
     (2176, ("cluster",)), (2176, ("general", "cluster")),
     (2176, ("cluster", "general")),
 ])
@@ -932,9 +1053,10 @@ def test_segments_change_build_between_segments(dev, W, seq, use_table,
                                                 record):
     """Segment by segment on the table or the equality words, with pairs
     that end in the first segment: each segment on the builds of `seq` in
-    turn gives the plain version's results, and a state byte-equal to a
-    run on the general build alone (a done pair's too), so a state passes
-    between builds."""
+    turn ("group:G" the group build at G warps a pair) gives the plain
+    version's results, and a state byte-equal to a run on the general
+    build alone (a done pair's too), so a state passes between builds and
+    between G."""
     attr = RefAligner(backend="numpy", span="end-to-end")._attributes()
     pairs = (random_pairs(108, 6, 700, 1000, 0.04, 0.03, as_bytes=True)
              + random_pairs(109, 4, 60, 120, 0.02, 0.0, as_bytes=True))
@@ -954,9 +1076,10 @@ def test_segments_change_build_between_segments(dev, W, seq, use_table,
                   for _ in range(3))
     base, n = 0, 0
     while True:
-        build = seq[n % len(seq)]
+        build, _, g = seq[n % len(seq)].partition(":")
         before = fused_loop.build_launches[build]
-        got = run(fused_loop.align_batch_fused_loop, sx, base, build=build)
+        got = run(fused_loop.align_batch_fused_loop, sx, base, build=build,
+                  group=int(g) if g else None)
         assert fused_loop.build_launches[build] == before + 1
         gen = run(fused_loop.align_batch_fused_loop, sg, base,
                   build="general")

@@ -1,18 +1,23 @@
-"""Which build of the fused-loop kernel a launch takes, and the invariant
-the warp build rests on, checked on the CPU.
+"""Which build of the fused-loop kernel a launch takes, with how many
+warps a pair, and the invariant the group build rests on, checked on the
+CPU.
 
-`fused_loop.kernel_build` sends every short-read shape of the batch and
-API paths to the warp build (one warp a pair over the live band), the
-terminal rungs (a score cap past the band's width) to the narrow build
-(a block a pair), the segments and the run-length table of bands up to
-1024 diagonals to the warp build too, bands past 3072 diagonals or with a
-ring past one block to the cluster build (a pair a cluster of CTAs, a
-slice of the band each), and the rest to the general build: bands of
-1025 to 3072 diagonals whose ring fits one block, and a ring that no
-cluster holds. The warp build touches
-only each row's band, so it needs every ring cell outside its row's band
-to be NULL: that is checked on the plain version's state, which every
-build's state equals byte for byte on the card.
+`fused_loop.kernel_build` sends every band of at most 1024 diagonals to
+the group build (G warps a pair over the live band): the short-read
+rungs of the batch and API paths, the segments and the run-length table;
+`fused_loop.group_size` gives G from the band the rung's score cap
+allows and the pairs an SM holds (one warp a pair at the first rung of
+4096 pairs, several at a second rung or a segment of few pairs). The
+one-shot terminal rungs (a score cap past the band's width) go to the
+narrow build (a block a pair), which the group build did not beat on
+the card. Bands past
+3072 diagonals or with a ring past one block go to the cluster build (a
+pair a cluster of CTAs, a slice of the band each), the rest to the
+general build: bands of 1025 to 3072 diagonals whose ring fits one
+block, and a ring that no cluster holds. The group build touches only
+each row's band, so it needs every ring cell outside its row's band to be
+NULL: that is checked on the plain version's state, which every build's
+state equals byte for byte on the card.
 """
 import dataclasses
 
@@ -84,28 +89,35 @@ def _short_read_shapes():
 @pytest.mark.parametrize("name,cfg,B", _short_read_shapes(),
                          ids=lambda v: v if isinstance(v, str) else "")
 def test_short_read_shapes_take_the_warp_build(name, cfg, B):
+    """The short-read rungs take the group build: one warp a pair at 4096
+    pairs (a pair a warp of the SM's issue slots), G from the rule at one
+    API call's 16 pairs."""
     assert cfg.W <= TFL.MAX_THREADS and cfg.S_cap <= 96, name
-    assert TFL.kernel_build(cfg, B) == "warp"
-    P = TFL.warp_pairs(cfg, B)
-    assert 1 <= P <= TFL.WARP_MAX_PAIRS
-    assert P * TFL.warp_pair_bytes(cfg) <= TFL.SMEM_LIMIT
+    assert TFL.kernel_build(cfg, B) == "group"
+    G = TFL.group_size(cfg, B)
+    assert G == (1 if B == 4096 else
+                 min(-(-TFL.live_band(cfg) // 32), TFL.GROUP_WARPS_A_SM))
+    P = TFL.group_pairs(cfg, B, G)
+    assert 1 <= P <= TFL.GROUP_MAX_PAIRS
+    assert P * TFL.group_pair_bytes(cfg, G) <= TFL.SMEM_LIMIT
+    assert TFL.launch_shape(cfg, B, "group") == (32 * G * P, G)
     # a small batch spreads over the SMs, a pair a block
-    assert TFL.warp_pairs(cfg, 16) == 1
+    assert TFL.group_pairs(cfg, 16, G) == 1
 
 
 def test_long_read_shapes_take_the_general_build():
-    """Segments, the table and bands past 1024 diagonals: the warp build
+    """Segments, the table and bands past 1024 diagonals: the group build
     up to 1024 diagonals; past them the cluster build where a block a
     pair would give a thread more than three diagonals or keep the ring in
     global memory, else the general build, which was as fast at W=1792
     and W=2176, and the general build where no cluster holds the ring."""
     attr = _attr(span="end-to-end")
     cfg = C.full_config(attr, 160, 160, W=256, S_cap=96)
-    assert TFL.kernel_build(cfg, 4096) == "warp"
+    assert TFL.kernel_build(cfg, 4096) == "group"
     state = TFL.new_state(cfg, 4, "cpu")
-    assert TFL.kernel_build(cfg, 4, state=state) == "warp"
+    assert TFL.kernel_build(cfg, 4, state=state) == "group"
     table = torch.zeros((200, 4, cfg.W), dtype=torch.uint8)
-    assert TFL.kernel_build(cfg, 4, table=table) == "warp"
+    assert TFL.kernel_build(cfg, 4, table=table) == "group"
     wide = C.full_config(attr, 1024, 1088, W=1152, S_cap=500)
     assert not TFL.ring_in_global(wide)
     assert TFL.kernel_build(wide, 16) == "general"
@@ -116,11 +128,11 @@ def test_long_read_shapes_take_the_general_build():
     assert TFL.kernel_build(in_global, 16) == "cluster"
     assert TFL.launch_shape(in_global, 16, "cluster") == (352, 4)
     assert TFL.launch_shape(in_global, 16, "general") == (1024, 1)
-    # the widest band a warp build takes
-    assert TFL.kernel_build(dataclasses.replace(cfg, W=1024), 16) == "warp"
+    # the widest band a group build takes
+    assert TFL.kernel_build(dataclasses.replace(cfg, W=1024), 16) == "group"
     # stream E's second rung, one shot: 1 kb pairs, W=896, S_cap=768
     assert TFL.kernel_build(
-        C.full_config(attr, 1024, 1024, W=896, S_cap=768), 256) == "warp"
+        C.full_config(attr, 1024, 1024, W=896, S_cap=768), 256) == "group"
     # a scope whose ring fits no cluster of at most CLUSTER_MAX CTAs
     big = C.full_config(_attr(span="end-to-end", gap_opening=400), 1024,
                         1088, W=2176, S_cap=500)
@@ -132,8 +144,9 @@ def test_long_read_shapes_take_the_general_build():
 
 
 def _long_read_shapes():
-    """(name, cfg, B, table, state, build, (threads, cluster)) of the
-    long-read launches: stream F's segments (W=896, the table), resume,
+    """(name, cfg, B, table, state, build, (threads, units a pair)) of the
+    long-read launches: stream F's segments (W=896, the table, 4 warps a
+    pair: a live band of 360 diagonals, two pairs an SM), resume,
     batch G's rung 2 (W=6912, the ring past one block) and rung 1
     (W=1792), the W=2176 shape and the 5 kb API pair's second rung
     (W=3584, four diagonals a thread on a block)."""
@@ -150,10 +163,10 @@ def _long_read_shapes():
     table = torch.zeros((f.Lt + 1, 256, f.W), dtype=torch.int16)
     state = TFL.new_state(dataclasses.replace(f, W=32), 256, "cpu")
     return [
-        ("F_forward", f, 256, table, state, "warp", (64, 1)),
+        ("F_forward", f, 256, table, state, "group", (128, 4)),
         ("F_replay", dataclasses.replace(f, record_choices=True), 256, table,
-         state, "warp", (64, 1)),
-        ("resume", f, 256, table, None, "warp", (64, 1)),
+         state, "group", (128, 4)),
+        ("resume", f, 256, table, None, "group", (128, 4)),
         ("G_forward", g, 16, None, state, "cluster", (288, 8)),
         ("G_replay", dataclasses.replace(g, record_choices=True), 16, None,
          state, "cluster", (288, 8)),
@@ -186,15 +199,15 @@ def test_warp_build_holds_a_segment_at_wide_bands(W, P, resident):
     to ceil(256 / SMs) = 2 pairs a block."""
     cfg = C.full_config(_attr(span="end-to-end"), 1024, 1040, W=W,
                         S_cap=292, record_choices=False)
-    per = TFL.warp_pair_bytes(cfg)
+    per = TFL.group_pair_bytes(cfg)
     assert per == -(-15 * (W + 2) // 4) * 16
-    assert TFL.warp_pairs(cfg, 4096) == P
+    assert TFL.group_pairs(cfg, 4096) == P
     assert P * per <= TFL.SMEM_LIMIT
     assert P * (TFL.SM_SMEM // (P * per + TFL.BLOCK_SMEM_RESERVED)) \
         == resident
-    assert TFL.warp_pairs(cfg, 256) == 2
+    assert TFL.group_pairs(cfg, 256) == 2
     assert TFL.kernel_build(cfg, 256,
-                            state=TFL.new_state(cfg, 2, "cpu")) == "warp"
+                            state=TFL.new_state(cfg, 2, "cpu")) == "group"
 
 
 @pytest.mark.parametrize("W", [1152, 2176, 4096, 5120, 6912, 8192])
@@ -236,16 +249,32 @@ def test_cluster_slices_cover_the_band(metric, W):
 
 @pytest.mark.parametrize("metric", METRICS)
 def test_terminal_rungs_take_the_narrow_build(metric):
-    """A rung whose score cap passes its width expects live bands that
-    fill W: the narrow build, a block a pair. At 150 bp that is every
-    terminal rung but edit's and indel's, whose cap is about the length."""
+    """A one-shot rung whose score cap passes its width expects live bands
+    that fill W: there a block a pair, a thread a diagonal (the narrow
+    build), beat the group build at every G on the card, so it stays. At
+    150 bp that is every terminal rung but edit's and indel's, whose cap
+    is about the length: they take the group build, as a segment or the
+    run-length table at the same band does, with the G the rule gives: a
+    live band of 346-508 diagonals, more than 8 strides of 32, cut to
+    GROUP_WARPS_A_SM warps an SM: 256 pairs, two an SM, 4 warps each; 512
+    pairs 2 warps; 16 pairs 8 warps; a pair a block."""
     cfg = C.full_config(_attr(metric, span="end-to-end"), 160, 160)
-    want = "warp" if metric in ("levenshtein", "indel") else "narrow"
+    want = "group" if metric in ("levenshtein", "indel") else "narrow"
     assert (cfg.S_cap > cfg.W) == (want == "narrow")
     assert TFL.kernel_build(cfg, 256) == want
-    # a segment at the same band: the warp build
+    assert TFL.launch_shape(cfg, 256, "narrow") == (cfg.W, 1)
+    band = TFL.live_band(cfg)
+    assert 300 < band <= cfg.W - 4
+    assert TFL.group_size(cfg, 256) == 4
+    assert TFL.group_size(cfg, 512) == 2
+    assert TFL.group_size(cfg, 16) == TFL.GROUP_WARPS_A_SM == 8
+    assert TFL.launch_shape(cfg, 256, "group") == (128, 4)
+    assert TFL.launch_shape(cfg, 16, "group") == (256, 8)
+    # a segment or the table at the same band: the group build
     assert TFL.kernel_build(cfg, 4, state=TFL.new_state(cfg, 4, "cpu")) \
-        == "warp"
+        == "group"
+    table = torch.zeros((cfg.Lt + 1, 4, cfg.W), dtype=torch.uint8)
+    assert TFL.kernel_build(cfg, 4, table=table) == "group"
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -253,18 +282,18 @@ def test_warp_blocks_fit_shared_memory_at_the_terminal_rung(metric):
     """Every metric's terminal rung at 150 bp: P pairs' rings and bands in
     one block's shared memory; P keeps the most pairs an SM can hold."""
     cfg = C.full_config(_attr(metric, span="end-to-end"), 160, 160)
-    per = TFL.warp_pair_bytes(cfg)
+    per = TFL.group_pair_bytes(cfg)
     rows = sum(TFL.ring_depths(cfg))
     assert per >= rows * cfg.W * 4 + rows * 2 * 4 and per % 16 == 0
-    P = TFL.warp_pairs(cfg, 4096)
-    assert 1 <= P <= TFL.WARP_MAX_PAIRS
+    P = TFL.group_pairs(cfg, 4096)
+    assert 1 <= P <= TFL.GROUP_MAX_PAIRS
     assert P * per <= TFL.SMEM_LIMIT
 
     def resident(q):
         return q * (TFL.SM_SMEM // (q * per + TFL.BLOCK_SMEM_RESERVED))
 
     assert all(resident(P) >= resident(q)
-               for q in range(1, TFL.WARP_MAX_PAIRS + 1)
+               for q in range(1, TFL.GROUP_MAX_PAIRS + 1)
                if q * per <= TFL.SMEM_LIMIT)
 
 
@@ -273,14 +302,126 @@ def test_warp_pairs_at_pywfa_defaults():
     pairs a block keep two blocks, 14 pairs, on an SM (eight would keep
     one). Affine2p at W=384: 36 rows, 55,584 bytes, four pairs an SM."""
     cfg = C.full_config(_attr(span="end-to-end"), 160, 160, W=256, S_cap=96)
-    assert TFL.warp_pair_bytes(cfg) == 15488
-    assert TFL.warp_pairs(cfg, 4096) == 7
-    assert TFL.warp_pairs(cfg, 256) == 2
+    assert TFL.group_pair_bytes(cfg) == 15488
+    assert TFL.group_pairs(cfg, 4096) == 7
+    assert TFL.group_pairs(cfg, 256) == 2
     a2p = C.full_config(_attr("affine2p", span="end-to-end"), 160, 160,
                         W=384, S_cap=96)
-    assert TFL.warp_pair_bytes(a2p) == 55584
-    P = TFL.warp_pairs(a2p, 4096)
+    assert TFL.group_pair_bytes(a2p) == 55584
+    P = TFL.group_pairs(a2p, 4096)
     assert P * (TFL.SM_SMEM // (P * 55584 + TFL.BLOCK_SMEM_RESERVED)) == 4
+
+
+def test_rung1_takes_one_warp_a_pair():
+    """The first rung of 4096 pairs (W=256, S_cap=96): one warp a pair,
+    seven pairs a block, exactly the block of one warp a pair before G
+    (15,488 bytes a pair, no fold partials)."""
+    cfg = C.full_config(_attr(span="end-to-end"), 160, 160, W=256, S_cap=96)
+    assert TFL.kernel_build(cfg, 4096) == "group"
+    assert TFL.group_size(cfg, 4096) == 1
+    assert TFL.launch_shape(cfg, 4096, "group") == (224, 1)
+    assert TFL.group_pair_bytes(cfg, 1) == 15488
+
+
+def test_e_rung2_takes_the_rules_group():
+    """Stream E's second rung, one shot (256 pairs of 1 kb, W=896,
+    S_cap=768): the score cap lets a band reach 804 diagonals, two pairs
+    share an SM, so GROUP_WARPS_A_SM / 2 = 4 warps a pair, a pair a
+    block."""
+    cfg = C.full_config(_attr(span="end-to-end"), 1024, 1024, W=896,
+                        S_cap=768)
+    assert TFL.live_band(cfg) == 2 * (768 // 2 + 1) + 2 * (9 + 4) + 8 == 804
+    assert TFL.kernel_build(cfg, 256) == "group"
+    G = TFL.group_size(cfg, 256)
+    assert G == min(-(-TFL.live_band(cfg) // 32),
+                    TFL.GROUP_WARPS_A_SM // -(-256 // TFL.SMS)) == 4
+    assert TFL.launch_shape(cfg, 256, "group") == (128, 4)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_group_blocks_fit_at_every_g(metric):
+    """At pywfa's penalties, every metric, with and without the cascade,
+    at the first and the terminal rung: for every G a block holds, P
+    pairs of G warps keep P * G <= 32 warps and GROUP_MAX_THREADS
+    threads, P rings and their fold partials fit SMEM_LIMIT, and with
+    G > 1 there are at most NAMED_BARRIERS pairs (one named barrier each,
+    id 0 left to __syncthreads) and at most GROUP_MAX_PAIRS always."""
+    for heur in (None, "adaptive"):
+        kw = dict(span="end-to-end")
+        if heur:
+            kw["heuristic"] = heur
+        attr = _attr(metric, **kw)
+        for cfg in (C.full_config(attr, 160, 160, W=256, S_cap=96),
+                    C.full_config(attr, 160, 160),
+                    C.full_config(attr, 1024, 1024, W=1024, S_cap=768)):
+            rows = sum(TFL.ring_depths(cfg))
+            for G in range(1, TFL.GROUP_MAX_THREADS // 32 + 1):
+                per = TFL.group_pair_bytes(cfg, G)
+                partials = (0 if G == 1 else (TFL.GROUP_PARTIALS + (
+                    TFL.HEUR_REDUCTIONS if heur else 0)) * G + 2)
+                assert per == -(-(rows * (cfg.W + 2) + partials) // 4) * 16
+                for B in (16, 256, 4096):
+                    P = TFL.group_pairs(cfg, B, G)
+                    if P == 0:
+                        # only a ring past a block's shared memory
+                        assert per > TFL.SMEM_LIMIT, (metric, cfg.W, G)
+                        continue
+                    assert P * G <= 32
+                    assert 32 * G * P <= TFL.GROUP_MAX_THREADS
+                    assert P * per <= TFL.SMEM_LIMIT
+                    assert P <= TFL.GROUP_MAX_PAIRS
+                    assert G == 1 or P <= TFL.NAMED_BARRIERS
+            for B in (16, 256, 4096):
+                threads, G = TFL.launch_shape(cfg, B, "group")
+                assert threads % (32 * G) == 0
+                assert threads <= TFL.GROUP_MAX_THREADS
+
+
+@pytest.mark.parametrize("W", [128, 384, 512, 1024])
+def test_group_lanes_cover_every_band(W):
+    """Thread t of a group of G warps owns k = k0 + t of every stride,
+    k0 from the band's low end in steps of 32 * G (the extension loads
+    four strides at a time): every band [lo, hi] inside [kmin + 2,
+    kmin + W - 3] is covered, each diagonal by one thread once, at every
+    G up to W / 32 that a block holds."""
+    kmin = -(W // 2)
+    klo, khi = kmin + 2, kmin + W - 3
+    rng = np.random.default_rng(W)
+    bands = [(klo, khi), (0, 0), (klo, klo), (khi, khi)]
+    for _ in range(12):
+        lo, hi = sorted(int(x) for x in rng.integers(klo, khi + 1, 2))
+        bands.append((lo, hi))
+    for G in range(1, min(W // 32, TFL.GROUP_MAX_THREADS // 32) + 1):
+        GT = 32 * G
+        for lo, hi in bands:
+            seen = []
+            for k0 in range(lo, hi + 1, GT):
+                seen += [k0 + t for t in range(GT) if k0 + t <= hi]
+            assert seen == list(range(lo, hi + 1))
+            ext = []
+            for k0 in range(lo, hi + 1, 4 * GT):
+                ext += [k0 + GT * j + t for j in range(4) for t in range(GT)
+                        if k0 + GT * j + t <= hi]
+            assert sorted(ext) == list(range(lo, hi + 1))
+            assert all(0 <= k - kmin < W for k in seen)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_score_band_is_the_batch_paths_band(metric):
+    """config.score_band, which group_size reads, is the band the batch
+    path sizes a rung's W by (batch._band_for_score) wherever no
+    heuristic and no begin-free seed bounds the latter."""
+    attr = validate_alignment(_attr(metric, span="end-to-end"), 150, 160)
+    pen = attr.penalties
+    for S in (8, 96, 384, 649, 768, 2000):
+        for Lp, Lt in ((150, 160), (1024, 1040), (160, 160)):
+            assert C.score_band(pen.distance_metric, pen.gap_opening1,
+                                pen.gap_extension1, pen.gap_extension2,
+                                pen.max_score_scope, S, abs(Lp - Lt)) \
+                == PB._band_for_score(attr, S, Lp, Lt)
+    cfg = C.full_config(attr, 160, 160, W=256, S_cap=96)
+    assert TFL.live_band(cfg) == min(cfg.W - 4, PB._band_for_score(
+        attr, 96, 160, 160))
 
 
 HEURISTICS = {
@@ -313,7 +454,7 @@ def _invariant_cases():
 def test_ring_is_null_outside_each_rows_band(metric, span, match, heur):
     """After a segment of the plain version, every cell of the stored ring
     whose diagonal lies outside its row's band is NULL, for the pairs still
-    running and for those done (the warp build's invariant)."""
+    running and for those done (the group build's invariant)."""
     kw = {} if match is None else dict(match=match)
     if span == "ends-free":
         kw.update(pattern_begin_free=3, pattern_end_free=3,
