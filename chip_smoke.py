@@ -105,7 +105,8 @@ Phases (any failure raises and exits nonzero; nothing falls back):
 10. Long reads (the segmented executor, the run-length table K3, bands
    past 1024 diagonals). K3 against its plain version at the shapes the
    paths give it: Ltp=176, B=4096, W=256 (uint8), the 1 kb segmented shape
-   of stream F (int16), one with a wildcard, one with B=16 and W=1152. The
+   of stream F (int16), one with a wildcard, one with B=16 and W=1152,
+   and the CLI's 150 bp batch in its length bucket (Ltp=272, int16). The
    fused loop's table variant against its plain version and against the
    bits variant at that 1 kb shape, as the segments stream F runs (first
    segment from WF0, then a later one from the stored state; the forward
@@ -145,6 +146,34 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    its first, W=1792, takes the general build) and the long API pairs the
    cluster build (the 5 kb pair's second rung, W=3584) and not the
    general build.
+11. Dry run: `parallel.dryrun.dryrun_multichip` over every card of the
+   host (end to end with each shard's walk, ends-free with per-pair
+   frees, wf-adaptive, tight caps re-run at 4x the score cap, the
+   segmented run with host snapshots and replays), as the reference's
+   dry run asserts; then the table variants it launches that no earlier
+   phase holds (`endsfree_table`, `e2e_heur_table`) against plain at its
+   shapes.
+12. Sharded main path: 4096 pairs of 150 bp at 2% divergence, gap-affine
+   end to end with the record at the first rung (W=256, S_cap=96),
+   through `parallel.sharded_align_batch` on a mesh of every card with
+   the meta gathered over a one-rank NCCL group; byte-equal to
+   `engine.align_batch` on one card, choices included. It extends by the
+   run-length table (K3 at 176 x 4096 x 256, uint8) like the reference's
+   `align_batch`; `e2e_table` is held against plain at this shape. Then
+   a mesh of eight shards on the first card, whose 512-pair shards take
+   another G than the whole batch, byte-equal too. ms a
+   batch of the whole batch and of the sharded call with and without the
+   gather, in turns, of the gather alone, and each one's build and G.
+13. CLI: `python -m pywfa_tpu_torch.cli align` in a subprocess over FASTA
+   files written here (16384 pairs of 150 bp at 2%, 512 ONT-like 1 kb
+   pairs at 7%, a lowercase read, a pattern with an N, 32 pairs of
+   30-120 bp: four length buckets), --batch-size 4096: ends-free in tsv
+   and in paf, then end to end in the high mode and under --memory-mode
+   biwfa, which must run its 150 bp batches segmented and launch K3 and
+   give the high mode's rows. Every row has status 0, 256 sampled rows
+   equal the oracle (ends-free and end to end), no pair goes to the host
+   oracle; pairs/s of each run. The launches come from each run's
+   verbose "# device:" line.
 
 Each main-path phase zeroes the kernels' launch counts (by variant, by
 build and the group build's by G) and the count of pairs sent to the host
@@ -152,9 +181,11 @@ oracle just before it and reads them just after; it fails unless its
 kernel variants launched, unless a short-read phase (4-9) launched the
 group build (a probe batch with G > 1, the stream's first rung with
 G = 1), unless a
-long-read phase (10) launched the build its band routes to, if a timed
-stream or an API phase sent any pair to the oracle, or if any phase did
-so for an inconsistent walk. The line before the last is the kernels' JSON record;
+long-read phase (10) launched the build its band routes to, unless the
+dry run (11) launched the group build and the sharded batch (12) the
+group build at G = 1 and K3, if a timed stream, an API phase or a CLI
+run (13) sent any pair to the oracle, or if any phase did so for an
+inconsistent walk. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
 import collections
@@ -516,13 +547,19 @@ def kernel_only_ms(fn, reps=5):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "fused_loop" in e.key)
-    return us / 1e3 / reps if us > 0 else None
+    # the profiler now and then returns a session without its device rows:
+    # ask again before reporting "not measured"
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and "fused_loop" in e.key)
+        if us > 0:
+            return us / 1e3 / reps
+    return None
 
 
 def host_ms(fn, reps):
@@ -645,7 +682,8 @@ def step_sweep(dev, attr, builds, emit=log):
                 slope = None
                 if prev is not None and alone is not None:
                     slope = 1e3 * (alone - prev[1]) / (steps - prev[0])
-                prev = (steps, alone)
+                if alone is not None:  # the slope from the last measured cap
+                    prev = (steps, alone)
                 point = dict(build=label, B=B, max_steps=steps, ms=ms,
                              kernel_only_ms=alone, us_a_step=per,
                              slope_us_a_step=slope)
@@ -1602,6 +1640,8 @@ def phase_long_kernels(dev, long_inputs):
         ("lcp_wildcard_u8", wild,
          C.full_config(attr, 160, 160, W=256, wildcard=ord("N")), ord("N")),
         ("lcp_w1152_i16", mid, C.full_config(attr, 512, 512, W=1152), -1),
+        # the CLI's 150 bp batches under biwfa: the (256, 256) bucket
+        ("lcp_cli_i16", main, C.full_config(attr, 256, 256, W=256), -1),
     ]
     for name, (pats, txts), cfg, wildcard in shapes:
         pat, txt, *_ = _token_rows(cfg, pats, txts, dev)
@@ -2099,6 +2139,362 @@ def phase_long_reads(dev, long_inputs):
     total.update(c)
     return total
 
+# the read-set phases: the CLI's read set and its batches
+CLI_SHORT = 16384
+CLI_LONG = 512
+CLI_BATCH = 4096
+CLI_ORACLE = 256
+
+
+def one_shot_record(name, cfg, host, dev):
+    """Hold the fused loop as engine.align_batch runs it (the extension of
+    build_extension, the build kernel_build names) against its plain
+    version on the same inputs, and time both by CUDA events (a call),
+    the kernel alone by torch.profiler; `host` holds the batch's (pat,
+    txt, plen, tlen, frees) as arrays. Returns
+    the kernels line's record of the variant at this shape."""
+    from pywfa_tpu_torch.ops import engine as TE
+    from pywfa_tpu_torch.ops import fused_loop
+    pat, txt, plen, tlen, frees = (torch.from_numpy(np.ascontiguousarray(a))
+                                   .to(dev) for a in host)
+    ext = TE.build_extension(cfg, pat, txt)
+    table = ext["table"]
+    args = (ext["bits"], plen, tlen, frees, MAXS)
+    B = plen.shape[0]
+    build = fused_loop.kernel_build(cfg, B, table)
+    G = fused_loop.launch_shape(cfg, B, "group", dev)[1]
+
+    def kernel():
+        return fused_loop.align_batch_fused_loop(cfg, *args, table=table)
+
+    def plain():
+        return fused_loop.align_batch_fused_loop_ref(cfg, *args, table=table)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = _max_err(name, got, want, LOOP_KEYS)
+    if err != 0:
+        raise AssertionError(f"{name}: the {build} build differs from the "
+                             f"plain version ({err})")
+    k_ms, p_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
+    only = kernel_only_ms(kernel)
+    rec = got if cfg.record_choices else fused_loop.align_batch_fused_loop(
+        dataclasses.replace(cfg, record_choices=True), *args, table=table)
+    cells = int(torch.count_nonzero(rec["choices"])) + B
+    # the extension's input: the eq words whole (as phase 3 counts them),
+    # of the table the cells these pairs read (one load a cell, as the
+    # segments of phase 10 count them)
+    ext_t = table if table is not None else ext["bits"]
+    b_ms, b_by = kernel_bound(cfg, (ext_t,), got, cells, ext_bytes=(
+        ext_t.numel() * 4 if table is None else cells * table.element_size()))
+    variant = fused_loop.variant(cfg, table is not None)
+    log(f"kernel vs plain [{name}] variant={variant} B={B} W={cfg.W} "
+        f"S_cap={cfg.S_cap} Ltp={txt.shape[1]} "
+        f"extension={'table' if table is not None else 'bits'} "
+        f"steps={int(got['steps'])} max_abs_err={err} build={build} G={G} "
+        f"ms={k_ms:.4f} kernel_only_ms={_fmt(only)} plain_ms={p_ms:.2f} "
+        f"bound_ms={b_ms:.3g} "
+        f"bound_by={b_by} cells={cells}")
+    return dict(variant=variant, err=err, build=build,
+                G=G if build == "group" else None, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, B=B)
+
+
+def phase_dryrun(dev, records):
+    """11. The twin of the dry run over every card of the host
+    (`parallel.dryrun.dryrun_multichip`, five configurations, each
+    asserted as the reference asserts it); then the table variants it
+    launched that no earlier phase holds, against their plain versions at
+    its shapes."""
+    from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
+    from pywfa_tpu_torch.ops import config as C
+    from pywfa_tpu_torch.parallel import dryrun
+    n = torch.cuda.device_count()
+    reset_counts()
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counts()
+    log(f"dry run: {n} devices in {wall:.3f} s; launches {launched(c)}")
+    check_group("dry run", c)
+    B = 8 * n
+    cfg, host = dryrun._example_inputs(B, 48, 48)
+    host = host[:5]
+    ef = RefAligner(backend="numpy", span="ends-free", pattern_begin_free=8,
+                    pattern_end_free=8, text_begin_free=8,
+                    text_end_free=8)._attributes()
+    frees = np.zeros((B, 4), dtype=np.int32)
+    frees[:, 0] = np.arange(B) % 9
+    frees[:, 1] = 8
+    frees[:, 2] = (np.arange(B) * 3) % 9
+    frees[:, 3] = 8
+    heur = RefAligner(backend="numpy", span="end-to-end",
+                      heuristic="adaptive")._attributes()
+    records["dryrun_endsfree"] = one_shot_record(
+        "dryrun_endsfree", C.full_config(ef, 48, 48), host[:4] + (frees,),
+        dev)
+    records["dryrun_heur"] = one_shot_record(
+        "dryrun_heur", C.full_config(heur, 48, 48), host, dev)
+    return c
+
+
+def phase_sharded(dev, records):
+    """12. The main path's batch through the mesh: 4096 pairs of 150 bp at
+    2% divergence, gap-affine end to end with the record, at the first
+    rung (W=256, S_cap=96), over every card of the host with the meta
+    gathered over a one-rank NCCL group made here (distributed_init is a
+    no-op for one process); byte-equal to engine.align_batch on one card,
+    choices included. Prints ms a batch (CUDA events, in turns) of the
+    whole batch, of the sharded call with and without the gather, and of
+    the gather alone, and the build and G of a shard and of the whole
+    batch."""
+    import socket
+
+    import torch.distributed as dist
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.ops import config as C
+    from pywfa_tpu_torch.ops import engine as TE
+    from pywfa_tpu_torch.ops import fused_loop
+    from pywfa_tpu_torch.parallel import (distributed_init, make_mesh,
+                                          mesh as PM, sharded_align_batch)
+    rng = np.random.default_rng(SEED + 12)
+    pats, txts = make_pairs(rng, B_MAIN, L, DIV)
+    attr = PB.BatchWavefrontAligner(span="end-to-end", device=dev)._attr
+    cfg = C.full_config(attr, 160, 160, W=256, S_cap=96)
+    host = (PB.encode_batch(pats, cfg.Lp, cfg.extend_chunk,
+                            PB.PATTERN_SENTINEL),
+            PB.encode_batch(txts, cfg.Lt, cfg.extend_chunk,
+                            PB.TEXT_SENTINEL),
+            np.full(B_MAIN, L, np.int32), np.full(B_MAIN, L, np.int32),
+            np.zeros((B_MAIN, 4), np.int32))
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    distributed_init(f"localhost:{port}", 1, 0)
+    if dist.is_initialized():
+        raise AssertionError("distributed_init must be a no-op for one "
+                             "process")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        if mesh.group is None or mesh.size != torch.cuda.device_count():
+            raise AssertionError(f"the mesh has {mesh.size} devices and "
+                                 f"group {mesh.group}")
+        fn = sharded_align_batch(cfg, mesh, gather_results=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(*host, MAXS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        whole_in = [torch.from_numpy(a).to(dev) for a in host]
+        whole = TE.align_batch(cfg, *whole_in, MAXS)
+        torch.cuda.synchronize()
+        err = _max_err("sharded", out, whole, LOOP_KEYS[:-1])
+        err = max(err, _max_err(
+            "sharded", {"choices": torch.cat([ch.to(dev) for ch in
+                                              out["choices"]], dim=1)},
+            whole, ("choices",)))
+        if err or int(out["steps"]) != int(whole["steps"]):
+            raise AssertionError("the sharded batch differs from the "
+                                 f"unsharded one ({err})")
+        if not bool((whole["status"] == 1).all()):
+            raise AssertionError("a pair of the sharded batch did not end")
+        shard_B = B_MAIN // mesh.size
+        table = TE.build_extension(cfg, *whole_in[:2])["table"]
+        shape = {n: (fused_loop.kernel_build(cfg, n, table),
+                     fused_loop.launch_shape(cfg, n, "group", dev)[1])
+                 for n in (shard_B, B_MAIN)}
+        g = PM.make_global_batch(mesh, dict(zip(
+            ("pat", "txt", "plen", "tlen", "frees"), host)))
+        args = [g[k] for k in ("pat", "txt", "plen", "tlen", "frees")]
+        outs = [TE.align_batch(cfg, *a, MAXS) for a in zip(*args)]
+        runs = {"whole": lambda: TE.align_batch(cfg, *whole_in, MAXS),
+                "sharded": lambda: fn(*args, MAXS),
+                "no_gather": lambda: sharded_align_batch(cfg, mesh)(
+                    *args, MAXS)}
+        # eight shards on the first card: a shard of 512 pairs takes more
+        # warps a pair than the whole batch (group_size reads B), and must
+        # give the same bytes
+        mesh8 = make_mesh([dev] * 8)
+        out8 = sharded_align_batch(cfg, mesh8, gather_results=True)(*host,
+                                                                    MAXS)
+        err8 = max(_max_err("eight shards", out8, whole, LOOP_KEYS[:-1]),
+                   _max_err("eight shards", {"choices": torch.cat(
+                       out8["choices"], dim=1)}, whole, ("choices",)))
+        shape8 = (fused_loop.kernel_build(cfg, B_MAIN // 8, table),
+                  fused_loop.launch_shape(cfg, B_MAIN // 8, "group", dev)[1])
+        log(f"eight shards of {B_MAIN // 8} on one card: build and G "
+            f"{shape8} against the whole batch's {shape[B_MAIN]}; "
+            f"max_abs_err {err8}")
+        if err8:
+            raise AssertionError("eight shards differ from the whole batch")
+        times = collections.defaultdict(list)
+        for key in ("whole", "no_gather", "sharded", "sharded", "no_gather",
+                    "whole"):
+            times[key].append(cuda_ms(runs[key], 10))
+        gather_ms = cuda_ms(lambda: PM._gather(mesh, outs), 20)
+        log(f"sharded main path: {B_MAIN} pairs over {mesh.size} device(s), "
+            f"{mesh.process_count} process(es), NCCL gather; byte-equal to "
+            f"the unsharded batch (max_abs_err 0, choices included) in "
+            f"{wall:.3f} s first call; ms a batch, in turns: "
+            + "; ".join(f"{k} {np.mean(v):.4f} ("
+                        + ", ".join(f"{t:.4f}" for t in v) + ")"
+                        for k, v in times.items())
+            + f"; the gather alone {gather_ms:.4f} ms; build and G: a "
+            f"shard of {shard_B} {shape[shard_B]}, the whole batch "
+            f"{shape[B_MAIN]}; launches {launched(c)}")
+        check_group("sharded main path", c, one=True)
+        if c["lcp_table"] == 0 or c["e2e_table"] == 0:
+            raise AssertionError("the sharded main path must extend by the "
+                                 f"run-length table: {launched(c)}")
+    finally:
+        dist.destroy_process_group()
+    records["sharded_rung1"] = one_shot_record("sharded_rung1", cfg, host,
+                                               dev)
+    return c
+
+
+def cli_read_set(rng):
+    """The CLI phase's read set as (patterns, texts) of (name, sequence):
+    CLI_SHORT pairs of 150 bp at 2% divergence, CLI_LONG ONT-like 1 kb
+    pairs at 7%, and the probe rows of the verify recipe: a lowercase
+    read, a pattern with an N, and 32 pairs of 30-120 bp (two more length
+    buckets)."""
+    pats, txts = make_pairs(rng, CLI_SHORT, L, DIV)
+    lp, lt = make_ont_pairs(rng, CLI_LONG, L_LONG, ONT_SUB, ONT_IND)
+    pats += lp
+    txts += lt
+    p, t = make_pairs(rng, 2, L, DIV)
+    pats += p
+    txts += [t[0].lower(), t[1]]
+    pats[-1] = pats[-1][:70] + b"N" + pats[-1][71:]
+    for n in rng.integers(30, 121, 32):
+        p, t = make_pairs(rng, 1, int(n), 0.05)
+        pats += p
+        txts += t
+    return ([(f"p{i}", s.decode()) for i, s in enumerate(pats)],
+            [(f"r{i} read", s.decode()) for i, s in enumerate(txts)])
+
+
+def run_cli(root, args, name):
+    """Run `python -m pywfa_tpu_torch.cli align` in a subprocess from the
+    checkout, verbose; returns (wall s, pairs/s the CLI printed, its
+    device counts)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pywfa_tpu_torch.cli", "align",
+                        *args, "--device", "cuda", "--verbose"], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"cli [{name}] exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    rate = re.findall(r"^# (\d+) pairs in ([\d.]+)s \((\d+) pairs/s\)",
+                      r.stderr, re.MULTILINE)
+    counts = re.findall(r"^# device: (.*)$", r.stderr, re.MULTILINE)
+    if not rate or not counts:
+        raise AssertionError(f"cli [{name}]: no rate or device line in "
+                             f"{r.stderr[-2000:]}")
+    return wall, int(rate[-1][2]), json.loads(counts[-1])
+
+
+def phase_cli(dev):
+    """13. The command line over FASTA files: the read set of cli_read_set
+    with --batch-size 4096 in tsv and in paf (ends-free, pywfa's
+    defaults), then end to end in the high mode and under
+    --memory-mode biwfa, which must run segmented and launch K3 (on the
+    150 bp batches too) with rows equal to the high mode's. Every row has
+    status 0, CLI_ORACLE sampled rows equal the oracle, no pair goes to
+    the host oracle. Each run's launches (its verbose device line) add to
+    the kernels line."""
+    import os
+    import tempfile
+
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.cigar import ops_to_cigarstring
+    from pywfa_tpu_torch.parallel.bucketing import bucket_pairs
+    from pywfa_tpu_torch.utils.io import write_fasta
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    rng = np.random.default_rng(SEED + 13)
+    pats, txts = cli_read_set(rng)
+    n = len(pats)
+    groups = bucket_pairs([s.upper().encode() for _, s in pats],
+                          [s.upper().encode() for _, s in txts])
+    # the full batches of 150 bp pairs: their rung-1 record passes the
+    # biwfa share of the budget, so they run segmented there
+    n_short = sum(len(v) // CLI_BATCH for k, v in groups.items()
+                  if max(k) <= 256)
+    log(f"cli read set: {n} pairs, buckets "
+        f"{ {k: len(v) for k, v in sorted(groups.items())} }")
+    if len(groups) < 3:
+        raise AssertionError("the read set must span three length buckets")
+    total = collections.Counter()
+    rows = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        pfa, tfa = os.path.join(tmp, "p.fa"), os.path.join(tmp, "t.fa")
+        write_fasta(pfa, pats)
+        write_fasta(tfa, txts)
+        runs = (("tsv", ["--format", "tsv"]), ("paf", ["--format", "paf"]),
+                ("e2e high", ["--span", "end-to-end"]),
+                ("e2e biwfa", ["--span", "end-to-end", "--memory-mode",
+                               "biwfa"]))
+        for name, extra in runs:
+            out = os.path.join(tmp, name.replace(" ", "_"))
+            wall, rate, dc = run_cli(
+                root, ["--patterns", pfa, "--texts", tfa, "--out", out,
+                       "--batch-size", str(CLI_BATCH), *extra], name)
+            with open(out) as fh:
+                rows[name] = [r.split("\t") for r in fh.read().splitlines()]
+            fb, seg = dc["oracle_fallbacks"], dc["segmented_runs"]
+            log(f"cli [{name}]: {n} pairs, {rate} pairs/s as the CLI "
+                f"counts (reads to rows), {n / wall:.0f} pairs/s over the "
+                f"process's {wall:.2f} s; launches {dc['launches']}; builds "
+                f"{dc['builds']}; segmented {seg}; oracle fallbacks {fb}")
+            if any(fb.values()):
+                raise AssertionError(f"cli [{name}]: pairs went to the host "
+                                     f"oracle: {fb}")
+            if len(rows[name]) != n:
+                raise AssertionError(f"cli [{name}]: {len(rows[name])} rows")
+            if name == "e2e biwfa" and (
+                    seg["runs"] < n_short
+                    or dc["launches"]["lcp_table"] < seg["runs"]):
+                raise AssertionError(
+                    "cli [e2e biwfa]: the 150 bp batches must run segmented "
+                    f"and launch K3 ({n_short} short batches): {seg}, "
+                    f"{dc['launches']}")
+            total.update(dc["launches"])
+    tsv, paf = rows["tsv"], rows["paf"]
+    if any(r[2] != "0" for name in ("tsv", "e2e high", "e2e biwfa")
+           for r in rows[name]):
+        raise AssertionError("cli: a row has a status other than 0")
+    if [(r[3], r[4]) for r in tsv] != [(r[12][5:], r[13][5:]) for r in paf]:
+        raise AssertionError("cli: the paf rows differ from the tsv rows")
+    if rows["e2e biwfa"] != rows["e2e high"]:
+        raise AssertionError("cli: biwfa rows differ from the high mode's")
+    attrs = {"tsv": PB.BatchWavefrontAligner(device=dev)._attr,
+             "e2e high": PB.BatchWavefrontAligner(span="end-to-end",
+                                                  device=dev)._attr}
+    t0 = time.perf_counter()
+    for i in sorted(rng.choice(n, CLI_ORACLE, replace=False).tolist()):
+        p = pats[i][1].upper().encode()
+        t = txts[i][1].upper().encode()
+        for name, attr in attrs.items():
+            o = PB._oracle_one(attr, p, t)
+            want = [str(o.status), str(o.score), ops_to_cigarstring(o.ops),
+                    str(o.end_v), str(o.end_h)]
+            if rows[name][i][2:] != want or rows[name][i][:2] != [
+                    txts[i][0].split()[0], pats[i][0]]:
+                raise AssertionError(f"cli [{name}] row {i} differs from "
+                                     f"the oracle: {rows[name][i]} {want}")
+    log(f"oracle: cli: {CLI_ORACLE} sampled rows equal, ends-free and end "
+        f"to end ({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
 
 def main():
     phase_device()
@@ -2118,6 +2514,13 @@ def main():
                   phase_slice_streams, phase_slice_api):
         launches.update(phase(dev))
     launches.update(phase_long_reads(dev, long_inputs))
+    for phase in (phase_dryrun, phase_sharded):
+        t0 = time.perf_counter()
+        launches.update(phase(dev, records))
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(phase_cli(dev))
+    log(f"phase_cli: {time.perf_counter() - t0:.1f} s")
     nvidia_smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -6,27 +6,12 @@ text_len) into power-of-two padded shapes and runs the pair through
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional
 
 from .attributes import AlignerAttributes, validate_alignment
 from .batch import align_pairs
 from .oracle import OracleAligner, OracleResult
-
-# power-of-two length buckets of `pywfa_tpu.parallel.bucketing`, copied:
-# that package's __init__ imports jax
-DEFAULT_SCHEDULE = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
-                    65536)
-
-
-def _bucket_len(n: int, schedule: Sequence[int]) -> int:
-    for b in schedule:
-        if n <= b:
-            return b
-    # beyond the schedule: next power of two
-    b = schedule[-1] if schedule else 16
-    while b < n:
-        b *= 2
-    return b
+from .parallel.bucketing import DEFAULT_SCHEDULE, _bucket_len
 
 
 def align_single(attr: AlignerAttributes, pattern: bytes, text: bytes,

@@ -6,7 +6,9 @@ the output packing, plus the pipelines that chain them with the fused
 loop: `align_batch_packed_full` and `align_batch_fused_full`, which end in
 `pack_full` in the full-CIGAR scope and in `pack_meta` in the score-only
 one (`align_batch_packed_meta` and `align_batch_fused_meta` are their
-names under the reference's score-only spelling). Every function
+names under the reference's score-only spelling), and `align_batch`, the
+loop alone from token rows, unpacked (what the mesh runs on each shard,
+`parallel/mesh.py`). Every function
 is device-agnostic: it runs where its input tensors live, CPU or CUDA.
 Only the walk synchronises with the device, to end early.
 
@@ -436,6 +438,26 @@ def build_extension(cfg: EngineConfig, pat: torch.Tensor,
             cfg.W, cfg.kmin, cfg.wildcard, pat.contiguous(),
             txt.contiguous()))
     return dict(bits=build_eq_bits(cfg, pat, txt), table=None)
+
+
+def align_batch(cfg: EngineConfig, pat, txt, plen, tlen, frees,
+                max_steps: int) -> dict:
+    """Batched WFA over B pairs from token rows, on the rows' device: the
+    extension's input (build_extension) and the fused loop, one shot.
+
+    pat: [B, Lp + C] int8 (sentinel-padded), txt: [B, Lt + C] int8,
+    plen/tlen: [B] int32, frees: [B, 4] int32 (pattern begin, pattern
+    end, text begin, text end), max_steps: the user step cap. Returns
+    dict(status, final_s, end_k, end_off, steps), plus choices
+    [S_cap, B, W] uint8 when cfg.record_choices; pairs still running at
+    S_cap report ST_OVERFLOW_S. The twin of the reference's
+    `engine.align_batch`, and what `parallel.mesh.sharded_align_batch`
+    runs on each shard."""
+    ext = build_extension(cfg, pat, txt)
+    return fused_loop.align_batch_fused_loop(
+        cfg, ext["bits"], plen.to(torch.int32).contiguous(),
+        tlen.to(torch.int32).contiguous(),
+        frees.to(torch.int32).contiguous(), max_steps, table=ext["table"])
 
 
 def _segment(cfg, ext, plen, tlen, frees, max_steps, state, fresh):

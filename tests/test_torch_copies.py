@@ -2,9 +2,10 @@
 
 The port imports nothing of `pywfa_tpu`, so it keeps its own constants,
 attributes, cigar helpers, scalar oracle, sequence encodings, alignment
-check and native host library. These tests hold every copy against the
-module it came from on seeded inputs; everything is an integer, a string
-or a byte array, tolerance zero.
+check, native host library, FASTA/FASTQ reader and length bucketing.
+These tests hold every copy against the module it came from on seeded
+inputs; everything is an integer, a string or a byte array, tolerance
+zero.
 """
 import dataclasses
 import enum
@@ -290,3 +291,52 @@ def test_native_library_matches_the_reference_library():
     row = np.frombuffer(b"MMMXMMIIDMMMM", dtype=np.uint8)
     for a, b in zip(RN.rle(row), PN.rle(row)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_fastx_io_matches(tmp_path):
+    """utils/io.py against its original: the records read from FASTA and
+    FASTQ, plain and gzipped, and the bytes write_fasta writes."""
+    import gzip
+
+    import pywfa_tpu.utils.io as RIO
+    import pywfa_tpu_torch.utils.io as PIO
+    rng = np.random.default_rng(75)
+    recs = [(f"s{i} c{i}" if i % 2 else f"s{i}",
+             "".join(rng.choice(list("ACGTN"), int(n))))
+            for i, n in enumerate(rng.integers(0, 200, 9))]
+    fq = "".join(f"@{n}\n{s}\n+\n{'I' * len(s)}\n" for n, s in recs)
+    paths = {}
+    for name, writer in (("r.fa", RIO.write_fasta), ("p.fa", PIO.write_fasta)):
+        paths[name] = str(tmp_path / name)
+        writer(paths[name], recs)
+    with open(paths["r.fa"], "rb") as a, open(paths["p.fa"], "rb") as b:
+        assert a.read() == b.read()
+    for name, text in (("x.fq", fq), ("x.fq.gz", fq),
+                       ("x.fa.gz", open(paths["r.fa"]).read())):
+        paths[name] = str(tmp_path / name)
+        with (gzip.open if name.endswith(".gz") else open)(
+                paths[name], "wt") as fh:
+            fh.write(text)
+    for path in paths.values():
+        got = [dataclasses.asdict(r) for r in PIO.read_fastx(path)]
+        assert got == [dataclasses.asdict(r) for r in RIO.read_fastx(path)]
+        assert len(got) == len(recs)
+        assert list(PIO.read_fasta(path)) == list(RIO.read_fasta(path))
+
+
+def test_bucketing_matches():
+    """parallel/bucketing.py against its original: the schedule, the
+    bucket of every length up to past the schedule, and the groups of a
+    seeded set of pairs."""
+    import pywfa_tpu.parallel.bucketing as RB
+    import pywfa_tpu_torch.parallel.bucketing as PB
+    assert PB.DEFAULT_SCHEDULE == RB.DEFAULT_SCHEDULE
+    for schedule in (RB.DEFAULT_SCHEDULE, (100, 300), ()):
+        for n in list(range(0, 300)) + [65536, 65537, 200000]:
+            assert PB._bucket_len(n, schedule) == RB._bucket_len(n, schedule)
+    rng = np.random.default_rng(76)
+    pats = [b"A" * int(n) for n in rng.integers(1, 3000, 200)]
+    txts = [b"C" * int(n) for n in rng.integers(1, 3000, 200)]
+    assert PB.bucket_pairs(pats, txts) == RB.bucket_pairs(pats, txts)
+    assert PB.bucket_pairs(pats, txts, (512,)) == RB.bucket_pairs(
+        pats, txts, (512,))

@@ -1157,3 +1157,76 @@ def test_wavefront_aligner_long_pairs_on_cuda(dev, n, scope):
     ra, rb = a(t), b(t)
     assert (ra.score, ra.status, ra.cigartuples) == (
         rb.score, rb.status, rb.cigartuples)
+
+
+@pytest.mark.parametrize("shards", ["every card", "eight on one"])
+@pytest.mark.parametrize("record", [True, False])
+def test_sharded_matches_unsharded_on_every_card(dev, record, shards):
+    """The mesh over every card of the host, and eight shards on the
+    first card, against engine.align_batch on the first: a shard may take
+    another build or G than the whole batch (group_size reads B: 1024
+    pairs take one warp a pair, a shard of 128 several), and must give
+    the same bytes; the choices stay on their shard's card; the gathered
+    meta is the whole batch."""
+    from pywfa_tpu_torch.parallel import make_mesh, sharded_align_batch
+    from pywfa_tpu_torch.ops.fused_loop import launch_shape
+    n = torch.cuda.device_count()
+    mesh = make_mesh() if shards == "every card" else make_mesh([dev] * 8)
+    assert mesh.size == (n if shards == "every card" else 8)
+    assert mesh.group is None
+    pairs = random_pairs(78, 1024 * n, 120, 150, 0.02, 0.0, as_bytes=True)
+    cfg = C.full_config(ATTR, 160, 160, W=256, S_cap=96,
+                        record_choices=record)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    host = (PB.encode_batch(pats, cfg.Lp, cfg.extend_chunk,
+                            PB.PATTERN_SENTINEL),
+            PB.encode_batch(txts, cfg.Lt, cfg.extend_chunk,
+                            PB.TEXT_SENTINEL),
+            np.array([len(p) for p in pats], np.int32),
+            np.array([len(t) for t in txts], np.int32),
+            np.zeros((len(pats), 4), np.int32))
+    whole = TE.align_batch(cfg, *(torch.from_numpy(a).to(dev) for a in host),
+                           2**31 - 1)
+    out = sharded_align_batch(cfg, mesh, gather_results=True)(*host,
+                                                              2**31 - 1)
+    for key in KEYS[:-1]:
+        assert torch.equal(out[key].cpu(), whole[key].cpu()), key
+    if record:
+        assert [c.device for c in out["choices"]] == list(mesh.devices)
+        assert torch.equal(torch.cat([c.cpu() for c in out["choices"]], 1),
+                           whole["choices"].cpu())
+    assert int(out["steps"]) == int(whole["steps"])
+    assert (whole["status"] == C.ST_END_REACHED).all()
+    if shards == "eight on one":
+        B = len(pairs)
+        assert launch_shape(cfg, B // 8, "group", dev)[1] > launch_shape(
+            cfg, B, "group", dev)[1]
+
+
+def test_cli_on_the_card_matches_the_cpu(dev, tmp_path):
+    """`python -m pywfa_tpu_torch.cli align --device cuda` writes the
+    same files as `--device cpu` (the plain versions), in tsv and paf, on
+    mixed lengths over three length buckets with a lowercase read and a
+    read with an N."""
+    from pywfa_tpu_torch import cli
+    from pywfa_tpu_torch.utils import write_fasta
+    pairs = random_pairs(79, 40, 30, 220, 0.04, 0.02, as_bytes=True)
+    pats = [p.decode() for p, _ in pairs]
+    txts = [t.decode() for _, t in pairs]
+    txts[0] = txts[0].lower()
+    pats[1] = pats[1][:10] + "N" + pats[1][11:]
+    pfa, tfa = str(tmp_path / "p.fa"), str(tmp_path / "t.fa")
+    write_fasta(pfa, [(f"p{i}", s) for i, s in enumerate(pats)])
+    write_fasta(tfa, [(f"t{i}", s) for i, s in enumerate(txts)])
+    for fmt in ("tsv", "paf"):
+        files = {}
+        for device in ("cuda", "cpu"):
+            files[device] = str(tmp_path / f"{device}.{fmt}")
+            assert cli.main(["align", "--patterns", pfa, "--texts", tfa,
+                             "--format", fmt, "--out", files[device],
+                             "--device", device]) == 0
+        with open(files["cuda"], "rb") as a, open(files["cpu"], "rb") as b:
+            got = a.read()
+            assert got == b.read()
+        assert len(got.splitlines()) == len(pairs)

@@ -5,10 +5,11 @@ wrapper; the CUDA kernel is held against it on the card) is compared with
 the Pallas kernel `align_batch_pallas`, run in interpret mode on the CPU
 as tests/test_pallas_kernel.py runs it, and with the XLA engine
 `E.align_batch`: status, final_s, end_k, end_off and the whole choices
-tensor, byte for byte (tolerance zero). The whole packed device pipeline
-is compared with `E.align_batch_pallas_packed_full` in both layouts. The
-ends-free span (its WF0 seeds and lowest-k termination) and the
-score-only scope are compared the same way.
+tensor, byte for byte (tolerance zero); so is the port's
+`engine.align_batch`, the XLA engine's twin from token rows. The whole
+packed device pipeline is compared with `E.align_batch_pallas_packed_full`
+in both layouts. The ends-free span (its WF0 seeds and lowest-k
+termination) and the score-only scope are compared the same way.
 """
 import dataclasses
 
@@ -99,6 +100,12 @@ def test_plain_loop_matches_pallas_and_xla(case, caps, max_steps):
     xla = E.align_batch(cfg, jnp.asarray(pat), jnp.asarray(txt),
                         jnp.asarray(plen), jnp.asarray(tlen), frees, ms)
     _assert_equal(port, xla)
+    # engine.align_batch, the XLA engine's twin: token rows, its own
+    # extension (the run-length table at these lengths), the loop
+    _assert_equal(TE.align_batch(
+        C.from_reference(cfg), *(torch.from_numpy(a) for a in _encode(
+            cfg, pairs)), torch.zeros((B, 4), dtype=torch.int32),
+        max_steps), xla)
     bits = E.build_eq_bits(cfg, jnp.asarray(pat), jnp.asarray(txt))
     pallas = PFL.align_batch_pallas(cfg, B, bits, jnp.asarray(plen),
                                     jnp.asarray(tlen), frees, ms)

@@ -3,11 +3,12 @@ GPU host without it, and imports nothing of the JAX package `pywfa_tpu`.
 
 A subprocess installs an import hook that refuses `jax`, `jaxlib` and
 `pywfa_tpu`, imports pywfa_tpu_torch, aligns 8 pairs on the CPU through
-the batch API (two distance metrics) and through `WavefrontAligner` with
-pywfa's defaults (ends-free, both scopes), checks them against the port's
-scalar oracle, and asserts that neither jax nor `pywfa_tpu` entered
-sys.modules. A scan of the sources holds the same for every file that
-runs on the card.
+the batch API (two distance metrics), through `WavefrontAligner` with
+pywfa's defaults (ends-free, both scopes) and through the command line (a
+lowercase pattern file), checks them against the port's scalar oracle,
+builds a mesh of two CPU devices, and asserts that neither jax nor
+`pywfa_tpu` entered sys.modules. A scan of the sources holds the same for
+every file that runs on the card.
 """
 import os
 import re
@@ -52,6 +53,27 @@ for scope in ("full", "score"):
         o(t.decode(), p.decode())
         assert (a.status, a.score, a.cigarstring, a.locations) == (
             o.status, o.score, o.cigarstring, o.locations), (p, t)
+# the mesh and the command line, on the CPU
+import os
+import tempfile
+import torch
+from pywfa_tpu_torch import cli
+from pywfa_tpu_torch.parallel import make_mesh
+from pywfa_tpu_torch.utils import write_fasta
+mesh = make_mesh([torch.device("cpu")] * 2)
+assert mesh.size == 2 and mesh.group is None
+with tempfile.TemporaryDirectory() as tmp:
+    pfa, tfa, out = (os.path.join(tmp, n) for n in ("p.fa", "t.fa", "o.tsv"))
+    write_fasta(pfa, [(f"p{i}", p.decode().lower())
+                      for i, (p, _) in enumerate(pairs)])
+    write_fasta(tfa, [(f"t{i}", t.decode()) for i, (_, t) in enumerate(pairs)])
+    assert cli.main(["align", "--patterns", pfa, "--texts", tfa, "--out", out,
+                     "--span", "end-to-end", "--device", "cpu"]) == 0
+    rows = [r.split("\t") for r in open(out).read().splitlines()]
+for (p, t), row in zip(pairs, rows):
+    o = OracleAligner(aligner._attr).align(p, t)
+    assert row[2:4] == [str(o.status), str(o.score)], (p, t, row)
+assert len(rows) == len(pairs)
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 assert pywfa_tpu_torch.native.lib() is not None
 assert not [m for m in sys.modules
@@ -85,12 +107,14 @@ IMPORTS_REFERENCE = re.compile(r"^\s*(from|import)\s+pywfa_tpu(\.|\s|$)",
 
 
 def test_sources_that_run_on_the_card_never_import_the_jax_package():
-    """Nothing under pywfa_tpu_torch/, nor the scripts and the tests that
-    run on the card, imports `pywfa_tpu` or a module of it."""
+    """Nothing under pywfa_tpu_torch/, nor the scripts, the worker and the
+    tests that run without jax, imports `pywfa_tpu` or a module of it;
+    nor does any of them but the package (scanned above) import jax."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     paths = [os.path.join(root, "chip_smoke.py"),
              os.path.join(root, "profile_torch.py"),
              os.path.join(root, "time_builds.py"),
+             os.path.join(root, "tools", "mp_worker_torch.py"),
              os.path.join(root, "tests", "test_torch_cuda.py")]
     for dirpath, _, files in os.walk(os.path.join(root, "pywfa_tpu_torch")):
         paths += [os.path.join(dirpath, n) for n in files
@@ -98,8 +122,10 @@ def test_sources_that_run_on_the_card_never_import_the_jax_package():
     assert len(paths) > 15
     for path in paths:
         with open(path) as fh:
-            found = IMPORTS_REFERENCE.search(fh.read())
+            src = fh.read()
+        found = IMPORTS_REFERENCE.search(src)
         assert found is None, (path, found and found.group(0))
+        assert "import jax" not in src and "from jax" not in src, path
     assert IMPORTS_REFERENCE.search("from pywfa_tpu.oracle import X")
     assert IMPORTS_REFERENCE.search("    import pywfa_tpu")
     assert not IMPORTS_REFERENCE.search("from pywfa_tpu_torch import batch")
