@@ -106,7 +106,11 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    past 1024 diagonals). K3 against its plain version at the shapes the
    paths give it: Ltp=176, B=4096, W=256 (uint8), the 1 kb segmented shape
    of stream F (int16), one with a wildcard, one with B=16 and W=1152,
-   and the CLI's 150 bp batch in its length bucket (Ltp=272, int16). The
+   and the CLI's 150 bp batch in its length bucket (Ltp=272, int16); and
+   the two shapes the first CUDA kernel refused: 65537 pairs of 150 bp
+   (uint8), and one pair whose 49 kb pattern row holds its 1 kb text
+   (W=896, int16). Each line logs the kernel's time by CUDA events and
+   alone (torch.profiler), cells/s and the share of its bound. The
    fused loop's table variant against its plain version and against the
    bits variant at that 1 kb shape, as the segments stream F runs (first
    segment from WF0, then a later one from the stored state; the forward
@@ -163,7 +167,9 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    a mesh of eight shards on the first card, whose 512-pair shards take
    another G than the whole batch, byte-equal too. ms a
    batch of the whole batch and of the sharded call with and without the
-   gather, in turns, of the gather alone, and each one's build and G.
+   gather, in turns, of the gather alone, and each one's build and G;
+   inside the whole batch the device time of K3, of the fused loop and of
+   every kernel (torch.profiler).
 13. CLI: `python -m pywfa_tpu_torch.cli align` in a subprocess over FASTA
    files written here (16384 pairs of 150 bp at 2%, 512 ONT-like 1 kb
    pairs at 7%, a lowercase read, a pattern with an N, 32 pairs of
@@ -539,10 +545,11 @@ def _fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def kernel_only_ms(fn, reps=5):
-    """Mean ms a call of fn spends in the fused loop's kernels alone, by
-    torch.profiler's device rows (no memset, no host gap); None where the
-    profiler records no device time."""
+def kernel_only_ms(fn, reps=5, name="fused_loop"):
+    """Mean ms a call of fn spends in the kernels whose name holds `name`
+    (the fused loop's by default; "" for every kernel) alone, by
+    torch.profiler's device rows (no host gap); None where the profiler
+    records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -555,8 +562,7 @@ def kernel_only_ms(fn, reps=5):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and "fused_loop" in e.key)
+                 if e.device_type == DeviceType.CUDA and name in e.key)
         if us > 0:
             return us / 1e3 / reps
     return None
@@ -587,19 +593,23 @@ def phase_device():
 def ptxas_lines(lib, output):
     """ptxas' registers and spills, one line a kernel of nvcc's output for
     `lib`: the fused loop's kernels by build and template arguments
-    <metric, span, record, heuristic>, the table's by output type."""
+    <metric, span, record, heuristic>, the table's by output type,
+    diagonals a thread, wildcard and whole-store (W a multiple of the
+    cells) instantiation."""
     lines = []
     name = "?"
     spills = ""
     for line in output.splitlines():
         m = re.search(r"fused_loop(_[a-z]+)?ILi(\d)ELi(\d)ELb([01])ELb([01])E",
                       line)
-        t = re.search(r"lcp_tableI(\w)E", line)
+        t = re.search(r"lcp_tableI(\w)Li(\d)ELb([01])ELb([01])E", line)
         if m and "Compiling" in line:
             name = "{}<{}, {}, {}, {}>".format(m.group(1) or "",
                                                *m.groups()[1:])
         elif t and "Compiling" in line:
-            name = "<uint8>" if t.group(1) == "h" else "<int16>"
+            name = "<{}, {} cells, wildcard {}, full stores {}>".format(
+                "uint8" if t.group(1) == "h" else "int16",
+                4 * int(t.group(2)), t.group(3), t.group(4))
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -1607,6 +1617,71 @@ def _state_err(name, got, want, running):
                     ("ring", "lohi", "carry"))
 
 
+# K3's shapes beside the main paths': the first kernel's two refusals
+LCP_MANY = 65537          # pairs: past a grid dimension of 65535
+LCP_LONG_PATTERN = 49152  # bp: a pattern row past 48 KiB ...
+LCP_LONG_AT = 48400       # ... holding its 1 kb text from here on
+# integer operations of a table cell: the kernel compares, steps and masks
+# four cells a 32-bit word in about eight word operations
+LCP_OPS_PER_CELL = 2
+
+
+def lcp_shapes(attr, long_inputs, cfg_f):
+    """K3's held shapes, (name, (pats, txts), cfg, wildcard, kmin): the
+    short-read batch (Ltp=176, B=4096, W=256, uint8: the sharded batch's),
+    stream F's segmented 1 kb batch (`cfg_f`, int16: F's and the resume's),
+    one with a wildcard, one with B=16 and W=1152, the CLI's 150 bp batch
+    in its length bucket (Ltp=272, int16); then 65537 pairs of 150 bp
+    (uint8), and one pair whose 49 kb pattern row holds its 1 kb text at
+    diagonal -48400, inside a band of 896 (int16)."""
+    from pywfa_tpu_torch.ops import config as C
+    rng = np.random.default_rng(SEED + 9)
+    main = make_pairs(rng, B_MAIN, L, DIV)
+    wild = make_n_pairs(rng, B_LONG, L, DIV)
+    mid = make_ont_pairs(rng, 16, 400, ONT_SUB, ONT_IND)
+    many = make_pairs(rng, LCP_MANY, L, DIV)
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    p = alphabet[rng.integers(0, 4, LCP_LONG_PATTERN)].tobytes()
+    t = mutate(rng, p[LCP_LONG_AT:LCP_LONG_AT + L_LONG], ONT_SUB, ONT_IND)
+    cfg_long = C.full_config(attr, LCP_LONG_PATTERN, 1024, W=896)
+    short = C.full_config(attr, 160, 160, W=256)
+    shapes = [
+        ("lcp_short_u8", main, short, -1),
+        ("lcp_1kb_i16", long_inputs["ef"][0], cfg_f, -1),
+        ("lcp_wildcard_u8", wild,
+         C.full_config(attr, 160, 160, W=256, wildcard=ord("N")), ord("N")),
+        ("lcp_w1152_i16", mid, C.full_config(attr, 512, 512, W=1152), -1),
+        # the CLI's 150 bp batches under biwfa: the (256, 256) bucket
+        ("lcp_cli_i16", main, C.full_config(attr, 256, 256, W=256), -1),
+        ("lcp_many_pairs_u8", many, short, -1),
+    ]
+    return [(n, pairs, cfg, wc, cfg.kmin) for n, pairs, cfg, wc in shapes] \
+        + [("lcp_long_pattern_i16", ([p], [t[:1024]]), cfg_long, -1,
+            -LCP_LONG_AT - cfg_long.W // 2)]
+
+
+def lcp_bound(nbytes, cells):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for a table of `cells` cells and `nbytes` bytes (the rows read once,
+    the table written once)."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * cells * LCP_OPS_PER_CELL / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _table_err(got, want):
+    """Largest difference between two tables, a slice of text positions
+    at a time (a table may hold gigabytes)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"table {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    if torch.equal(got, want):
+        return 0
+    step = max(1, (1 << 26) // max(1, got[0].numel()))
+    return max(int((got[h:h + step].int() - want[h:h + step].int())
+                   .abs().max()) for h in range(0, got.shape[0], step))
+
+
 def phase_long_kernels(dev, long_inputs):
     """K3, the table variants and the wide-band layouts against their
     plain versions (see the module docstring, phase 10)."""
@@ -1616,7 +1691,6 @@ def phase_long_kernels(dev, long_inputs):
     from pywfa_tpu_torch.ops import config as C
     from pywfa_tpu_torch.ops import engine as TE
     from pywfa_tpu_torch.ops import fused_loop, lcp_table
-    rng = np.random.default_rng(SEED + 9)
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     records = {}
     pats1k, txts1k = long_inputs["ef"][0]
@@ -1631,51 +1705,42 @@ def phase_long_kernels(dev, long_inputs):
     cfg_f = dataclasses.replace(cfg_f, S_cap=K, record_choices=False)
 
     # --- K3 against its plain version ---
-    main = make_pairs(rng, B_MAIN, L, DIV)
-    wild = make_n_pairs(rng, B_LONG, L, DIV)
-    mid = make_ont_pairs(rng, 16, 400, ONT_SUB, ONT_IND)
-    shapes = [
-        ("lcp_short_u8", main, C.full_config(attr, 160, 160, W=256), -1),
-        ("lcp_1kb_i16", (pats1k, txts1k), cfg_f, -1),
-        ("lcp_wildcard_u8", wild,
-         C.full_config(attr, 160, 160, W=256, wildcard=ord("N")), ord("N")),
-        ("lcp_w1152_i16", mid, C.full_config(attr, 512, 512, W=1152), -1),
-        # the CLI's 150 bp batches under biwfa: the (256, 256) bucket
-        ("lcp_cli_i16", main, C.full_config(attr, 256, 256, W=256), -1),
-    ]
-    for name, (pats, txts), cfg, wildcard in shapes:
+    for name, (pats, txts), cfg, wildcard, kmin in lcp_shapes(
+            attr, long_inputs, cfg_f):
         pat, txt, *_ = _token_rows(cfg, pats, txts, dev)
 
         def kernel():
-            return lcp_table.build_lcp_table_hmajor(cfg.W, cfg.kmin, wildcard,
+            return lcp_table.build_lcp_table_hmajor(cfg.W, kmin, wildcard,
                                                     pat, txt)
 
         def plain():
-            return lcp_table.build_lcp_table_hmajor_ref(cfg.W, cfg.kmin,
+            return lcp_table.build_lcp_table_hmajor_ref(cfg.W, kmin,
                                                         wildcard, pat, txt)
 
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        err = _max_err(name, {"R": got}, {"R": want}, ("R",))
+        err = _table_err(got, want)
         nbytes = got.numel() * got.element_size() + pat.numel() + txt.numel()
+        cells = got.numel()
         del got, want
         k_ms, p_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
-        # a cell: the window index, two loads, the compare, the run, a store
-        t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-        t_ops = 1e3 * txt.shape[1] * len(pats) * cfg.W * 8 / PEAK_OPS_PER_S
+        alone = kernel_only_ms(kernel, name="lcp_table")
+        b_ms, b_by = lcp_bound(nbytes, cells)
+        # the kernel's own device time where the profiler has it: the
+        # events time of a small table is the host's launch rate
+        ms = alone if alone is not None else k_ms
         log(f"kernel vs plain [{name}] kernel=lcp_table B={len(pats)} "
-            f"W={cfg.W} Lpp={pat.shape[1]} Ltp={txt.shape[1]} "
+            f"W={cfg.W} Lpp={pat.shape[1]} Ltp={txt.shape[1]} kmin={kmin} "
             f"wildcard={wildcard} out_bytes={nbytes} max_abs_err={err} "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f} "
-            f"bound_ms={max(t_bytes, t_ops):.3g} "
-            f"bound_by={'bytes' if t_bytes >= t_ops else 'operations'}")
+            f"kernel_ms={k_ms:.4f} kernel_only_ms={_fmt(alone)} "
+            f"plain_ms={p_ms:.2f} bound_ms={b_ms:.3g} bound_by={b_by} "
+            f"cells_per_s={cells / (ms * 1e-3):.4g} "
+            f"bound_share={b_ms / ms:.3f}")
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from plain version")
         records[name] = dict(
-            variant="lcp_table", err=err, ms=k_ms, plain_ms=p_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            B=len(pats))
+            variant="lcp_table", err=err, ms=ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, B=len(pats), cells=cells)
 
     # --- the table variant against plain, against the bits variant and
     # against the general build, as the segments of stream F: the forward
@@ -2337,6 +2402,11 @@ def phase_sharded(dev, records):
                     "whole"):
             times[key].append(cuda_ms(runs[key], 10))
         gather_ms = cuda_ms(lambda: PM._gather(mesh, outs), 20)
+        inside = {k: kernel_only_ms(runs["whole"], name=n) for k, n in (
+            ("K3", "lcp_table"), ("fused loop", "fused_loop"),
+            ("every kernel", ""))}
+        log("inside the whole batch, device ms a call (torch.profiler): "
+            + "; ".join(f"{k} {_fmt(v)}" for k, v in inside.items()))
         log(f"sharded main path: {B_MAIN} pairs over {mesh.size} device(s), "
             f"{mesh.process_count} process(es), NCCL gather; byte-equal to "
             f"the unsharded batch (max_abs_err 0, choices included) in "
@@ -2538,7 +2608,9 @@ def kernel_records(records, launches):
     main paths, and the error, times and bound of the largest shape it was
     held at against its plain version, with the build the main path takes
     at that shape (the build whose time `ms` is) and, on the group build,
-    its G."""
+    its G. K3's entry: the error over every held shape, the times and
+    bound of the shape of at least 1 M cells with the lowest share of its
+    bound (`ms` the kernel alone by torch.profiler)."""
     from pywfa_tpu_torch.ops import fused_loop
     pallas = "pywfa_tpu/ops/pallas/fused_loop.py"
     # the Pallas lines each variant replaces: the heuristic cascade, the
@@ -2555,8 +2627,10 @@ def kernel_records(records, launches):
     if launches["lcp_table"] == 0:
         raise AssertionError("no main path launched lcp_table")
     held = [r for r in records.values() if r["variant"] == "lcp_table"]
-    # the shape stream F and the resume phase launch it at
-    timed = records["lcp_1kb_i16"]
+    # the held shape of at least 1 M cells furthest below its bound (a
+    # smaller one times the launch)
+    timed = min((r for r in held if r["cells"] >= 2**20),
+                key=lambda r: r["bound_ms"] / r["ms"])
     kernels.append({
         "name": "lcp_table", "route": "cuda",
         "source": "pywfa_tpu_torch/csrc/lcp_table.cu",

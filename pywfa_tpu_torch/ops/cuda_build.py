@@ -106,7 +106,7 @@ def load(name: str = "fused_loop") -> ctypes.CDLL:
             lib.wfa_fused_loop_active_clusters.argtypes = []
             lib.wfa_fused_loop_active_clusters.restype = ci
         else:
-            lib.wfa_lcp_table.argtypes = [vp] * 3 + [ci] * 7 + [vp]
+            lib.wfa_lcp_table.argtypes = [vp] * 3 + [ci] * 11 + [vp]
             lib.wfa_lcp_table.restype = ci
         lib.wfa_cuda_error_string.argtypes = [ci]
         lib.wfa_cuda_error_string.restype = ctypes.c_char_p

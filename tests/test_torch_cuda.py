@@ -513,28 +513,90 @@ def _token_rows(cfg, pairs, dev):
             torch.zeros((len(pairs), 4), dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("L,W,B,wildcard", [
-    (160, 256, 64, -1), (160, 64, 3, 78), (233, 192, 16, -1),
-    (234, 192, 16, 78), (600, 320, 16, -1), (1024, 1152, 16, -1),
-    (2000, 2176, 4, -1),
+@pytest.mark.parametrize("L,W,B,wildcard,extra", [
+    (160, 256, 64, -1, {}), (160, 64, 3, 78, {}), (233, 192, 16, -1, {}),
+    (234, 192, 16, 78, {}), (600, 320, 16, -1, {}), (1024, 1152, 16, -1, {}),
+    (2000, 2176, 4, -1, {}),
+    # band widths that are not a multiple of a thread's lane group
+    (160, 61, 16, -1, {}), (233, 255, 16, 78, {}), (234, 257, 16, -1, {}),
+    (600, 1153, 8, 78, {}),
+    # windows that start and end outside the pattern row
+    (160, 256, 16, -1, dict(kmin=-400)), (160, 256, 16, 78, dict(kmin=100)),
+    (600, 320, 8, -1, dict(kmin=-700)),
+    # Ltp 249 and 250 (the uint8 / int16 edge) and 2048
+    (233, 256, 16, 78, {}), (234, 256, 16, 78, {}), (2032, 512, 8, -1, {}),
+    # a wildcard in both rows and at the rows' ends
+    (160, 256, 16, 78, dict(ends=True)), (600, 384, 8, 78, dict(ends=True)),
+    # the first kernel's two refusals: more pairs than a grid dimension of
+    # 65535 holds, and a pattern row past 48 KiB against a text row of 1040
+    (48, 64, 65537, -1, {}), (1024, 896, 1, -1, dict(Lp=49152, kmin=-48848)),
 ])
-def test_lcp_table_kernel_matches_plain_version(dev, L, W, B, wildcard):
+def test_lcp_table_kernel_matches_plain_version(dev, L, W, B, wildcard,
+                                                extra):
     """K3 at the uint8 shapes, both sides of the uint8 / int16 edge, int16
-    shapes and bands past one block of 256 threads, with a wildcard."""
-    pairs = random_pairs(71, B, L // 2, L, 0.08, 0.05, as_bytes=True)
+    shapes and bands past one block of 256 threads, with a wildcard; band
+    widths off the lane groups, windows outside the pattern row, a wildcard
+    at the rows' ends, 65537 pairs and a 49 kb pattern row (Ltp = L + 16;
+    `extra`: kmin, the pattern's length Lp, wildcards at the ends)."""
+    Lp = extra.get("Lp", L)
+    if Lp > L:
+        # the text: a mutated copy of the pattern from 48400 on, diagonal
+        # -48400, inside the band
+        rng = random.Random(73)
+        p = "".join(rng.choice("ACGT") for _ in range(Lp))
+        pairs = [(p.encode(), mutate(rng, p[48400:48400 + L], 0.05,
+                                     0.0).encode()[:L])]
+    else:
+        pairs = random_pairs(71, B, L // 2, L, 0.08, 0.05, as_bytes=True)
     if wildcard >= 0:
         pairs = [(p[:9] + b"N" + p[10:], t[:5] + b"N" + t[6:])
                  for p, t in pairs]
-    cfg = C.full_config(ATTR, L, L, W=W, wildcard=wildcard)
+    if extra.get("ends"):
+        pairs = [(b"N" + p[1:-1] + b"N", b"N" + t[1:-1] + b"N")
+                 for p, t in pairs]
+    cfg = C.full_config(ATTR, Lp, L, W=W, wildcard=wildcard)
+    kmin = extra.get("kmin", cfg.kmin)
     pat, txt, *_ = _token_rows(cfg, pairs, dev)
+    assert txt.shape[1] == L + 16
     before = lcp_table.launches["lcp_table"]
-    got = lcp_table.build_lcp_table_hmajor(W, cfg.kmin, wildcard, pat, txt)
+    got = lcp_table.build_lcp_table_hmajor(W, kmin, wildcard, pat, txt)
     assert lcp_table.launches["lcp_table"] == before + 1
-    want = lcp_table.build_lcp_table_hmajor_ref(W, cfg.kmin, wildcard, pat,
-                                                txt)
+    want = lcp_table.build_lcp_table_hmajor_ref(W, kmin, wildcard, pat, txt)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == lcp_table.table_dtype(txt.shape[1])
     assert torch.equal(got, want)
+    # every diagonals-a-thread and segments-a-group the kernel takes gives
+    # the same bytes
+    for cells in lcp_table.CELLS[got.dtype]:
+        for segments in lcp_table.SEGMENTS:
+            assert torch.equal(lcp_table.build_lcp_table_hmajor(
+                W, kmin, wildcard, pat, txt, cells=cells, segments=segments),
+                want), (cells, segments)
+
+
+def test_align_batch_past_65535_pairs_matches_slices(dev):
+    """engine.align_batch, which builds the run-length table for its
+    batch, on 65537 short pairs in one call: equal, choices included, to
+    the same pairs in slices of 4096 (the first K3 kernel refused a batch
+    past 65535 pairs)."""
+    B = 65537
+    pairs = random_pairs(74, B, 40, 60, 0.04, 0.02, as_bytes=True)
+    cfg = C.full_config(ATTR, 64, 64, W=128, S_cap=96)
+    assert TE.extend_mode(cfg, cfg.Lt + cfg.extend_chunk) == "table"
+    pat, txt, plen, tlen, frees = _token_rows(cfg, pairs, dev)
+    before = lcp_table.launches["lcp_table"]
+    whole = TE.align_batch(cfg, pat, txt, plen, tlen, frees, 2**31 - 1)
+    assert lcp_table.launches["lcp_table"] == before + 1
+    for b0 in range(0, B, 4096):
+        sl = slice(b0, b0 + 4096)
+        part = TE.align_batch(cfg, pat[sl].contiguous(), txt[sl].contiguous(),
+                              plen[sl].contiguous(), tlen[sl].contiguous(),
+                              frees[sl].contiguous(), 2**31 - 1)
+        for k in KEYS:
+            got = whole[k][:, sl] if k == "choices" else whole[k][sl]
+            assert torch.equal(got, part[k]), (b0, k)
+    torch.cuda.synchronize()
+    assert bool((whole["status"] == 1).any())
 
 
 @pytest.mark.parametrize("kw,frees_row", [

@@ -95,3 +95,124 @@ def test_table_wrapper_checks_its_inputs():
     with pytest.raises(NotImplementedError):
         TLT.build_lcp_table_hmajor(64, -32, -1, p, long)
     assert TLT.supported(2048) and not TLT.supported(2049)
+
+
+def _grid_ok(B, W, Ltp, cells=None, segments=None):
+    """The launch of launch_shape(B, W, Ltp, cells, segments) within CUDA's
+    limits and covering B * ceil(W / cells) * segments threads with no
+    block to spare; returns (cells, segments, threads, blocks, groups a
+    pair)."""
+    cells, segments, threads, blocks = TLT.launch_shape(B, W, Ltp, cells,
+                                                        segments)
+    assert cells in TLT.CELLS[TLT.table_dtype(Ltp)]
+    assert segments in TLT.SEGMENTS and 32 % segments == 0
+    assert 32 <= threads <= 256 and threads % 32 == 0
+    assert 1 <= blocks <= 2**31 - 1
+    groups = -(-W // cells)
+    # every group of diagonals inside W, the last one reaching it
+    assert (groups - 1) * cells < W <= groups * cells
+    items = B * groups * segments
+    assert blocks * threads >= items
+    assert B == 0 or (blocks - 1) * threads < items
+    return cells, segments, threads, blocks, groups
+
+
+@pytest.mark.parametrize("Ltp", [176, 1040])
+@pytest.mark.parametrize("W", [1, 61, 256, 257, 896, 6912])
+def test_launch_shape_covers_every_cell_once(W, Ltp):
+    """The kernel's geometry: for batches up to 2^20 pairs every grid
+    dimension stays within CUDA's limits; on small batches, replaying the
+    kernel's own index arithmetic (thread -> pair, first diagonal, segment
+    of text positions; cells up to W; the segments of a group in one warp)
+    covers every (pair, diagonal) and every text position exactly once and
+    stores nothing past W."""
+    dt = TLT.table_dtype(Ltp)
+    for B in (1, 2, 17, 4096, 65535, 65537, 2**20):
+        for cells in (None,) + TLT.CELLS[dt]:
+            for segments in (None,) + TLT.SEGMENTS:
+                _grid_ok(B, W, Ltp, cells, segments)
+    for B in (1, 2, 17):
+        for cells in (None,) + TLT.CELLS[dt]:
+            for segments in (None,) + TLT.SEGMENTS:
+                cells, S, threads, blocks, groups = _grid_ok(
+                    B, W, Ltp, cells, segments)
+                tid = np.arange(blocks * threads)
+                item, seg = tid // S, tid % S
+                live = item < B * groups
+                item, seg, tid = item[live], seg[live], tid[live]
+                # the S threads of a group: neighbours in one warp
+                assert ((item * S) // 32 == (item * S + S - 1) // 32).all()
+                b, w0 = item // groups, (item % groups) * cells
+                hits = np.zeros((B, W, S), dtype=np.int64)
+                for i in range(cells):
+                    inside = w0 + i < W
+                    np.add.at(hits, (b[inside], (w0 + i)[inside],
+                                     seg[inside]), 1)
+                assert (hits == 1).all()
+                # the segments' rows, as the kernel cuts them
+                seglen = -(-Ltp // S)
+                rows = np.zeros(Ltp, dtype=np.int64)
+                for k in range(S):
+                    hi = Ltp - 1 - k * seglen
+                    if hi >= 0:
+                        rows[max(0, hi - seglen + 1):hi + 1] += 1
+                assert (rows == 1).all()
+    # the most diagonals a thread while the batch gives MIN_THREADS
+    # threads, else the fewest, and then segments of text positions
+    assert TLT.launch_shape(4096, 256, Ltp)[:2] == (TLT.CELLS[dt][0], 1)
+    cells, segments = TLT.launch_shape(1, W, Ltp)[:2]
+    assert cells == TLT.CELLS[dt][-1]
+    assert segments > 1 and -(-Ltp // segments) >= TLT.MIN_SEGMENT
+    with pytest.raises(ValueError):
+        TLT.launch_shape(4, W, Ltp, cells=2)
+    with pytest.raises(ValueError):
+        TLT.launch_shape(4, W, Ltp, segments=3)
+
+
+def _fault_rows(case):
+    """(cfg, pat, txt) at one shape of each limit of the first CUDA
+    kernel: more pairs than a grid dimension of 65535 holds, and a
+    pattern row past 48 KiB (49168 bytes against a text row of 1040)."""
+    rng = np.random.default_rng(1059)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    attr = WavefrontAligner(backend="numpy", span="end-to-end")._attributes()
+    if case == "many_pairs":
+        B, Lt = 65537, 16
+        seqs = acgt[rng.integers(0, 4, (B, Lt))]
+        lens = rng.integers(8, Lt + 1, B)
+        txts = np.where(rng.random((B, Lt)) < 0.1,
+                        acgt[rng.integers(0, 4, (B, Lt))], seqs)
+        pats = [s[:n].tobytes() for s, n in zip(seqs, lens)]
+        txts = [t[:n].tobytes() for t, n in zip(txts, rng.permutation(lens))]
+        cfg = dataclasses.replace(E.full_config(attr, Lt, Lt), W=8)
+    else:
+        Lp, Lt = 49152, 1024
+        p = acgt[rng.integers(0, 4, Lp)]
+        t = p[:Lt].copy()
+        flip = rng.random(Lt) < 0.05
+        t[flip] = acgt[rng.integers(0, 4, int(flip.sum()))]
+        pats, txts = [p.tobytes()], [t.tobytes()]
+        cfg = dataclasses.replace(E.full_config(attr, Lp, Lt), W=64)
+    pat = encode_batch(pats, cfg.Lp, cfg.extend_chunk, PATTERN_SENTINEL)
+    txt = encode_batch(txts, cfg.Lt, cfg.extend_chunk, TEXT_SENTINEL)
+    return cfg, pat, txt
+
+
+@pytest.mark.parametrize("case", ["many_pairs", "long_pattern_row"])
+def test_plain_table_matches_xla_at_the_fault_shapes(case):
+    """The plain version (the CPU path and the card's twin) against the
+    reference's XLA builder, transposed, at B = 65537 and at a pattern row
+    of 49168 bytes, the two shapes the first CUDA kernel refused."""
+    cfg, pat, txt = _fault_rows(case)
+    if case == "many_pairs":
+        assert pat.shape[0] > 65535
+    else:
+        assert pat.shape[1] > 48 * 1024 and txt.shape[1] == 1040
+    got = TLT.build_lcp_table_hmajor(cfg.W, cfg.kmin, -1,
+                                     torch.from_numpy(pat),
+                                     torch.from_numpy(txt))
+    assert tuple(got.shape) == (txt.shape[1], pat.shape[0], cfg.W)
+    assert got.dtype == TLT.table_dtype(txt.shape[1])
+    xla = np.asarray(E._build_lcp_table(cfg, jnp.asarray(pat),
+                                        jnp.asarray(txt)))
+    np.testing.assert_array_equal(got.numpy(), xla.transpose(2, 0, 1))

@@ -2,7 +2,7 @@
 """Time the fused loop's builds at the terminal, rung-1 and long-read
 shapes on one CUDA GPU, for a same-call comparison of two trees.
 
-    python3 time_builds.py [--tree DIR] [--sweep | --streams]
+    python3 time_builds.py [--tree DIR] [--sweep | --streams | --lcp]
                            [--only NAME,...]
 
 Imports `pywfa_tpu_torch` from DIR (default: this script's directory), so
@@ -40,6 +40,18 @@ With --streams it prints instead the rate of two of chip_smoke.py's
 timed streams, 4 batches of 4096 150 bp pairs at 2% divergence, gap-
 affine end to end in the score scope and with full CIGARs, three runs
 each after a warm-up batch: {"tree", "stream", "alignments_s"}.
+
+With --lcp it times instead the run-length table (K3) at
+chip_smoke.lcp_shapes (the five shapes of the paths, 65537 pairs of
+150 bp and a 49 kb pattern row against a 1 kb text), at the diagonals a
+thread and threads a group the tree's launch picks and, where its wrapper
+takes `cells` and `segments`, at every other choice too, by CUDA events
+and alone (torch.profiler), beside the bound: {"tree", "shape", "cells",
+"segments", "picked", "ms", "kernel_only_ms", "bound_ms"} or "refused"
+where the tree's kernel refuses the shape; then
+engine.align_batch on the sharded batch's 4096 pairs of 150 bp at the
+first rung (W=256, S_cap=96): the call by CUDA events, and K3, the fused
+loop and every kernel inside it by torch.profiler.
 
 With --sweep it prints instead ptxas' registers and spills of the
 builds' kernels for `e2e` and `affine2p_e2e`, and chip_smoke.step_sweep:
@@ -127,11 +139,75 @@ def streams(cs, tree, dev):
                               "alignments_s": n / wall}), flush=True)
 
 
+def lcp(cs, tree, dev, attr, long_inputs, cfg_f):
+    """--lcp: K3 at chip_smoke's held shapes, then engine.align_batch on
+    the sharded batch's pairs (see the module docstring)."""
+    import inspect
+
+    import numpy as np
+    import torch
+    from pywfa_tpu_torch.ops import config as C
+    from pywfa_tpu_torch.ops import engine as TE
+    from pywfa_tpu_torch.ops import lcp_table
+    takes_cells = "cells" in inspect.signature(
+        lcp_table.build_lcp_table_hmajor).parameters
+    for name, (pats, txts), cfg, wildcard, kmin in cs.lcp_shapes(
+            attr, long_inputs, cfg_f):
+        pat, txt, *_ = cs._token_rows(cfg, pats, txts, dev)
+        B, Ltp = len(pats), txt.shape[1]
+        # (diagonals a thread, threads a group): the tree's launch_shape
+        # first, then every other choice; a thread a diagonal before
+        picked, choices = (1, 1), [(1, 1)]
+        if takes_cells:
+            picked = lcp_table.launch_shape(B, cfg.W, Ltp)[:2]
+            choices = [(c, S)
+                       for c in lcp_table.CELLS[lcp_table.table_dtype(Ltp)]
+                       for S in lcp_table.SEGMENTS]
+        for cells, segments in sorted(choices, key=lambda c: c != picked):
+            kw = dict(cells=cells, segments=segments) if takes_cells else {}
+
+            def run():
+                return lcp_table.build_lcp_table_hmajor(
+                    cfg.W, kmin, wildcard, pat, txt, **kw)
+
+            row = {"tree": tree, "shape": name, "cells": cells,
+                   "segments": segments,
+                   "picked": (cells, segments) == picked}
+            try:
+                out = run()
+                torch.cuda.synchronize()
+                row["bound_ms"] = cs.lcp_bound(
+                    out.numel() * out.element_size() + pat.numel()
+                    + txt.numel(), out.numel())[0]
+                del out
+                row["ms"] = cs.cuda_ms(run, REPS)
+                row["kernel_only_ms"] = cs.kernel_only_ms(run,
+                                                          name="lcp_table")
+            except RuntimeError as e:
+                row["refused"] = str(e)[:120]
+            print(json.dumps(row), flush=True)
+    rng = np.random.default_rng(cs.SEED + 12)
+    pats, txts = cs.make_pairs(rng, cs.B_MAIN, cs.L, cs.DIV)
+    cfg = C.full_config(attr, 160, 160, W=256, S_cap=96)
+    args = cs._token_rows(cfg, pats, txts, dev)
+
+    def batch():
+        return TE.align_batch(cfg, *args, cs.MAXS)
+
+    row = {"tree": tree, "shape": f"align_batch_{cs.B_MAIN}x{cs.L}",
+           "ms": cs.cuda_ms(batch, REPS)}
+    for key, kernel in (("lcp_table_ms", "lcp_table"),
+                        ("fused_loop_ms", "fused_loop"), ("all_ms", "")):
+        row[key] = cs.kernel_only_ms(batch, name=kernel)
+    print(json.dumps(row), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--streams", action="store_true")
+    ap.add_argument("--lcp", action="store_true")
     ap.add_argument("--only", default="")
     opts = ap.parse_args()
     tree = os.path.abspath(opts.tree)
@@ -208,6 +284,9 @@ def main():
     budget_g = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
                    // PB.MEMORY_MODE_DIVISOR[MemoryMode.LOW])
     K_g = max(64, budget_g // (cs.B_G * cfg_g.W))
+    if opts.lcp:
+        lcp(cs, tree, dev, attr, long_inputs, cfg_f)
+        return 0
     shapes = [
         ("terminal",) + one_shot(C.full_config(attr, 160, 160), term),
         ("terminal_probe",) + one_shot(C.full_config(attr, 160, 160), lone),
