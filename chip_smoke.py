@@ -180,6 +180,35 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    equal the oracle (ends-free and end to end), no pair goes to the host
    oracle; pairs/s of each run. The launches come from each run's
    verbose "# device:" line.
+14. The in-place compare (`engine.extend_mode` "chunk": the token rows
+   compared from each cell's offset to the first mismatch, for batches
+   whose equality words would pass `engine.EQ_BITS_BYTES_CAP`). Its branch
+   of every build against its plain version and against the words on the
+   same build, byte for byte (status, final_s, end_k, end_off, the whole
+   choice record, and for segments the ring, the bands and the carry):
+   rung 1 (4096 x 150 bp, W=256, S_cap=96, the group build); the
+   gap-affine terminal rung (256 x W=384, S_cap=649: the group build,
+   since the narrow one extends by the words alone); one WavefrontAligner
+   call's batch with the wildcard N and one under the IUPAC classes; F's
+   segment (256 x W=896, Ltp=1040), the first from WF0 and a later one
+   from the stored state, forward and replay scopes (group); G's later
+   segment of 96 scores at W=6912 on the cluster build, the same segment
+   on the general build. At rung 1, F's and G's segments, chunk against
+   bits in turns by CUDA events (chunk, bits, bits, chunk; the bits side
+   builds its words), each kernel alone beside them (log lines). Then
+   batch H, 64 ONT-like pairs of 50 kb at G's divergence, gap-affine end
+   to end, full CIGAR, memory_mode="low": once as routed, which must
+   extend by the rows on every launch (both rungs pass the cap), once with
+   the cap raised in the process, on the words; the two equal pair for
+   pair in every field, no pair at the host oracle; each run's wall,
+   peak device memory and `engine.memory_estimate` of each rung. Each of
+   H's rungs as the routed run launched it (W=8448 and W=33792 on the
+   general build, the ring in global memory): a forward segment from WF0
+   and the replay of the next one from its state, against the plain
+   version, state included (these are the kernels line's records of the
+   compare); H's first and last pair against the host oracle, which runs
+   in a process of its own from the start of the script. Last, batch G
+   under PYWFA_EXTEND=chunk, equal to batch G.
 
 Each main-path phase zeroes the kernels' launch counts (by variant, by
 build and the group build's by G) and the count of pairs sent to the host
@@ -191,7 +220,8 @@ long-read phase (10) launched the build its band routes to, unless the
 dry run (11) launched the group build and the sharded batch (12) the
 group build at G = 1 and K3, if a timed stream, an API phase or a CLI
 run (13) sent any pair to the oracle, or if any phase did so for an
-inconsistent walk. The line before the last is the kernels' JSON record;
+inconsistent walk; batch H (14) fails unless its routed run launched only
+the in-place compare and its words run only the words. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
 import collections
@@ -230,6 +260,10 @@ ONT_SUB, ONT_IND = 0.04, 0.03
 L_G = 10000
 B_G = 16
 G_SUB, G_IND = 0.04, 0.025
+# batch H (phase 14): ONT-like pairs of 50 kb at batch G's divergence,
+# whose equality words pass engine.EQ_BITS_BYTES_CAP at every rung
+L_H = 50000
+B_H = 64
 RESUME_STEPS = 200
 
 # the four metrics beside gap-affine, as WavefrontAligner's `distance`
@@ -545,27 +579,49 @@ def _fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
+# profiler sessions that recorded fewer launches of the timed kernel than
+# were made (kernel_only_ms), and all sessions: logged at the end
+PROFILER_SESSIONS = collections.Counter()
+
+
 def kernel_only_ms(fn, reps=5, name="fused_loop"):
     """Mean ms a call of fn spends in the kernels whose name holds `name`
     (the fused loop's by default; "" for every kernel) alone, by
     torch.profiler's device rows (no host gap); None where the profiler
-    records no device time."""
+    records no device time. A named kernel is launched once a call: a
+    session can come back with fewer of its launches than were made (the
+    rest of the records lost), so the time is the mean of the launches it
+    recorded, not their sum over `reps`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # the profiler now and then returns a session without its device rows:
-    # ask again before reporting "not measured"
+    # the profiler now and then returns a session without its device rows,
+    # or with some of them: ask again before settling
+    best = None
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and name in e.key)
-        if us > 0:
-            return us / 1e3 / reps
-    return None
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        us = sum(e.self_device_time_total for e in rows)
+        count = sum(e.count for e in rows)
+        PROFILER_SESSIONS["sessions"] += 1
+        if us <= 0 or count == 0:
+            continue
+        if not name:
+            if count % reps == 0:
+                return us / 1e3 / reps
+            PROFILER_SESSIONS["short"] += 1
+            continue
+        if count == reps:
+            return us / 1e3 / count
+        PROFILER_SESSIONS["short"] += 1
+        if best is None or count > best[1]:
+            best = (us / 1e3 / count, count)
+    return None if best is None else best[0]
 
 
 def host_ms(fn, reps):
@@ -772,9 +828,8 @@ def kernel_bound(cfg, args, out, cells, seg_base=0, state_bytes=0,
     score seg_base also moves state_bytes (its state, read and written),
     and of the extension's input only ext_bytes, what its cells read."""
     from pywfa_tpu_torch.constants import AlignmentSpan
-    bits = args[0]
-    B = bits.shape[1]
-    nbytes = (bits.numel() * 4 if ext_bytes is None else ext_bytes)
+    B = out["status"].shape[0]
+    nbytes = (args[0].numel() * 4 if ext_bytes is None else ext_bytes)
     nbytes += B * 8 + B * 16 + state_bytes
     if cfg.span == AlignmentSpan.ENDS_FREE:
         nbytes += B * 16
@@ -937,8 +992,9 @@ def phase_kernel_vs_plain(attr, dev, long_inputs):
         records[name] = dict(variant=fused_loop.variant(cfg), err=err,
                              build=build,
                              G=G if build == "group" else None,
-                             ms=t_ms[routed], plain_ms=p_ms,
-                             bound_ms=b_ms, bound_by=b_by, B=B)
+                             ms=t_ms[routed], alone=only[routed],
+                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                             B=B)
     return records
 
 
@@ -1547,13 +1603,75 @@ def phase_slice_api(dev):
 
 def make_long_inputs():
     """The pairs of the long-read phases, from the seed: streams E and F
-    (N_LONG_BATCHES batches of B_LONG ONT-like 1 kb pairs) and batch G
-    (B_G pairs of 10 kb at 5% divergence)."""
+    (N_LONG_BATCHES batches of B_LONG ONT-like 1 kb pairs), batch G
+    (B_G pairs of 10 kb at 5% divergence) and batch H (B_H pairs of 50 kb
+    at G's divergence)."""
     rng = np.random.default_rng(SEED + 8)
     return dict(
         ef=[make_ont_pairs(rng, B_LONG, L_LONG, ONT_SUB, ONT_IND)
             for _ in range(N_LONG_BATCHES)],
-        g=make_ont_pairs(rng, B_G, L_G, G_SUB, G_IND))
+        g=make_ont_pairs(rng, B_G, L_G, G_SUB, G_IND),
+        h=make_ont_pairs(np.random.default_rng(SEED + 12), B_H, L_H, G_SUB,
+                         G_IND))
+
+
+# batch H's pairs held against the host oracle, as batch G's are
+H_ORACLE = (0, B_H - 1)
+
+
+class HostOracle:
+    """The host oracle (batch._oracle_one) on a few pairs, in a process of
+    its own, so that it runs beside the phases that come first: the
+    pairs go in and the results come back as pickles in a temporary
+    directory. `result` waits for it; `stop` ends it wherever it is."""
+
+    CODE = ("import pickle, sys, time; sys.path.insert(0, sys.argv[1]); "
+            "from pywfa_tpu_torch import batch as PB; "
+            "jobs = pickle.load(open(sys.argv[2], 'rb')); "
+            "t0 = time.perf_counter(); "
+            "res = [PB._oracle_one(*j) for j in jobs]; "
+            "pickle.dump((res, time.perf_counter() - t0), "
+            "open(sys.argv[3], 'wb'))")
+
+    def __init__(self, attr, pairs):
+        import os
+        import pickle
+        import tempfile
+        self.dir = tempfile.TemporaryDirectory()
+        src = os.path.join(self.dir.name, "pairs.pkl")
+        self.out = os.path.join(self.dir.name, "results.pkl")
+        with open(src, "wb") as f:
+            pickle.dump([(attr, p, t) for p, t in pairs], f)
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", self.CODE, root, src, self.out])
+
+    def result(self, timeout):
+        """(results, the oracle's own seconds, seconds waited here)."""
+        import pickle
+        t0 = time.perf_counter()
+        rc = self.proc.wait(timeout=timeout)
+        if rc != 0:
+            raise AssertionError(f"the host oracle's process exited {rc}")
+        with open(self.out, "rb") as f:
+            res, secs = pickle.load(f)
+        return res, secs, time.perf_counter() - t0
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.dir.cleanup()
+
+
+def start_h_oracle(attr, long_inputs):
+    """Start the host oracle on batch H's pairs H_ORACLE (about 40 s and
+    20 GB of host memory a 50 kb pair) beside the phases before phase 14;
+    the caller stops it."""
+    pats, txts = long_inputs["h"]
+    oracle = HostOracle(attr, [(pats[i], txts[i]) for i in H_ORACLE])
+    long_inputs["h_oracle"] = oracle
+    return oracle
 
 
 def rung2_config(attr, pats, txts, B):
@@ -1682,6 +1800,22 @@ def _table_err(got, want):
                    .abs().max()) for h in range(0, got.shape[0], step))
 
 
+def f_segment_config(attr, pats1k, txts1k):
+    """Stream F's segment: its second rung (256 x W=896) cut to the
+    segment length that memory_mode="biwfa" gives it, without the
+    record."""
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.constants import MemoryMode
+    cfg_f = rung2_config(attr, pats1k, txts1k, B_LONG)
+    budget = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
+                 // PB.MEMORY_MODE_DIVISOR[MemoryMode.ULTRALOW])
+    K = max(64, budget // (B_LONG * cfg_f.W))
+    if cfg_f.S_cap * B_LONG * cfg_f.W <= budget or K >= cfg_f.S_cap:
+        raise AssertionError(f"stream F's second rung {cfg_f.S_cap}x{B_LONG}x"
+                             f"{cfg_f.W} would not run in segments")
+    return dataclasses.replace(cfg_f, S_cap=K, record_choices=False)
+
+
 def phase_long_kernels(dev, long_inputs):
     """K3, the table variants and the wide-band layouts against their
     plain versions (see the module docstring, phase 10)."""
@@ -1694,15 +1828,8 @@ def phase_long_kernels(dev, long_inputs):
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     records = {}
     pats1k, txts1k = long_inputs["ef"][0]
-    cfg_f = rung2_config(attr, pats1k, txts1k, B_LONG)
-    # the segment length stream F runs this rung at
-    budget = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
-                 // PB.MEMORY_MODE_DIVISOR[MemoryMode.ULTRALOW])
-    K = max(64, budget // (B_LONG * cfg_f.W))
-    if cfg_f.S_cap * B_LONG * cfg_f.W <= budget or K >= cfg_f.S_cap:
-        raise AssertionError(f"stream F's second rung {cfg_f.S_cap}x{B_LONG}x"
-                             f"{cfg_f.W} would not run in segments")
-    cfg_f = dataclasses.replace(cfg_f, S_cap=K, record_choices=False)
+    cfg_f = f_segment_config(attr, pats1k, txts1k)
+    K = cfg_f.S_cap
 
     # --- K3 against its plain version ---
     for name, (pats, txts), cfg, wildcard, kmin in lcp_shapes(
@@ -1739,7 +1866,7 @@ def phase_long_kernels(dev, long_inputs):
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from plain version")
         records[name] = dict(
-            variant="lcp_table", err=err, ms=ms, plain_ms=p_ms,
+            variant="lcp_table", err=err, ms=ms, call_ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, B=len(pats), cells=cells)
 
     # --- the table variant against plain, against the bits variant and
@@ -1832,7 +1959,7 @@ def phase_long_kernels(dev, long_inputs):
                                  "the general build")
         records[name] = dict(
             variant=variant, err=err, build=new, G=G, ms=t_ms[new],
-            plain_ms=p_ms, bound_ms=max(t_bytes, t_ops),
+            alone=only, plain_ms=p_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations", B=B_LONG)
     del table, bits
 
@@ -2037,7 +2164,8 @@ def phase_long_kernels(dev, long_inputs):
             del bits
             continue
         records[name] = dict(variant=fused_loop.variant(cfg), err=err,
-                             build=taken, ms=t_ms[taken], plain_ms=p_ms,
+                             build=taken, ms=t_ms[taken], alone=only,
+                             plain_ms=p_ms,
                              bound_ms=b_ms, bound_by=b_by, B=len(pats))
         del bits
     torch.cuda.empty_cache()
@@ -2143,6 +2271,8 @@ def phase_long_reads(dev, long_inputs):
     if list(map(_result_fields, g["low"])) != list(map(_result_fields,
                                                        g["high"])):
         raise AssertionError("batch G under low differs from high")
+    # held again under PYWFA_EXTEND=chunk (phase 14)
+    long_inputs["g_low"] = g["low"]
     t0 = time.perf_counter()
     for i in (0, B_G - 1):
         want = _result_fields(PB._oracle_one(attr, pats_g[i], txts_g[i]))
@@ -2204,6 +2334,557 @@ def phase_long_reads(dev, long_inputs):
     total.update(c)
     return total
 
+
+
+def _rows(cfg, pat, txt):
+    """The extension's input of the in-place compare (build_extension
+    under PYWFA_EXTEND=chunk): the token rows, or their class masks."""
+    from pywfa_tpu_torch.ops import engine as TE
+    ext = TE.build_extension(dataclasses.replace(cfg, extend_force="chunk"),
+                             pat, txt)
+    if ext["pat"] is None:
+        raise AssertionError("PYWFA_EXTEND=chunk built no token rows")
+    return ext
+
+
+def _copy_state(state):
+    return {k: (v.clone() if torch.is_tensor(v) else v)
+            for k, v in state.items()}
+
+
+def chunk_in_turns(chunk, bits, reps):
+    """Mean ms a call of chunk() and of bits() by CUDA events, in turns
+    (chunk, bits, bits, chunk); returns the means and the four times."""
+    times = collections.defaultdict(list)
+    order = ("chunk", "bits", "bits", "chunk")
+    for side in order:
+        times[side].append(cuda_ms(chunk if side == "chunk" else bits, reps))
+    return ({k: float(np.mean(v)) for k, v in times.items()},
+            [times[k][i] for k, i in zip(order, (0, 0, 1, 1))])
+
+
+def _chunk_record(name, cfg, B, build, G, err, call_ms, alone, p_ms, bound,
+                  routed=False):
+    """A kernels-line record of the in-place compare: `call_ms` the call
+    by CUDA events, `alone` the kernel alone (torch.profiler); `routed`
+    where a routed run (batch H) launches this very shape."""
+    from pywfa_tpu_torch.ops import fused_loop
+    return name, dict(variant=fused_loop.variant(cfg, chunk=True), err=err,
+                      build=build, G=G if build == "group" else None,
+                      ms=call_ms, alone=alone, plain_ms=p_ms,
+                      bound_ms=bound[0], bound_by=bound[1], B=B, W=cfg.W,
+                      routed=routed)
+
+
+def phase_chunk_kernels(dev, long_inputs):
+    """The in-place compare of every build against its plain version and
+    against the words on the same build (see the module docstring, phase
+    14)."""
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    from pywfa_tpu_torch.align import WavefrontAligner as RefAligner
+    from pywfa_tpu_torch.ops import config as C
+    from pywfa_tpu_torch.ops import engine as TE
+    from pywfa_tpu_torch.ops import fused_loop
+    attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
+    default_attr = RefAligner(backend="numpy")._attributes()
+    rng = np.random.default_rng(SEED + 11)
+    main = make_pairs(rng, B_MAIN, L, DIV)
+    related, unrelated = terminal_pairs(rng)
+    term = (related[0] + unrelated[0], related[1] + unrelated[1])
+    p = make_pairs(rng, 1, L, 0.0)[0][0]
+    p_n = make_n_pairs(rng, 1, L, DIV, rate=0.03)
+    amb = np.frombuffer(b"NRYSWKM", dtype=np.uint8)
+    iupac = []
+    for seq in (p, mutate(rng, p, DIV, 0.01)):
+        arr = np.frombuffer(seq, dtype=np.uint8).copy()
+        at = rng.random(len(arr)) < 0.05
+        arr[at] = amb[rng.integers(0, len(amb), int(at.sum()))]
+        iupac.append(arr.tobytes())
+    (wpats, wtxts), wcfg = api_single_inputs(default_attr, p_n[0][0],
+                                             p_n[1][0])
+    (cpats, ctxts), ccfg = api_single_inputs(default_attr, *iupac)
+    shapes = [
+        # (name, pairs, config, timed against the words)
+        ("chunk_rung1", main, C.full_config(attr, 160, 160, W=256, S_cap=96),
+         True),
+        ("chunk_terminal", term, C.full_config(attr, 160, 160), False),
+        ("chunk_api_wildcard", (wpats, wtxts),
+         dataclasses.replace(wcfg, wildcard=ord("N")), False),
+        ("chunk_api_classes", (cpats, ctxts),
+         dataclasses.replace(ccfg, match_classes="iupac"), False),
+    ]
+    records = {}
+    for name, (pats, txts), cfg, timed in shapes:
+        # zero frees: end to end, or pywfa's default span
+        pat, txt, plen, tlen, frees = _token_rows(cfg, pats, txts, dev)
+        ext = _rows(cfg, pat, txt)
+        B = len(pats)
+        build = fused_loop.kernel_build(cfg, B, pat=ext["pat"])
+        G = fused_loop.launch_shape(cfg, B, "group", dev)[1]
+
+        def chunk(ext=ext):
+            return fused_loop.align_batch_fused_loop(
+                cfg, None, plen, tlen, frees, MAXS, pat=ext["pat"],
+                txt=ext["txt"])
+
+        def words(bits=None):
+            return fused_loop.align_batch_fused_loop(
+                cfg, TE.build_eq_bits(cfg, pat, txt) if bits is None
+                else bits, plen, tlen, frees, MAXS, build=build)
+
+        got = chunk()
+        t0 = time.perf_counter()
+        want = fused_loop.align_batch_fused_loop_ref(
+            cfg, None, plen, tlen, frees, MAXS, pat=ext["pat"],
+            txt=ext["txt"])
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0)
+        bits = TE.build_eq_bits(cfg, pat, txt)
+        err = max(_max_err(name, got, want, LOOP_KEYS),
+                  _max_err(name, got, words(bits), LOOP_KEYS))
+        cells = int(torch.count_nonzero(got["choices"])) + B
+        bound = kernel_bound(cfg, (None,), got, cells,
+                             ext_bytes=ext["pat"].nbytes + ext["txt"].nbytes)
+        only = kernel_only_ms(chunk)
+        if timed:
+            # the words' side builds its words, as a batch does; the rows
+            # need no build (build_extension hands them over)
+            t_ms, turns = chunk_in_turns(
+                lambda: chunk(_rows(cfg, pat, txt)), words, 10)
+            only_bits = kernel_only_ms(lambda: words(bits))
+            ms = t_ms["chunk"]
+            line = (f" chunk_ms={t_ms['chunk']:.4f} "
+                    f"bits_with_eq_bits_ms={t_ms['bits']:.4f} "
+                    f"turns(chunk,bits,bits,chunk)="
+                    f"{','.join(f'{t:.4f}' for t in turns)} "
+                    f"kernel_only_ms[chunk]={_fmt(only)} "
+                    f"kernel_only_ms[bits]={_fmt(only_bits)}")
+        else:
+            ms = cuda_ms(chunk, 5)
+            line = f" chunk_ms={ms:.4f} kernel_only_ms[chunk]={_fmt(only)}"
+        mode = fused_loop.CHUNK_MODES[fused_loop.chunk_mode(cfg)]
+        log(f"kernel vs plain [{name}] variant="
+            f"{fused_loop.variant(cfg, chunk=True)} B={B} W={cfg.W} "
+            f"S_cap={cfg.S_cap} mode={mode} "
+            f"build={build} G={G} max_abs_err={err}{line} "
+            f"plain_ms={p_ms:.2f} bound_ms={bound[0]:.3g} "
+            f"bound_by={bound[1]} cells={cells}")
+        if err != 0:
+            raise AssertionError(f"{name}: the in-place compare differs from "
+                                 "its plain version or the words")
+        k, r = _chunk_record(name, cfg, B, build, G, err, ms, only, p_ms,
+                             bound)
+        records[k] = r
+        del got, want, bits, ext
+
+    # --- F's segment: the first from WF0 and a later one from the stored
+    # state, the forward and the replay scope, on the group build ---
+    pats1k, txts1k = long_inputs["ef"][0]
+    cfg_f = f_segment_config(attr, pats1k, txts1k)
+    K = cfg_f.S_cap
+    pat, txt, plen, tlen, frees = _token_rows(cfg_f, pats1k, txts1k, dev)
+    ext = _rows(cfg_f, pat, txt)
+    bits = TE.build_eq_bits(cfg_f, pat, txt)
+    for record in (False, True):
+        cfg = dataclasses.replace(cfg_f, record_choices=record)
+        name = "chunk_f" + ("_replay" if record else "_forward")
+        build = fused_loop.kernel_build(
+            cfg, B_LONG, state=fused_loop.new_state(cfg, 1, dev),
+            pat=ext["pat"])
+
+        def segment(fn, state, fresh, rows=True):
+            src = dict(pat=ext["pat"], txt=ext["txt"]) if rows else {}
+            return fn(cfg, None if rows else bits, plen, tlen, frees, MAXS,
+                      state=state, fresh=fresh, seg_base=0 if fresh else K - 1,
+                      **src)
+
+        states, outs, err = {}, {}, 0
+        kernel = fused_loop.align_batch_fused_loop
+        p_ms = 0.0
+        for fresh in (True, False):
+            for tag, fn, rows in (
+                    ("kernel", kernel, True),
+                    ("plain", fused_loop.align_batch_fused_loop_ref, True),
+                    ("bits", kernel, False)):
+                if fresh:
+                    states[tag] = fused_loop.new_state(cfg, B_LONG, dev)
+                t0 = time.perf_counter()
+                outs[tag] = segment(fn, states[tag], fresh, rows)
+                torch.cuda.synchronize()
+                if tag == "plain" and fresh:
+                    p_ms = 1e3 * (time.perf_counter() - t0)
+            running = outs["kernel"]["status"] == 5
+            err = max(err, _max_err(name, outs["kernel"], outs["plain"],
+                                    LOOP_KEYS),
+                      _max_err(name, outs["kernel"], outs["bits"], LOOP_KEYS),
+                      _state_err(name, states["kernel"], states["plain"],
+                                 running),
+                      _state_err(name, states["kernel"], states["bits"],
+                                 torch.ones_like(running)))
+            if fresh and not bool(running.any()):
+                raise AssertionError(f"{name}: no pair passes the first "
+                                     "segment")
+        st = fused_loop.new_state(cfg, B_LONG, dev)
+        t_ms, turns = chunk_in_turns(
+            lambda: segment(kernel, st, True),
+            lambda: fused_loop.align_batch_fused_loop(
+                cfg, TE.build_eq_bits(cfg, pat, txt), plen, tlen, frees,
+                MAXS, state=st, fresh=True), 10)
+        only = kernel_only_ms(lambda: segment(kernel, st, True))
+        only_bits = kernel_only_ms(lambda: segment(kernel, st, True, False))
+        first = kernel(dataclasses.replace(cfg, record_choices=True), None,
+                       plen, tlen, frees, MAXS, pat=ext["pat"], txt=ext["txt"])
+        cells = int(torch.count_nonzero(first["choices"])) + B_LONG
+        state_bytes = sum(st[k].numel() * 4 for k in ("ring", "lohi",
+                                                      "carry"))
+        bound = kernel_bound(cfg, (None,), first, cells,
+                             state_bytes=state_bytes,
+                             ext_bytes=ext["pat"].nbytes + ext["txt"].nbytes)
+        del first
+        G = fused_loop.launch_shape(cfg, B_LONG, "group", dev)[1]
+        ms = t_ms["chunk"]
+        log(f"kernel vs plain [{name}] variant="
+            f"{fused_loop.variant(cfg, chunk=True)} B={B_LONG} W={cfg.W} "
+            f"K={K} Ltp={txt.shape[1]} segments=2 build={build} G={G} "
+            f"max_abs_err={err} chunk_ms={t_ms['chunk']:.4f} "
+            f"bits_with_eq_bits_ms={t_ms['bits']:.4f} "
+            f"turns(chunk,bits,bits,chunk)="
+            f"{','.join(f'{t:.4f}' for t in turns)} "
+            f"kernel_only_ms[chunk]={_fmt(only)} "
+            f"kernel_only_ms[bits]={_fmt(only_bits)} plain_ms={p_ms:.2f} "
+            f"bound_ms={bound[0]:.3g} bound_by={bound[1]} cells={cells}")
+        if err != 0:
+            raise AssertionError(f"{name}: the in-place compare differs from "
+                                 "its plain version or the words")
+        k, r = _chunk_record(name, cfg, B_LONG, build, G, err, ms, only,
+                             p_ms, bound)
+        records[k] = r
+    del ext, bits
+
+    # --- G's later segment of 96 scores at W=6912, on the cluster and the
+    # general build, from the state 8 segments in ---
+    pats_g, txts_g = long_inputs["g"]
+    cfg = dataclasses.replace(rung2_config(attr, pats_g, txts_g, B_G),
+                              S_cap=96, record_choices=True)
+    fwd = dataclasses.replace(cfg, record_choices=False)
+    pat, txt, plen, tlen, frees = _token_rows(cfg, pats_g, txts_g, dev)
+    ext = _rows(cfg, pat, txt)
+    bits = TE.build_eq_bits(cfg, pat, txt)
+    out, state = TE.align_batch_start(fwd, ext, plen, tlen, frees, MAXS)
+    for _ in range(7):
+        out, state = TE.align_batch_resume(fwd, ext, plen, tlen, frees, MAXS,
+                                           state)
+    if not bool((out["status"] == 5).all()):
+        raise AssertionError("chunk_g: pairs ended in the lead")
+    base = state["s"]
+    name = "chunk_g_replay"
+    build = fused_loop.kernel_build(cfg, B_G, state=state, pat=ext["pat"])
+    if build != "cluster":
+        raise AssertionError(f"{name}: routed to the {build} build")
+
+    def g_segment(b=None, st=None, rows=True, fn=None):
+        src = dict(pat=ext["pat"], txt=ext["txt"]) if rows else {}
+        kw = dict(build=b) if fn is None else {}
+        return (fn or fused_loop.align_batch_fused_loop)(
+            cfg, None if rows else bits, plen, tlen, frees, MAXS,
+            state=st if st is not None else _copy_state(state), fresh=False,
+            seg_base=base, **src, **kw)
+
+    sts = {t: _copy_state(state) for t in ("cluster", "general", "plain",
+                                           "bits")}
+    outs = {"cluster": g_segment("cluster", sts["cluster"]),
+            "general": g_segment("general", sts["general"]),
+            "bits": g_segment("cluster", sts["bits"], rows=False)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs["plain"] = g_segment(st=sts["plain"],
+                              fn=fused_loop.align_batch_fused_loop_ref)
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t0)
+    running = outs["cluster"]["status"] == 5
+    err = max(max(_max_err(name, outs["cluster"], outs[t], LOOP_KEYS)
+                  for t in ("general", "bits", "plain")),
+              _state_err(name, sts["cluster"], sts["plain"], running),
+              max(_state_err(name, sts["cluster"], sts[t],
+                             torch.ones_like(running))
+                  for t in ("general", "bits")))
+    t_ms, turns = chunk_in_turns(
+        lambda: g_segment("cluster"),
+        lambda: fused_loop.align_batch_fused_loop(
+            cfg, TE.build_eq_bits(cfg, pat, txt), plen, tlen, frees, MAXS,
+            state=_copy_state(state), fresh=False, seg_base=base,
+            build="cluster"), 5)
+    gen_ms = cuda_ms(lambda: g_segment("general"), 5)
+    only = kernel_only_ms(lambda: g_segment("cluster"))
+    only_bits = kernel_only_ms(lambda: g_segment("cluster", rows=False))
+    cells = int(torch.count_nonzero(outs["cluster"]["choices"]))
+    state_bytes = 2 * sum(state[k].numel() * 4 for k in ("ring", "lohi",
+                                                         "carry"))
+    bound = kernel_bound(cfg, (None,), outs["cluster"], cells, seg_base=base,
+                         state_bytes=state_bytes,
+                         ext_bytes=ext["pat"].nbytes + ext["txt"].nbytes)
+    ms = t_ms["chunk"]
+    log(f"kernel vs plain [{name}] variant="
+        f"{fused_loop.variant(cfg, chunk=True)} B={B_G} W={cfg.W} "
+        f"scores=[{base}, {base + 95}] running={int(running.sum())} "
+        f"build={build} max_abs_err={err} chunk_ms={t_ms['chunk']:.4f} "
+        f"bits_with_eq_bits_ms={t_ms['bits']:.4f} "
+        f"turns(chunk,bits,bits,chunk)="
+        f"{','.join(f'{t:.4f}' for t in turns)} "
+        f"general_chunk_ms={gen_ms:.4f} kernel_only_ms[chunk]={_fmt(only)} "
+        f"kernel_only_ms[bits]={_fmt(only_bits)} plain_ms={p_ms:.2f} "
+        f"bound_ms={bound[0]:.3g} bound_by={bound[1]} cells={cells}")
+    if err != 0:
+        raise AssertionError(f"{name}: the in-place compare differs from its "
+                             "plain version, the general build or the words")
+    k, r = _chunk_record(name, cfg, B_G, build, None, err, ms, only, p_ms,
+                         bound)
+    records[k] = r
+    del ext, bits, outs, sts
+    torch.cuda.empty_cache()
+    return records
+
+
+def h_segments(i, run, dev):
+    """Hold one forward segment of batch H's rung `i` (from WF0, no
+    record) and one replay segment (the next one, from the forward
+    segment's state, with its record) against the plain version on the
+    card: the results, the choices and the state (ring, bands, carry).
+    `run` is what the routed run gave the rung's first segment: (cfg,
+    ext, plen, tlen, frees, max_steps). Returns the kernels-line records
+    of the two segments, as H routed them."""
+    from pywfa_tpu_torch.ops import fused_loop
+    cfg, ext, plen, tlen, frees, max_steps = run
+    B, K = plen.shape[0], cfg.S_cap
+    fwd = dataclasses.replace(cfg, record_choices=False)
+    rec = dataclasses.replace(cfg, record_choices=True)
+    rows = dict(pat=ext["pat"], txt=ext["txt"])
+    ext_bytes = ext["pat"].nbytes + ext["txt"].nbytes
+    kernel = fused_loop.align_batch_fused_loop
+
+    def segment(fn, c, state, fresh):
+        return fn(c, None, plen, tlen, frees, max_steps, state=state,
+                  fresh=fresh, seg_base=0 if fresh else K - 1, **rows)
+
+    def held(c, fresh, base_state):
+        """(kernel out, kernel state, err, plain ms) of one segment."""
+        states = {t: (fused_loop.new_state(c, B, dev) if fresh
+                      else _copy_state(base_state))
+                  for t in ("kernel", "plain")}
+        got = segment(kernel, c, states["kernel"], fresh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = segment(fused_loop.align_batch_fused_loop_ref, c,
+                       states["plain"], fresh)
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0)
+        running = got["status"] == 5
+        err = max(_max_err(f"H rung {i}", got, want, LOOP_KEYS),
+                  _state_err(f"H rung {i}", states["kernel"],
+                             states["plain"], running))
+        return got, states["kernel"], err, p_ms, running
+
+    records = {}
+    st = fused_loop.new_state(fwd, B, dev)
+    for c, fresh in ((fwd, True), (rec, False)):
+        got, state, err, p_ms, running = held(c, fresh, st)
+        if fresh:
+            if not bool(running.any()):
+                raise AssertionError(f"H rung {i}: no pair passes the "
+                                     "first segment")
+            first = segment(kernel, rec, fused_loop.new_state(rec, B, dev),
+                            True)
+            cells = int(torch.count_nonzero(first["choices"])) + B
+            del first
+            base, state_bytes = 0, sum(state[k].numel() * 4
+                                       for k in ("ring", "lohi", "carry"))
+
+            def call(c=c):
+                return segment(kernel, c, fused_loop.new_state(c, B, dev),
+                               True)
+        else:
+            cells = int(torch.count_nonzero(got["choices"]))
+            base, state_bytes = K - 1, 2 * sum(
+                st[k].numel() * 4 for k in ("ring", "lohi", "carry"))
+
+            def call(c=c):
+                return segment(kernel, c, _copy_state(st), False)
+        build = fused_loop.kernel_build(c, B, state=state, pat=ext["pat"])
+        call_ms = cuda_ms(call, 2)
+        only = kernel_only_ms(call, 3)
+        bound = kernel_bound(c, (None,), got, cells, seg_base=base,
+                             state_bytes=state_bytes, ext_bytes=ext_bytes)
+        name = f"chunk_h{i}_" + ("forward" if fresh else "replay")
+        log(f"kernel vs plain [{name}] variant="
+            f"{fused_loop.variant(c, chunk=True)} B={B} W={c.W} K={K} "
+            f"scores=[{base}, {base + K - 1}] running={int(running.sum())} "
+            f"build={build} max_abs_err={err} chunk_ms={call_ms:.4f} "
+            f"kernel_only_ms[chunk]={_fmt(only)} plain_ms={p_ms:.2f} "
+            f"bound_ms={bound[0]:.3g} bound_by={bound[1]} cells={cells}")
+        if err != 0:
+            raise AssertionError(f"{name}: the in-place compare differs from "
+                                 "its plain version")
+        G = (fused_loop.launch_shape(c, B, "group", dev)[1]
+             if build == "group" else None)
+        k, r = _chunk_record(name, c, B, build, G, err, call_ms, only, p_ms,
+                             bound, routed=True)
+        records[k] = r
+        if fresh:
+            st = state
+        del got
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_chunk_reads(dev, long_inputs, records):
+    """Batch H routed (on the rows) and on the words, each rung's segments
+    against the plain version and two pairs against the oracle; and batch
+    G under PYWFA_EXTEND=chunk (see the module docstring, phase 14)."""
+    import os
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.ops import engine as TE
+    from pywfa_tpu_torch.ops import fused_loop
+    total = collections.Counter()
+    pats, txts = long_inputs["h"]
+    results = {}
+    build = TE.build_extension
+    start = TE.align_batch_start
+    # the first segment's inputs of each rung of the routed run
+    runs, n_rungs = [], {}
+    for side in ("chunk", "bits"):
+        cap = TE.EQ_BITS_BYTES_CAP
+        # each segmented run's config, the extension it took and, with the
+        # replay's record, what memory_estimate counts for it
+        rungs = []
+
+        def spy(cfg, pat, txt, table=True):
+            ext = build(cfg, pat, txt, table)
+            rungs.append((cfg, "chunk" if ext["pat"] is not None else
+                          "table" if ext["table"] is not None else "bits",
+                          TE.memory_estimate(dataclasses.replace(
+                              cfg, record_choices=True), pat.shape[0],
+                              table)))
+            return ext
+
+        def spy_start(cfg, ext, plen, tlen, frees, max_steps):
+            runs.append((cfg, ext, plen, tlen, frees, max_steps))
+            return start(cfg, ext, plen, tlen, frees, max_steps)
+
+        if side == "bits":
+            # the words however large: the in-process cap raised
+            TE.EQ_BITS_BYTES_CAP = 2**62
+        else:
+            TE.align_batch_start = spy_start
+        TE.build_extension = spy
+        try:
+            aligner = BatchWavefrontAligner(span="end-to-end",
+                                            memory_mode="low", device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            results[side] = aligner.align(pats, txts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            TE.EQ_BITS_BYTES_CAP = cap
+            TE.build_extension = build
+            TE.align_batch_start = start
+        c = read_counts()
+        check_fallbacks(f"batch H {side}", timed=True)
+        seg = dict(PB.segmented_runs)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"batch [H 50 kb {side}]: {B_H} pairs of {L_H} bp in "
+            f"{wall:.3f} s; scores "
+            f"{min(r.score for r in results[side])}.."
+            f"{max(r.score for r in results[side])}; rungs "
+            + "; ".join(f"W={cfg.W} K={cfg.S_cap} extension={mode} "
+                        f"memory_estimate={e['total']} (ring {e['ring']}, "
+                        f"choices {e['choices']}, extension "
+                        f"{e['lcp_table']}, rows {e['sequences']})"
+                        for cfg, mode, e in rungs)
+            + f"; peak device memory {peak} B "
+            f"({peak / 2**30:.3f} GiB); segmented {seg}; launches "
+            f"{launched(c)}")
+        chunked = sum(v for k, v in c.items() if k.endswith("_chunk"))
+        if side == "chunk" and (not c["e2e_score_chunk"]
+                                or not c["e2e_chunk"]
+                                or chunked != c["build_general"]
+                                + c["build_cluster"] + c["build_group"]
+                                + c["build_narrow"]
+                                or {m for _, m, _ in rungs} != {"chunk"}):
+            raise AssertionError("batch H must extend by the rows in place "
+                                 f"on every launch: {launched(c)}")
+        if side == "bits" and (chunked or not c["e2e_score"]
+                               or {m for _, m, _ in rungs} != {"bits"}):
+            raise AssertionError("batch H with the cap raised must extend "
+                                 f"by the words: {launched(c)}")
+        if len(rungs) < 2 or seg["runs"] != len(rungs):
+            raise AssertionError(f"batch H {side} must run its rungs "
+                                 f"segmented: {seg}")
+        n_rungs[side] = len(rungs)
+        total.update(c)
+    if list(map(_result_fields, results["chunk"])) != list(
+            map(_result_fields, results["bits"])):
+        raise AssertionError("batch H on the rows differs from the words")
+    log(f"batch [H] on the rows equals the words on {B_H} pairs, every "
+        "field")
+    if len(runs) != n_rungs["chunk"]:
+        raise AssertionError(f"batch H: {len(runs)} segmented starts seen "
+                             f"for {n_rungs['chunk']} rungs")
+    # --- each rung's segments as H routed them, against the plain version
+    t0 = time.perf_counter()
+    for i, run in enumerate(runs):
+        records.update(h_segments(i, run, dev))
+    del runs
+    log(f"batch [H] segments against the plain version: "
+        f"{time.perf_counter() - t0:.1f} s")
+    # --- two pairs against the host oracle, started at the beginning ---
+    want, secs, waited = long_inputs["h_oracle"].result(timeout=600)
+    for i, w in zip(H_ORACLE, want):
+        if _result_fields(results["chunk"][i]) != _result_fields(w):
+            raise AssertionError(f"batch H pair {i} differs from the oracle")
+    log(f"batch [H] on the rows equals the oracle on {len(H_ORACLE)} pairs "
+        f"(oracle: {secs:.1f} s in its own process, {waited:.1f} s waited "
+        "for here)")
+    del results
+
+    # --- batch G under PYWFA_EXTEND=chunk, read as the config is built ---
+    pats_g, txts_g = long_inputs["g"]
+    os.environ["PYWFA_EXTEND"] = "chunk"
+    try:
+        aligner = BatchWavefrontAligner(span="end-to-end", memory_mode="low",
+                                        device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = aligner.align(pats_g, txts_g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["PYWFA_EXTEND"]
+    c = read_counts()
+    check_fallbacks("batch G chunk", timed=True)
+    # launches on the words or the table
+    other = sum(c[k] for k in fused_loop.VARIANTS + fused_loop.TABLE_VARIANTS)
+    log(f"batch [G 10 kb low, PYWFA_EXTEND=chunk]: {B_G} pairs in "
+        f"{wall:.3f} s; launches {launched(c)}")
+    if not c["e2e_chunk"] or not c["e2e_score_chunk"] or other \
+            or c["lcp_table"]:
+        raise AssertionError("batch G under PYWFA_EXTEND=chunk must extend "
+                             f"by the rows alone: {launched(c)}")
+    if list(map(_result_fields, got)) != list(
+            map(_result_fields, long_inputs["g_low"])):
+        raise AssertionError("batch G under PYWFA_EXTEND=chunk differs from "
+                             "batch G")
+    log(f"batch [G] under PYWFA_EXTEND=chunk equals batch G on {B_G} pairs "
+        "(and so the oracle on 2)")
+    total.update(c)
+    return total
+
+
+
 # the read-set phases: the CLI's read set and its batches
 CLI_SHORT = 16384
 CLI_LONG = 512
@@ -2261,8 +2942,8 @@ def one_shot_record(name, cfg, host, dev):
         f"bound_ms={b_ms:.3g} "
         f"bound_by={b_by} cells={cells}")
     return dict(variant=variant, err=err, build=build,
-                G=G if build == "group" else None, ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by, B=B)
+                G=G if build == "group" else None, ms=k_ms, alone=only,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, B=B)
 
 
 def phase_dryrun(dev, records):
@@ -2569,10 +3250,18 @@ def phase_cli(dev):
 def main():
     phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
     from pywfa_tpu_torch import BatchWavefrontAligner
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     long_inputs = make_long_inputs()
+    oracle = start_h_oracle(attr, long_inputs)
+    try:
+        return run_phases(dev, attr, long_inputs)
+    finally:
+        oracle.stop()
+
+
+def run_phases(dev, attr, long_inputs):
+    phase_build()
     records = phase_kernel_vs_plain(attr, dev, long_inputs)
     step_sweep(dev, attr, {"narrow": dict(build="narrow"),
                            "group": dict(build="group")})
@@ -2591,6 +3280,13 @@ def main():
     t0 = time.perf_counter()
     launches.update(phase_cli(dev))
     log(f"phase_cli: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records.update(phase_chunk_kernels(dev, long_inputs))
+    launches.update(phase_chunk_reads(dev, long_inputs, records))
+    log(f"phase_chunk: {time.perf_counter() - t0:.1f} s")
+    log(f"profiler sessions: {dict(PROFILER_SESSIONS)} (short: fewer "
+        "launches of the timed kernel recorded than made; the kernel's "
+        "time is then the mean of the launches recorded)")
     nvidia_smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2606,11 +3302,13 @@ def main():
 def kernel_records(records, launches):
     """One entry a kernel variant for the JSON line: its launches on the
     main paths, and the error, times and bound of the largest shape it was
-    held at against its plain version, with the build the main path takes
+    held at against its plain version (for the in-place compare, the
+    widest segment of batch H's rungs), with the build the main path takes
     at that shape (the build whose time `ms` is) and, on the group build,
-    its G. K3's entry: the error over every held shape, the times and
-    bound of the shape of at least 1 M cells with the lowest share of its
-    bound (`ms` the kernel alone by torch.profiler)."""
+    its G. `ms` is the kernel alone by torch.profiler, `call_ms` the call
+    by CUDA events. K3's entry: the error over every held shape, the times
+    and bound of the shape of at least 1 M cells with the lowest share of
+    its bound."""
     from pywfa_tpu_torch.ops import fused_loop
     pallas = "pywfa_tpu/ops/pallas/fused_loop.py"
     # the Pallas lines each variant replaces: the heuristic cascade, the
@@ -2624,6 +3322,11 @@ def kernel_records(records, launches):
     table_variants = tuple(v for v in fused_loop.TABLE_VARIANTS
                            if launches[v] or v in ("e2e_table",
                                                    "e2e_score_table"))
+    # the in-place compare's variants: those the main paths launched, at
+    # least the forward and the replay scope of batch H's rungs
+    chunk_variants = tuple(v for v in fused_loop.CHUNK_VARIANTS
+                           if launches[v] or v in ("e2e_chunk",
+                                                   "e2e_score_chunk"))
     if launches["lcp_table"] == 0:
         raise AssertionError("no main path launched lcp_table")
     held = [r for r in records.values() if r["variant"] == "lcp_table"]
@@ -2638,8 +3341,10 @@ def kernel_records(records, launches):
         "launches": launches["lcp_table"],
         "max_abs_err": max(r["err"] for r in held), "ms": timed["ms"],
         "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-        "bound_by": timed["bound_by"], "library_ms": None})
-    for variant in fused_loop.VARIANTS + table_variants:
+        "bound_by": timed["bound_by"], "library_ms": None,
+        "call_ms": timed["call_ms"],
+        "ms_is": "call" if timed["ms"] == timed["call_ms"] else "kernel"})
+    for variant in fused_loop.VARIANTS + table_variants + chunk_variants:
         if launches[variant] == 0:
             raise AssertionError(f"no main path launched {variant}")
         prefix = next(p for p in sorted(branch, key=len, reverse=True)
@@ -2649,11 +3354,20 @@ def kernel_records(records, launches):
             raise AssertionError(f"{variant} was not held against its plain "
                                  "version")
         # the shape whose times stand for the variant: the first of the
-        # largest batches it was held at on a main path's inputs
-        timed = max(held, key=lambda r: r["B"])
-        # (a table variant is its base variant's instantiation)
-        base = variant[:-len("_table")] if variant.endswith("_table") \
-            else variant
+        # largest batches it was held at on a main path's inputs; for the
+        # in-place compare, the widest band among the segments held at the
+        # shapes a routed run (batch H) launched
+        routed = [r for r in held if r.get("routed")]
+        if variant in fused_loop.CHUNK_VARIANTS and routed:
+            timed = max(routed, key=lambda r: (r["B"], r["W"]))
+        else:
+            timed = max(held, key=lambda r: r["B"])
+        # `ms` the kernel alone (torch.profiler), `call_ms` the call by
+        # CUDA events; a call's time stands in only where the profiler
+        # recorded no launch of the kernel (`ms_is`)
+        alone = timed.get("alone")
+        # (a table or a chunk variant is its base variant's instantiation)
+        base = variant.removesuffix("_table").removesuffix("_chunk")
         if "_heur" in variant:
             line = 397
         elif "endsfreeseed" in variant:
@@ -2666,10 +3380,12 @@ def kernel_records(records, launches):
             "source": "pywfa_tpu_torch/csrc/fused_loop.cu",
             "replaces": f"{pallas}:{line}", "launches": launches[variant],
             "max_abs_err": max(r["err"] for r in held),
-            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "ms": timed["ms"] if alone is None else alone,
+            "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": None, "build": timed.get("build", "general"),
-            "G": timed.get("G")})
+            "library_ms": None, "call_ms": timed["ms"],
+            "ms_is": "call" if alone is None else "kernel",
+            "build": timed.get("build", "general"), "G": timed.get("G")})
     return kernels
 
 

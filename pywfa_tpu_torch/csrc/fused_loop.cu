@@ -5,8 +5,9 @@
 // choice recording or score only, and the heuristic cascade (wf-adaptive,
 // wfmash, x-drop, z-drop, banded static and adaptive); one shot from score
 // 0, or one segment of a segmented run that loads and stores its state;
-// bands of any width; extension by the packed equality words or by the
-// run-length table of csrc/lcp_table.cu.
+// bands of any width; extension by the packed equality words, by the
+// run-length table of csrc/lcp_table.cu, or by comparing the token rows in
+// place.
 //
 // Replaces pywfa_tpu/ops/pallas/fused_loop.py::_kernel (:197; every
 // metric's branch, the heuristic cascade and the ends-free match seeding)
@@ -34,7 +35,7 @@
 //   any launch whose ring fits a group's share of the block (bands up to
 //   1024 diagonals at pywfa's penalties): one shot or a segment (the ring,
 //   its bands and the carry copied in with coalesced 16-byte loads and
-//   out the same way), on the words or the run-length table. Bounded by
+//   out the same way), on the words, the table or the rows. Bounded by
 //   the latency of a step: an extension load from global memory, then the
 //   dependent folds, about 1.0 us at G == 1 and 1.2-1.5 at G > 1 (every
 //   warp of a pair runs the step's uniform chain); a wide band takes
@@ -95,7 +96,16 @@
 // first mismatch (__ffs of the inverted word), with reads coalesced across
 // w; given the run-length table R[h, b, w] it is one load a cell instead,
 // off += R[min(off, Ltp - 1), b, w], with the same bytes out (a run-time
-// branch, uniform over the launch: no further instantiation). A segment
+// branch, uniform over the launch: no further instantiation). Given the
+// token rows instead (batches whose words would not fit the card: a 50 kb
+// batch's words take about 100 times its ring), a cell compares the
+// pattern from v = off - k and the text from h = off in place, 4 bytes a
+// step (two aligned 32-bit loads a row joined by a funnel shift,
+// __vcmpeq4, the first mismatch by __ffs), or one int32 class mask a step
+// under match classes, to the first mismatch (chunk_run): the reference's
+// chunked extension (pywfa_tpu/ops/engine.py::_extend_band), the same
+// bytes out, and no per-cell tensor at all; a run-time branch as well,
+// taken by every build but the narrow one. A segment
 // of a segmented run covers scores [seg_base, seg_base + S_cap - 1]: it
 // loads the pair's carry, bands and ring from the state unless it is the
 // first, records choice level s - seg_base, and stores the state at its
@@ -197,6 +207,16 @@ constexpr int D1 = 2;
 constexpr int I2 = 3;
 constexpr int D2 = 4;
 
+// the in-place compare's modes
+// (pywfa_tpu_torch/ops/fused_loop.py::CHUNK_MODES): int8 tokens byte for
+// byte, with a wildcard, int32 class masks
+constexpr int kChunkBytes = 0;
+constexpr int kChunkWildcard = 1;
+constexpr int kChunkClasses = 2;
+// the rows' sentinels (PATTERN_PAD = 1, TEXT_PAD = 2) in every byte lane
+constexpr uint32_t kPatternPad4 = 0x01010101u;
+constexpr uint32_t kTextPad4 = 0x02020202u;
+
 // the build codes of wfa_fused_loop (pywfa_tpu_torch/ops/fused_loop.py::BUILDS)
 constexpr int kBuildGeneral = 0;
 constexpr int kBuildNarrow = 1;
@@ -219,6 +239,13 @@ struct Params {
   // read instead of the words when not nullptr; Ltp is its h extent
   const void* table;
   int table_u8, Ltp;
+  // the token rows [B, Lpp] and [B, Ltr], compared in place when `pat` is
+  // not nullptr: int8 tokens, or int32 class masks (chunk_mode); the
+  // wildcard byte in every byte lane (kChunkWildcard)
+  const void* pat;
+  const void* txt;
+  int Lpp, Ltr, chunk_mode;
+  uint32_t wildcard4;
   const int32_t* plen;   // [B]
   const int32_t* tlen;   // [B]
   const int32_t* frees;  // [B, 4]: pattern begin/end, text begin/end free
@@ -323,6 +350,68 @@ __device__ __forceinline__ int one_comp_source(int pm) {
 }
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// The 4 bytes of a row at [i, i + 4), little-endian, of which the first
+// `rem` (> 0) lie inside the row: the aligned word that holds byte i and,
+// where the 4 bytes reach into the next aligned word and a byte of the row
+// lies there, that word too, joined by a funnel shift. No word is read
+// that holds no byte of the row; the bytes past the row read as anything.
+__device__ __forceinline__ uint32_t row_bytes4(const uint8_t* row, int i,
+                                               int rem) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(row + i);
+  const uint32_t* w =
+      reinterpret_cast<const uint32_t*>(a & ~static_cast<uintptr_t>(3));
+  const int mis = static_cast<int>(a & 3);
+  const uint32_t lo = __ldg(w);
+  const uint32_t hi = (mis != 0 && rem > 4 - mis) ? __ldg(w + 1) : 0u;
+  return __funnelshift_r(lo, hi, 8 * mis);
+}
+
+// The run of pair b's cell from pattern position v and text position h:
+// how many positions match in a row, the pattern from v against the text
+// from h, as the packed words would count them. A cell whose v or h lies
+// outside the pair's lengths runs 0 and reads nothing (the reference's
+// `ok` mask: a cell above the offset, v < 0, never reads pat[b, v]). A
+// run stops at the first mismatch, which the sentinels past each length
+// guarantee before the row's end, and at the row's end itself (a
+// position past it mismatches), so no load leaves the row. Bytes: equal
+// bytes match; with the wildcard, that byte matches any byte on either
+// side but a sentinel, and a sentinel matches nothing; class masks match
+// when they intersect (the sentinels' masks are 0). A long exact run is
+// one thread's loop for as long as it runs: never cut at a chunk.
+__device__ int chunk_run(const Params& p, int b, int v, int h, int plen,
+                         int tlen) {
+  if (v < 0 || h < 0 || v >= plen || h >= tlen) return 0;
+  const int lim = min(p.Lpp - v, p.Ltr - h);
+  if (p.chunk_mode == kChunkClasses) {
+    const int32_t* pr = static_cast<const int32_t*>(p.pat) +
+                        static_cast<size_t>(b) * p.Lpp + v;
+    const int32_t* tr = static_cast<const int32_t*>(p.txt) +
+                        static_cast<size_t>(b) * p.Ltr + h;
+    int i = 0;
+    while (i < lim && (__ldg(pr + i) & __ldg(tr + i)) != 0) ++i;
+    return i;
+  }
+  const uint8_t* pr = static_cast<const uint8_t*>(p.pat) +
+                      static_cast<size_t>(b) * p.Lpp + v;
+  const uint8_t* tr = static_cast<const uint8_t*>(p.txt) +
+                      static_cast<size_t>(b) * p.Ltr + h;
+  const bool wild = p.chunk_mode == kChunkWildcard;
+  for (int i = 0;; i += 4) {
+    const int rem = lim - i;
+    const uint32_t a = row_bytes4(pr, i, rem);
+    const uint32_t t = row_bytes4(tr, i, rem);
+    uint32_t eq = __vcmpeq4(a, t);
+    if (wild) {
+      eq = (eq | __vcmpeq4(a, p.wildcard4) | __vcmpeq4(t, p.wildcard4)) &
+           ~__vcmpeq4(a, kPatternPad4) & ~__vcmpeq4(t, kTextPad4);
+    }
+    // the positions past the row mismatch
+    if (rem < 4) eq &= (1u << (8 * rem)) - 1u;
+    if (eq != 0xFFFFFFFFu) return i + ((__ffs(~eq) - 1) >> 3);
+    if (rem == 4) return lim;
+  }
+}
 
 // The block reductions of loop_body, and on the cluster build the
 // cluster's. Every thread posts its value, already folded over the
@@ -466,6 +555,8 @@ __device__ __forceinline__ void loop_body(const Params& p) {
       (kNarrow || p.table == nullptr)
           ? nullptr
           : static_cast<const uint8_t*>(p.table) + (p.table_u8 ? bW : 2 * bW);
+  // the token rows compared in place (never on the narrow build)
+  const bool in_place = !kNarrow && p.pat != nullptr;
   uint8_t* choices = kRecord ? p.choices + bW : nullptr;
   const int NQ32 = p.NQ * 32;
   const int seg_end = seg_base + p.S_cap - 1;
@@ -611,7 +702,8 @@ __device__ __forceinline__ void loop_body(const Params& p) {
     }
 
     // --- extension: first mismatch at or after the cell's offset, by the
-    // packed equality words or by the run-length table ---
+    // packed equality words, by the run-length table or by the token rows
+    // compared in place ---
     int first_hit = W;
     if (!m_null) {
       for (int w = w0; w < wend; w = kNarrow ? wend : w + T) {
@@ -626,6 +718,8 @@ __device__ __forceinline__ void loop_body(const Params& p) {
                          ? static_cast<int>(table8[at_h])
                          : static_cast<int>(reinterpret_cast<const int16_t*>(
                                table8)[at_h]);
+          } else if (in_place) {
+            m_off += chunk_run(p, b, m_off - k, m_off, plen, tlen);
           } else {
             const int idx = min(m_off, NQ32 - 1);
             int q = idx >> 5;
@@ -1336,7 +1430,7 @@ __device__ __forceinline__ void null_outside(int* row, int lo, int hi,
 }
 
 // The loop of one pair on one group of G warps: one shot or a segment, on
-// the equality words or the run-length table, the ring in shared memory,
+// the words, the run-length table or the rows, the ring in shared memory,
 // as loop_body computes it, cell for cell. Every per-cell pass runs over
 // the live band only, GT diagonals a stride (thread t owns k = k0 + t), and
 // folds its minima and maxima in registers, one group reduction a pass
@@ -1489,8 +1583,9 @@ __device__ __forceinline__ void group_pair(const Params& p, int b, int* off,
       break;
     }
 
-    // --- extension over M's band, by the equality words or the run-length
-    // table (a branch uniform over the launch, outside the passes) ---
+    // --- extension over M's band, by the equality words, the run-length
+    // table or the token rows (a branch uniform over the launch, outside
+    // the passes) ---
     // up to kExtChunks strides at a time, as many as the band reaches:
     // their first words (or their runs) are loaded together, so a wide
     // band waits on one load latency, not one a stride
@@ -1531,6 +1626,17 @@ __device__ __forceinline__ void group_pair(const Params& p, int b, int* off,
           }
           if (kEndsFree) end_hit(k, w, mo);
         }
+      }
+    } else if (!m_null && p.pat != nullptr) {
+      // the rows compared in place, a cell at a time (chunk_run)
+      for (int k = m_lo + t; k <= m_hi; k += GT) {
+        const int w = k - kmin;
+        int mo = m_row[w];
+        if (mo >= 0 && mo <= tlen) {
+          mo += chunk_run(p, b, mo - k, mo, plen, tlen);
+          m_row[w] = mo;
+        }
+        if (kEndsFree) end_hit(k, w, mo);
       }
     } else if (!m_null) {
       for (int k0 = m_lo; k0 <= m_hi; k0 += GT * kExtChunks) {
@@ -2161,7 +2267,7 @@ int failed(cudaError_t e) {
 // narrow one a one-shot run on the equality words with a thread a
 // diagonal and the ring in shared memory; the group one threads / (32 *
 // G) pairs a block, G = Params::cluster warps each, each pair's ring in
-// shared memory, one shot or a segment, on the words or the table; the
+// shared memory, one shot or a segment, on the words, table or rows; the
 // cluster one a pair a cluster of Params::cluster CTAs, each a slice of
 // W / cluster diagonals and its columns of the ring. Shared memory: the
 // general and the narrow kernel hold the ring (unless it lives in the
@@ -2313,8 +2419,11 @@ extern "C" {
 // launch (0 on success). All pointers are device pointers; `frees` is
 // read only on an ends-free span, `choices` written only when record;
 // `res` holds 4 * B + 1 ints, the last the group build's pair counter.
-// The extension reads `table` ([Ltp, B, W], uint8 when table_u8 else
-// int16) when it is not nullptr, else `bits`. `ring`, `lohi` and `carry`
+// The extension reads exactly one source: `bits` ([NQ, B, W] words),
+// `table` ([Ltp, B, W], uint8 when table_u8 else int16), or the token
+// rows `pat` [B, Lpp] and `txt` [B, Ltr] compared in place (int8 tokens,
+// or int32 class masks when chunk_mode is kChunkClasses; `wildcard` the
+// wildcard byte of kChunkWildcard). `ring`, `lohi` and `carry`
 // are the state of a segmented run (all nullptr for a one-shot run),
 // loaded unless `fresh` and stored at the end; with ring_global the ring
 // lives in `ring` ([B, rows, W] ints, which a one-shot run passes as
@@ -2333,7 +2442,9 @@ extern "C" {
 // cudaErrorInvalidValue and runs nothing, and a cluster the card cannot
 // schedule cudaErrorInvalidConfiguration.
 int wfa_fused_loop(const void* bits, const void* table, int table_u8,
-                   int Ltp, const void* plen, const void* tlen,
+                   int Ltp, const void* pat, const void* txt, int Lpp,
+                   int Ltr, int chunk_mode, int wildcard,
+                   const void* plen, const void* tlen,
                    const void* frees, void* choices, void* res, void* ring,
                    void* lohi, void* carry, int fresh, int ring_global,
                    int seg_base, int build, int threads, int cluster,
@@ -2347,7 +2458,11 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
       heur == nullptr || metric < kAffine || metric > kIndel ||
       span < kEndToEnd || span > kSeeded ||
       (span == kSeeded && seed_div <= 0) ||
-      (bits == nullptr && table == nullptr) ||
+      (bits != nullptr) + (table != nullptr) + (pat != nullptr) != 1 ||
+      (pat == nullptr) != (txt == nullptr) ||
+      (pat != nullptr &&
+       (Lpp <= 0 || Ltr <= 0 || chunk_mode < kChunkBytes ||
+        chunk_mode > kChunkClasses)) ||
       (carry != nullptr && (ring == nullptr || lohi == nullptr)) ||
       (carry == nullptr && !fresh) || (ring_global && ring == nullptr) ||
       threads < 32 || threads > 1024 || threads % 32 != 0 ||
@@ -2361,7 +2476,7 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
   // with G > 1 a named barrier a pair; the cluster build: the ring in
   // shared memory, W cut into `cluster` slices of whole warps, at most a
   // thread a diagonal
-  const bool one_shot = carry == nullptr && table == nullptr &&
+  const bool one_shot = carry == nullptr && bits != nullptr &&
                         !ring_global && fresh && seg_base == 0;
   const int group_pairs = cluster >= 1 ? threads / (32 * cluster) : 0;
   if ((build == kBuildNarrow && !(one_shot && threads == W)) ||
@@ -2380,6 +2495,12 @@ int wfa_fused_loop(const void* bits, const void* table, int table_u8,
   p.table = table;
   p.table_u8 = table_u8;
   p.Ltp = Ltp;
+  p.pat = pat;
+  p.txt = txt;
+  p.Lpp = Lpp;
+  p.Ltr = Ltr;
+  p.chunk_mode = chunk_mode;
+  p.wildcard4 = static_cast<uint32_t>(wildcard & 0xFF) * 0x01010101u;
   p.plen = static_cast<const int32_t*>(plen);
   p.tlen = static_cast<const int32_t*>(tlen);
   p.frees = static_cast<const int32_t*>(frees);

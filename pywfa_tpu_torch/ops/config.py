@@ -175,8 +175,14 @@ def full_config(attr, plen: int, tlen: int, wildcard: int = -1,
         record_choices=record_choices,
         wildcard=wildcard,
         match_classes=getattr(attr, "match_classes", ""),
-        extend_force=os.environ.get("PYWFA_EXTEND", "").strip().lower(),
+        extend_force=extend_force_env(),
     )
+
+
+def extend_force_env() -> str:
+    """PYWFA_EXTEND as a config captures it: "", "table", "bits" or
+    "chunk" (ops/engine.extend_mode)."""
+    return os.environ.get("PYWFA_EXTEND", "").strip().lower()
 
 
 def score_band(metric, gap_opening1: int, gap_extension1: int,

@@ -100,7 +100,8 @@ def load(name: str = "fused_loop") -> ctypes.CDLL:
         ints = ctypes.POINTER(ci)
         if name == "fused_loop":
             lib.wfa_fused_loop.argtypes = (
-                [vp, vp, ci, ci] + [vp] * 8 + [ci] * 6 + [ints] + [ci] * 14
+                [vp, vp, ci, ci, vp, vp] + [ci] * 4 + [vp] * 8 + [ci] * 6
+                + [ints] + [ci] * 14
                 + [ints, ci, vp])
             lib.wfa_fused_loop.restype = ci
             lib.wfa_fused_loop_active_clusters.argtypes = []

@@ -18,8 +18,9 @@ twin of the reference's `align_batch_start` / `align_batch_resume` /
 records nothing and updates the state in place; a replay runs one segment
 again from its boundary state with the record and walks its levels at
 once, so the record never leaves the device. The extension's input (the
-equality bits, or the run-length table where `extend_mode` picks it) is
-built once a batch by `build_extension` and handed to every segment.
+equality bits, the run-length table, or for the in-place compare the
+token rows themselves, as `extend_mode` picks) is built once a batch by
+`build_extension` and handed to every segment.
 
 Where the reference's formulation existed only because the TPU lacks an
 indexed load (one-hot selects, a one-hot matmul compaction), this module
@@ -93,6 +94,16 @@ def decode_packed(cfg: EngineConfig, packed: torch.Tensor,
     return pat, txt
 
 
+def class_rows(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token rows mapped through the registered class-mask table into
+    int32 masks (two cells match when their masks intersect; the
+    sentinels, and any byte absent from the table, map to 0)."""
+    tbl = torch.from_numpy(match_class_table(cfg.match_classes)
+                           .astype(np.int32)).to(pat.device)
+    return tbl[pat.view(torch.uint8).long()], tbl[txt.view(torch.uint8).long()]
+
+
 def build_eq_bits(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor
                   ) -> torch.Tensor:
     """Packed per-diagonal equality bits Q[q, b, w] as int32 bit patterns.
@@ -118,10 +129,7 @@ def build_eq_bits(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor
     classes = bool(cfg.match_classes)
     pad = PATTERN_PAD
     if classes:
-        tbl = torch.from_numpy(match_class_table(cfg.match_classes)
-                               .astype(np.int32)).to(dev)
-        pat = tbl[pat.view(torch.uint8).long()]
-        txt = tbl[txt.view(torch.uint8).long()]
+        pat, txt = class_rows(cfg, pat, txt)
         pad = 0
     B, Lpp = pat.shape
     Ltp = txt.shape[1]
@@ -379,15 +387,15 @@ def _pack(cfg: EngineConfig, out: dict) -> torch.Tensor:
 
 def align_batch_packed_full(cfg: EngineConfig, packed, plen, tlen, frees,
                             max_steps: int) -> torch.Tensor:
-    """2-bit input -> packed output: decode, eq-bits, the fused loop, and
-    in the full scope the walk and the packing, all on `packed`'s
-    device."""
+    """2-bit input -> packed output: decode, the extension's input (the
+    equality words, or past EQ_BITS_BYTES_CAP the rows themselves; a
+    one-shot run builds no table), the fused loop, and in the full scope
+    the walk and the packing, all on `packed`'s device."""
     plen = plen.to(torch.int32)
     tlen = tlen.to(torch.int32)
     pat, txt = decode_packed(cfg, packed, plen, tlen)
-    bits = build_eq_bits(cfg, pat, txt)
-    return _pack(cfg, fused_loop.align_batch_fused_loop(
-        cfg, bits, plen, tlen, frees, max_steps))
+    return _pack(cfg, _loop(cfg, build_extension(cfg, pat, txt, table=False),
+                            plen, tlen, frees, max_steps))
 
 
 def align_batch_fused_full(cfg: EngineConfig, fused, plen, tlen, frees,
@@ -397,9 +405,8 @@ def align_batch_fused_full(cfg: EngineConfig, fused, plen, tlen, frees,
     plen = plen.to(torch.int32)
     tlen = tlen.to(torch.int32)
     pat, txt = decode_fused(cfg, fused)
-    bits = build_eq_bits(cfg, pat, txt)
-    return _pack(cfg, fused_loop.align_batch_fused_loop(
-        cfg, bits, plen, tlen, frees, max_steps))
+    return _pack(cfg, _loop(cfg, build_extension(cfg, pat, txt, table=False),
+                            plen, tlen, frees, max_steps))
 
 
 def pack_meta(out: dict) -> torch.Tensor:
@@ -415,29 +422,103 @@ align_batch_packed_meta = align_batch_packed_full
 align_batch_fused_meta = align_batch_fused_full
 
 
-def extend_mode(cfg: EngineConfig, Ltp: int) -> str:
-    """The extension of a segmented run: "table", the h-major run-length
-    table and one load a cell, where the config allows a table, the text
-    rows are short enough for it (lcp_table.supported) and matching is not
-    by classes (the table's kernel compares raw tokens); else "bits", the
-    packed equality words. PYWFA_EXTEND=bits (cfg.extend_force) forces the
-    words."""
-    if (cfg.use_lcp_table and not cfg.match_classes
+# the packed equality words [ceil(Ltp / 32), B, W] int32 are built only
+# up to this many bytes; past it the fused loop compares the token rows in
+# place ("chunk"), as the reference compares them past its table caps
+# (pywfa_tpu/batch.py LCP_TABLE_BYTES_CAP). At 2**30 every shape of the
+# main paths in chip_smoke.py stays on the words or the table (batch G's
+# second rung, 16 x 6912 at 10 kb: 138 MB; the CLI's 1 kb bucket, 512 x
+# 896: 60 MB); 64 pairs of 50 kb at W=33664 would ask for 14 GB.
+EQ_BITS_BYTES_CAP = 2**30
+
+
+def extend_mode(cfg: EngineConfig, B: int, Ltp: int,
+                table: bool = True) -> str:
+    """The extension of a batch of B pairs whose text rows hold Ltp
+    tokens: "table", the h-major run-length table and one load a cell,
+    where `table` (the one-shot pipelines pass False) and the config allow
+    a table, the text rows are short enough for it (lcp_table.supported)
+    and matching is not by classes (the table's kernel compares raw
+    tokens); else "chunk", the token rows compared in place from each
+    cell's offset to the first mismatch (the reference's `_extend_band`),
+    under PYWFA_EXTEND=chunk (cfg.extend_force) or where the packed
+    equality words would pass EQ_BITS_BYTES_CAP; else "bits", the words.
+    PYWFA_EXTEND=bits keeps the table off."""
+    if (table and cfg.use_lcp_table and not cfg.match_classes
             and cfg.extend_force not in ("bits", "chunk")
             and lcp_table.supported(Ltp)):
         return "table"
+    if (cfg.extend_force == "chunk"
+            or _extension_bytes(cfg, B, Ltp, "bits") > EQ_BITS_BYTES_CAP):
+        return "chunk"
     return "bits"
 
 
-def build_extension(cfg: EngineConfig, pat: torch.Tensor,
-                    txt: torch.Tensor) -> dict:
-    """The extension's input for a batch, by extend_mode: dict(bits=...,
-    table=...) with one of the two None."""
-    if extend_mode(cfg, txt.shape[1]) == "table":
-        return dict(bits=None, table=lcp_table.build_lcp_table_hmajor(
+def _extension_bytes(cfg: EngineConfig, B: int, Ltp: int, mode: str) -> int:
+    """Device bytes of the extension's input in `mode`: the run-length
+    table [Ltp, B, W] (uint8 or int16), the words [ceil(Ltp / 32), B, W]
+    int32, or nothing for the in-place compare, which reads the rows."""
+    if mode == "table":
+        return (Ltp * B * cfg.W
+                * (1 if lcp_table.table_dtype(Ltp) == torch.uint8 else 2))
+    if mode == "bits":
+        return 4 * -(-Ltp // 32) * B * cfg.W
+    return 0
+
+
+def build_extension(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor,
+                    table: bool = True) -> dict:
+    """The extension's input for a batch, by extend_mode (`table` as
+    there): dict(bits=..., table=..., pat=..., txt=...) with the one
+    source set and the others None. The in-place compare takes the token
+    rows themselves, or under match classes their int32 mask rows; it
+    builds nothing per cell."""
+    B, Ltp = txt.shape
+    mode = extend_mode(cfg, B, Ltp, table)
+    ext = dict(bits=None, table=None, pat=None, txt=None)
+    if mode == "table":
+        ext["table"] = lcp_table.build_lcp_table_hmajor(
             cfg.W, cfg.kmin, cfg.wildcard, pat.contiguous(),
-            txt.contiguous()))
-    return dict(bits=build_eq_bits(cfg, pat, txt), table=None)
+            txt.contiguous())
+    elif mode == "chunk":
+        if cfg.match_classes:
+            pat, txt = class_rows(cfg, pat, txt)
+        ext["pat"], ext["txt"] = pat.contiguous(), txt.contiguous()
+    else:
+        ext["bits"] = build_eq_bits(cfg, pat, txt)
+    return ext
+
+
+def memory_estimate(cfg: EngineConfig, B: int, table: bool = True) -> dict:
+    """Device bytes of one fused-loop run of B pairs at this config, by
+    the port's own layout: a segmented run's state (`ring`, by
+    fused_loop.ring_depths, and `lohi`, its bands), the choice record of
+    a recording run, the extension's input that extend_mode picks as
+    build_extension does, `table` as there (`lcp_table`: the table, the
+    words, or 0 for the in-place compare) and the token rows
+    (`sequences`; under match classes in place, their int32 mask rows).
+    The twin of the reference's `engine.memory_estimate` (its keys), for
+    capacity planning."""
+    rows = sum(fused_loop.ring_depths(cfg))
+    ring = rows * B * cfg.W * 4
+    lohi = rows * B * 2 * 4
+    choices = cfg.S_cap * B * cfg.W if cfg.record_choices else 0
+    Lpp, Ltp = fused_widths(cfg)
+    mode = extend_mode(cfg, B, Ltp, table)
+    ext = _extension_bytes(cfg, B, Ltp, mode)
+    seqs = B * (Lpp + Ltp) * (4 if mode == "chunk" and cfg.match_classes
+                              else 1)
+    return dict(ring=ring, lohi=lohi, choices=choices, lcp_table=ext,
+                sequences=seqs, total=ring + lohi + choices + ext + seqs)
+
+
+def _loop(cfg: EngineConfig, ext: dict, plen, tlen, frees, max_steps,
+          **kw) -> dict:
+    """The fused loop on the extension's input `ext` (build_extension)."""
+    return fused_loop.align_batch_fused_loop(
+        cfg, ext.get("bits"), plen, tlen, frees, max_steps,
+        table=ext.get("table"), pat=ext.get("pat"), txt=ext.get("txt"),
+        **kw)
 
 
 def align_batch(cfg: EngineConfig, pat, txt, plen, tlen, frees,
@@ -453,18 +534,16 @@ def align_batch(cfg: EngineConfig, pat, txt, plen, tlen, frees,
     S_cap report ST_OVERFLOW_S. The twin of the reference's
     `engine.align_batch`, and what `parallel.mesh.sharded_align_batch`
     runs on each shard."""
-    ext = build_extension(cfg, pat, txt)
-    return fused_loop.align_batch_fused_loop(
-        cfg, ext["bits"], plen.to(torch.int32).contiguous(),
-        tlen.to(torch.int32).contiguous(),
-        frees.to(torch.int32).contiguous(), max_steps, table=ext["table"])
+    return _loop(cfg, build_extension(cfg, pat, txt),
+                 plen.to(torch.int32).contiguous(),
+                 tlen.to(torch.int32).contiguous(),
+                 frees.to(torch.int32).contiguous(), max_steps)
 
 
 def _segment(cfg, ext, plen, tlen, frees, max_steps, state, fresh):
     seg_base = 0 if fresh else state["s"]
-    out = fused_loop.align_batch_fused_loop(
-        cfg, ext["bits"], plen, tlen, frees, max_steps, table=ext["table"],
-        state=state, fresh=fresh, seg_base=seg_base)
+    out = _loop(cfg, ext, plen, tlen, frees, max_steps, state=state,
+                fresh=fresh, seg_base=seg_base)
     # where any pair is still running, the next segment starts here
     state["s"] = seg_base + cfg.S_cap - 1
     return out

@@ -5,7 +5,10 @@ every score divisible by -match), full-CIGAR or score-only scope, and the
 heuristic cascade (wf-adaptive, wfmash, x-drop, z-drop, banded static and
 adaptive, and their combinations); one shot from score 0 or one segment of
 a segmented run (state in, state out); bands of any width; extension by
-the packed equality words or by the run-length table (`ops/lcp_table.py`).
+the packed equality words, by the run-length table (`ops/lcp_table.py`),
+or by comparing the token rows in place from each cell's offset to the
+first mismatch (the reference's chunked `engine._extend_band`, for batches
+whose words would not fit: `engine.extend_mode`).
 
 The twin of `pywfa_tpu/ops/pallas/fused_loop.py`. For every pair it runs
 the whole WFA score loop -- extend, terminate, prune the wavefront by the
@@ -17,10 +20,10 @@ reference's `align_batch_pallas`.
 the hand-written kernel in `csrc/fused_loop.cu`, in the build that
 `kernel_build` picks: for a band of at most 1024 diagonals, the group
 build (G warps a pair over the live band, G from `group_size`; one shot
-or a segment, on the equality words or the run-length table), or the
-narrow build (one block a pair, a thread a diagonal) for a one-shot
-terminal rung, whose score cap passes its width, where the group build
-lost to it on the card; for a band past 3072 diagonals or a ring past one
+or a segment, on any extension source), or the narrow build (one block a
+pair, a thread a diagonal, the words only) for a one-shot terminal rung,
+whose score cap passes its width, where the group build lost to it on the
+card; for a band past 3072 diagonals or a ring past one
 block's shared memory the cluster build (one pair on a thread-block
 cluster of up to 8 CTAs, a slice of the band and of the ring each); else
 the general build (one block a pair); on CPU
@@ -55,8 +58,9 @@ from ..constants import AlignmentSpan, DistanceMetric, HeuristicStrategy
 from .config import (
     D1, D2, I1, I2, M, MSRC_D1, MSRC_D2, MSRC_I1, MSRC_I2, MSRC_NONE,
     MSRC_SEED, MSRC_X,
-    NULL, NULL_THRESHOLD, ST_END_REACHED, ST_END_UNREACHABLE, ST_MAX_STEPS,
-    ST_OVERFLOW_S, ST_OVERFLOW_W, ST_RUNNING, EngineConfig, score_band,
+    NULL, NULL_THRESHOLD, PATTERN_PAD, ST_END_REACHED, ST_END_UNREACHABLE,
+    ST_MAX_STEPS, ST_OVERFLOW_S, ST_OVERFLOW_W, ST_RUNNING, TEXT_PAD,
+    EngineConfig, score_band,
 )
 
 # the kernel's metric codes (csrc/fused_loop.cu) and the variant-name
@@ -89,10 +93,18 @@ STRATEGIES = int(HeuristicStrategy.WFADAPTIVE | HeuristicStrategy.WFMASH
 
 # kernel launches made by align_batch_fused_loop (plain version excluded),
 # by variant (see `variant`); a launch that extends by the run-length table
-# counts under the variant's name plus "_table" (the same instantiation:
-# the extension is a run-time branch, uniform over the launch)
+# counts under the variant's name plus "_table", one that compares the
+# token rows in place under its name plus "_chunk" (the same
+# instantiation: the extension is a run-time branch, uniform over the
+# launch)
 TABLE_VARIANTS = tuple(v + "_table" for v in VARIANTS)
-variant_launches = dict.fromkeys(VARIANTS + TABLE_VARIANTS, 0)
+CHUNK_VARIANTS = tuple(v + "_chunk" for v in VARIANTS)
+variant_launches = dict.fromkeys(VARIANTS + TABLE_VARIANTS + CHUNK_VARIANTS,
+                                 0)
+
+# the in-place compare's modes in the kernel (csrc/fused_loop.cu,
+# kChunkBytes ...): raw bytes, bytes with a wildcard, int32 class masks
+CHUNK_MODES = ("bytes", "wildcard", "classes")
 
 # the kernel builds of csrc/fused_loop.cu, in the order of their codes,
 # and the launches align_batch_fused_loop made of each; of the group
@@ -276,19 +288,23 @@ def cluster_size(cfg: EngineConfig) -> int:
     return 0
 
 
-def kernel_build(cfg: EngineConfig, B: int, table=None, state=None) -> str:
+def kernel_build(cfg: EngineConfig, B: int, table=None, state=None,
+                 pat=None) -> str:
     """The build of csrc/fused_loop.cu that a launch of B pairs takes (one
     of BUILDS). A band of at most MAX_THREADS diagonals whose ring fits a
     pair's share of a block takes the group build (G warps a pair over
     the live band, G from group_size), one shot or a segment's state, on
-    the words or the run-length table: the first rungs at one warp a pair,
+    the words, the run-length table or the token rows (`pat`): the first
+    rungs at one warp a pair,
     a batch's second rung, a segment and a few pairs over a wide band at
     several; unless a one-shot run's score cap passes its width, as at the
     terminal rungs, which are sized for pairs as far apart as unrelated
     ones: their live bands fill W, and there a block a pair, a thread a
     diagonal (the narrow build), took 0.448 ms alone at the gap-affine
     terminal rung where the group build took 0.561 (PERF.md, kernel
-    table). A wider band takes the
+    table); the narrow build extends by the words alone, so such a rung
+    on the table or the rows stays on the group build. A wider band takes
+    the
     cluster build (a pair a cluster of cluster_size CTAs, the ring in
     their shared memory) where a block a pair would give a thread more
     than GENERAL_MAX_DIAGONALS diagonals or keep the ring in global memory
@@ -296,7 +312,8 @@ def kernel_build(cfg: EngineConfig, B: int, table=None, state=None) -> str:
     block a pair), which was as fast at W=1792 and W=2176, and so does a
     ring that no cluster holds."""
     if cfg.W <= MAX_THREADS and group_pairs(cfg, B) > 0:
-        if state is None and table is None and cfg.S_cap > cfg.W:
+        if (state is None and table is None and pat is None
+                and cfg.S_cap > cfg.W):
             return "narrow"
         return "group"
     wide = (-(-cfg.W // MAX_THREADS) > GENERAL_MAX_DIAGONALS
@@ -356,15 +373,25 @@ def span_code(cfg: EngineConfig) -> int:
     return 1 if cfg.match == 0 else 2
 
 
-def variant(cfg: EngineConfig, table: bool = False) -> str:
+def variant(cfg: EngineConfig, table: bool = False,
+            chunk: bool = False) -> str:
     """The kernel variant a config launches: the metric's prefix (none for
     gap-affine), the span, "_heur" with any heuristic, "_score" for the
     score-only scope, then "_table" when the extension reads the
-    run-length table."""
+    run-length table, "_chunk" when it compares the token rows."""
     return (METRIC_PREFIX[cfg.metric] + SPANS[span_code(cfg)]
             + ("_heur" if cfg.strategy else "")
             + ("" if cfg.record_choices else "_score")
-            + ("_table" if table else ""))
+            + ("_table" if table else "") + ("_chunk" if chunk else ""))
+
+
+def chunk_mode(cfg: EngineConfig) -> int:
+    """The in-place compare's mode (an index into CHUNK_MODES): int32
+    class-mask rows under match classes, else int8 token rows compared
+    byte for byte, with the wildcard where the config has one."""
+    if cfg.match_classes:
+        return CHUNK_MODES.index("classes")
+    return CHUNK_MODES.index("wildcard" if cfg.wildcard >= 0 else "bytes")
 
 
 def supported(cfg: EngineConfig) -> bool:
@@ -372,8 +399,8 @@ def supported(cfg: EngineConfig) -> bool:
     ends-free span, with or without a match bonus, every heuristic of the
     cascade, full-CIGAR or score-only scope, any band of whole warps (the
     ring moves to global memory where it passes a block's shared memory).
-    Wildcards and match classes live in the equality bits or the table and
-    need nothing here."""
+    Wildcards and match classes live in the equality bits or the table,
+    and in the in-place compare's mode (chunk_mode)."""
     return (cfg.metric in METRIC_CODE
             and (span_code(cfg) != 2 or cfg.metric in SEEDED_METRICS)
             and (cfg.strategy & ~STRATEGIES) == 0
@@ -465,18 +492,48 @@ def state_from_reference(cfg: EngineConfig, ref_state: dict,
                 s=s)
 
 
-def _check(cfg: EngineConfig, bits, plen, tlen, frees, table, state, fresh):
+def _check(cfg: EngineConfig, bits, plen, tlen, frees, table, state, fresh,
+           pat=None, txt=None):
+    """Check a launch's arguments; returns the extension's input tensor
+    (the words, the table or the pattern rows), whose device the launch
+    runs on."""
     if not supported(cfg):
         raise NotImplementedError(
             f"the fused loop takes bands of whole warps (got {cfg})")
-    ext = table if table is not None else bits
-    if ext is None:
-        raise ValueError("the extension needs the equality bits or the "
-                         "run-length table")
-    if ext.dim() != 3 or ext.shape[2] != cfg.W:
-        raise ValueError(f"bits / table must be [*, B, {cfg.W}], got "
-                         f"{tuple(ext.shape)}")
-    B = ext.shape[1]
+    if (pat is None) != (txt is None):
+        raise ValueError("the in-place compare needs both token rows")
+    given = [name for name, t in (("bits", bits), ("table", table),
+                                  ("pat / txt", pat)) if t is not None]
+    if len(given) != 1:
+        raise ValueError("the extension needs one of the equality bits, the "
+                         "run-length table or the token rows, got "
+                         + (", ".join(given) or "none"))
+    if pat is not None:
+        ext = pat
+        B = pat.shape[0] if pat.dim() == 2 else -1
+        rows_type = torch.int32 if cfg.match_classes else torch.int8
+        for name, t, width in (("pat", pat, cfg.Lp), ("txt", txt, cfg.Lt)):
+            if t.dim() != 2 or t.shape[0] != B:
+                raise ValueError(f"pat / txt must be [B, *] rows of one B, "
+                                 f"got {tuple(pat.shape)}, "
+                                 f"{tuple(txt.shape)}")
+            if t.shape[1] <= width:
+                raise ValueError(f"{name} rows hold {t.shape[1]} tokens, "
+                                 f"need more than {width} for the sentinel "
+                                 "mismatch")
+            if t.dtype != rows_type:
+                raise TypeError(f"{name} must be {rows_type} "
+                                + ("(class masks)" if cfg.match_classes
+                                   else "(tokens)") + f", got {t.dtype}")
+            if t.device != pat.device:
+                raise ValueError(f"txt is on {txt.device}, pat on "
+                                 f"{pat.device}")
+    else:
+        ext = table if table is not None else bits
+        if ext.dim() != 3 or ext.shape[2] != cfg.W:
+            raise ValueError(f"bits / table must be [*, B, {cfg.W}], got "
+                             f"{tuple(ext.shape)}")
+        B = ext.shape[1]
     if table is not None:
         if table.dtype not in (torch.uint8, torch.int16):
             raise TypeError(f"table must be uint8 or int16, got "
@@ -484,7 +541,7 @@ def _check(cfg: EngineConfig, bits, plen, tlen, frees, table, state, fresh):
         if table.shape[0] <= cfg.Lt:
             raise ValueError(f"the table holds {table.shape[0]} text "
                              f"positions, need more than Lt={cfg.Lt}")
-    elif ext.shape[0] * 32 <= cfg.Lt:
+    elif bits is not None and ext.shape[0] * 32 <= cfg.Lt:
         raise ValueError(f"bits hold {ext.shape[0] * 32} text positions, "
                          f"need more than Lt={cfg.Lt} for the sentinel "
                          "mismatch")
@@ -506,19 +563,24 @@ def _check(cfg: EngineConfig, bits, plen, tlen, frees, table, state, fresh):
                              f"input on {ext.device}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if table is None and bits.dtype != torch.int32:
+    if bits is not None and bits.dtype != torch.int32:
         raise TypeError(f"bits must be int32, got {bits.dtype}")
+    return ext
 
 
 def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
                            max_steps: int, table=None, state=None,
                            fresh: bool = True, seg_base: int = 0,
-                           build=None, group=None) -> dict:
+                           build=None, group=None, pat=None,
+                           txt=None) -> dict:
     """Run the fused score loop over B pairs.
 
     bits: [NQ, B, W] int32 bit patterns (engine.build_eq_bits), or None
     when `table`, the [Ltp, B, W] run-length table
-    (lcp_table.build_lcp_table_hmajor), extends instead; plen/tlen:
+    (lcp_table.build_lcp_table_hmajor), extends instead, or `pat` / `txt`,
+    the sentinel-padded token rows [B, Lp + C] / [B, Lt + C] (int8; int32
+    class masks under match classes: engine.build_extension), compared in
+    place from each cell's offset to the first mismatch; plen/tlen:
     [B] int32; frees: [B, 4] int32 (pattern begin, pattern end, text
     begin, text end free; read on the ends-free span only); max_steps: the
     user step cap. `state` (new_state) makes the call one segment of a
@@ -532,21 +594,22 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     `group` the group build's G (group_size); a build or a G the launch
     cannot take raises.
     """
-    _check(cfg, bits, plen, tlen, frees, table, state, fresh)
+    ext = _check(cfg, bits, plen, tlen, frees, table, state, fresh, pat, txt)
     if build is not None and build not in BUILDS:
         raise ValueError(f"build must be one of {BUILDS}, got {build!r}")
     if group is not None and build not in (None, "group"):
         raise ValueError(f"G is the group build's, not the {build} build's")
     max_steps = min(int(max_steps), 2**31 - 1)
-    ext = table if table is not None else bits
     if ext.device.type == "cpu":
         return align_batch_fused_loop_ref(cfg, bits, plen, tlen, frees,
                                           max_steps, table, state, fresh,
-                                          seg_base)
+                                          seg_base, pat, txt)
     if ext.device.type != "cuda":
         raise ValueError(f"no fused loop for device {ext.device}")
-    tensors = [("bits / table", ext), ("plen", plen), ("tlen", tlen),
+    tensors = [("bits / table / pat", ext), ("plen", plen), ("tlen", tlen),
                ("frees", frees)]
+    if txt is not None:
+        tensors.append(("txt", txt))
     if state is not None:
         tensors += [("state " + k, state[k]) for k in ("ring", "lohi",
                                                        "carry")]
@@ -555,8 +618,8 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
             raise ValueError(f"{name} must be contiguous")
     from . import cuda_build
     lib = cuda_build.load()
-    _, B, W = ext.shape
-    NQ = 0 if table is not None else bits.shape[0]
+    B, W = plen.shape[0], cfg.W
+    NQ = bits.shape[0] if bits is not None else 0
     dev = ext.device
     record = cfg.record_choices
     # score-only scope: no [S_cap, B, W] record, so no memset of it either
@@ -569,7 +632,7 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     heur = heuristic_params(cfg)
     in_global = ring_in_global(cfg)
     if build is None:
-        build = kernel_build(cfg, B, table, state)
+        build = kernel_build(cfg, B, table, state, pat)
     # units a pair: the group build's warps, the cluster build's CTAs
     threads, units = launch_shape(cfg, B, build, dev,
                                   group if build == "group" else None)
@@ -584,10 +647,15 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wfa_fused_loop(
-            None if table is not None else bits.data_ptr(),
+            bits.data_ptr() if bits is not None else None,
             table.data_ptr() if table is not None else None,
             int(table is not None and table.dtype == torch.uint8),
             table.shape[0] if table is not None else 0,
+            pat.data_ptr() if pat is not None else None,
+            txt.data_ptr() if txt is not None else None,
+            pat.shape[1] if pat is not None else 0,
+            txt.shape[1] if txt is not None else 0,
+            chunk_mode(cfg), cfg.wildcard & 0xFF,
             plen.data_ptr(), tlen.data_ptr(),
             frees.data_ptr(), choices.data_ptr() if record else None,
             res.data_ptr(), ring.data_ptr() if ring is not None else None,
@@ -602,7 +670,7 @@ def align_batch_fused_loop(cfg: EngineConfig, bits, plen, tlen, frees,
     if rc != 0:
         raise RuntimeError(f"fused loop kernel launch failed ({build} "
                            "build): " + cuda_build.error_string(rc))
-    variant_launches[variant(cfg, table is not None)] += 1
+    variant_launches[variant(cfg, table is not None, pat is not None)] += 1
     build_launches[build] += 1
     if build == "group":
         group_launches[units] = group_launches.get(units, 0) + 1
@@ -682,22 +750,70 @@ def _plain_rows(cfg: EngineConfig, s: int):
         base += depth
 
 
+def _extend_chunk(cfg: EngineConfig, pat, txt, plen, tlen, karr, off, valid):
+    """The in-place compare of the plain version, the reference's
+    `engine._extend_band` over [B, W]: every cell of `valid` gathers
+    extend_chunk tokens of both rows at v = off - k and h = off and adds
+    the run of the running product of their equalities, while any cell
+    ran a whole chunk; a cell runs only while v and h lie inside the
+    pair's lengths. Equality as the words define it: equal bytes; with a
+    wildcard that byte matches any real byte on either side, and a
+    sentinel nothing; with class masks (int32 rows) intersecting masks.
+    Positions past a row read as sentinels (mask 0 under classes)."""
+    C = cfg.extend_chunk
+    B, W = off.shape
+    classes = bool(cfg.match_classes)
+    # the rows padded by one chunk of sentinels, so that no gather leaves
+    # them (the reference's gather clamps to the row's last sentinel)
+    patp = torch.nn.functional.pad(pat, (0, C),
+                                   value=0 if classes else PATTERN_PAD)
+    txtp = torch.nn.functional.pad(txt, (0, C),
+                                   value=0 if classes else TEXT_PAD)
+    cr = torch.arange(C, dtype=torch.int64, device=off.device)
+    active = valid
+    while bool(active.any()):
+        v = off - karr
+        h = off
+        vi = v.clamp(0, pat.shape[1] - 1).long()
+        hi = h.clamp(0, txt.shape[1] - 1).long()
+        pch = patp.gather(1, (vi[:, :, None] + cr).reshape(B, -1)).view(
+            B, W, C)
+        tch = txtp.gather(1, (hi[:, :, None] + cr).reshape(B, -1)).view(
+            B, W, C)
+        if classes:
+            eq = (pch & tch) != 0
+        else:
+            eq = pch == tch
+            if cfg.wildcard >= 0:
+                wc = cfg.wildcard - 256 if cfg.wildcard > 127 else \
+                    cfg.wildcard
+                eq = ((eq | (pch == wc) | (tch == wc))
+                      & (pch != PATTERN_PAD) & (tch != TEXT_PAD))
+        run = eq.to(torch.int32).cumprod(-1).sum(-1, dtype=torch.int32)
+        ok = active & (v >= 0) & (h >= 0) & (v < plen) & (h < tlen)
+        run = torch.where(ok, run, 0)
+        off = off + run
+        active = ok & (run == C)
+    return off
+
+
 def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
                                max_steps: int, table=None, state=None,
-                               fresh: bool = True, seg_base: int = 0) -> dict:
+                               fresh: bool = True, seg_base: int = 0,
+                               pat=None, txt=None) -> dict:
     """The plain torch version: the Pallas kernel's array program (every
     metric's branch, both spans, the match seeding, the heuristic cascade,
     both scopes) over [B, W], all pairs as one tile, with the
     band-overflow flag of the XLA engine, the extension by the equality
-    words or by the run-length table, and the state of a segmented run in
-    and out (see align_batch_fused_loop). Its own ring has `scope` rows
-    for every component; the pairs still running step together, so a
+    words, by the run-length table or by the token rows compared in place
+    (the reference's `engine._extend_band`), and the state of a segmented
+    run in and out (see align_batch_fused_loop). Its own ring has `scope`
+    rows for every component; the pairs still running step together, so a
     later segment starts all of them at the one score their carries hold.
     Runs on any device."""
-    ext = table if table is not None else bits
-    _, B, W = ext.shape
-    NQ = 0 if table is not None else bits.shape[0]
-    dev = ext.device
+    B, W = plen.shape[0], cfg.W
+    NQ = bits.shape[0] if bits is not None else 0
+    dev = plen.device
     i32 = torch.int32
     scope, S_cap, kmin = cfg.scope, cfg.S_cap, cfg.kmin
     x, o1e1, e1, o2e2, e2 = score_distances(cfg)
@@ -857,6 +973,9 @@ def align_batch_fused_loop_ref(cfg: EngineConfig, bits, plen, tlen, frees,
             idx = m_off.clamp(0, table.shape[0] - 1)
             run = table.gather(0, idx[None].long())[0].to(i32)
             m_off = torch.where(valid, m_off + run, m_off)
+        elif pat is not None:
+            m_off = _extend_chunk(cfg, pat, txt, plen, tlen, karr, m_off,
+                                  valid)
         else:
             idx = m_off.clamp(0, NQ32 - 1)
             q0 = idx >> 5

@@ -582,7 +582,7 @@ def test_align_batch_past_65535_pairs_matches_slices(dev):
     B = 65537
     pairs = random_pairs(74, B, 40, 60, 0.04, 0.02, as_bytes=True)
     cfg = C.full_config(ATTR, 64, 64, W=128, S_cap=96)
-    assert TE.extend_mode(cfg, cfg.Lt + cfg.extend_chunk) == "table"
+    assert TE.extend_mode(cfg, B, cfg.Lt + cfg.extend_chunk) == "table"
     pat, txt, plen, tlen, frees = _token_rows(cfg, pairs, dev)
     before = lcp_table.launches["lcp_table"]
     whole = TE.align_batch(cfg, pat, txt, plen, tlen, frees, 2**31 - 1)
@@ -1292,3 +1292,134 @@ def test_cli_on_the_card_matches_the_cpu(dev, tmp_path):
             got = a.read()
             assert got == b.read()
         assert len(got.splitlines()) == len(pairs)
+
+
+def _chunk_case(dev, equality, W, S_cap, record, seed=120):
+    """(config, token rows, plen, tlen, frees) of an in-place compare
+    case: 22 pairs of 250-321 bp at 5% / 3%, with N (the wildcard) or IUPAC
+    codes (the classes) on both sides, a pair that fills its rows up to
+    their sentinels and a 3 bp pair; rows of 337 and 363 tokens, so that
+    most rows start off a 4-byte boundary."""
+    attr = RefAligner(backend="numpy", span="end-to-end")._attributes()
+    cfg = C.full_config(attr, 321, 347, W=W, S_cap=S_cap,
+                        record_choices=record,
+                        wildcard=ord("N") if equality == "wildcard" else -1)
+    if equality == "classes":
+        cfg = dataclasses.replace(cfg, match_classes="iupac")
+    rng = random.Random(seed)
+    codes = {"bytes": "", "wildcard": "N", "classes": "NRYSWKM"}[equality]
+    pairs = []
+    for p, t in random_pairs(seed, 22, 250, 321, 0.05, 0.03):
+        p, t = list(p), list(t)
+        for arr in (p, t):
+            for _ in range(len(arr) // 15 if codes else 0):
+                arr[rng.randrange(len(arr))] = rng.choice(codes)
+        pairs.append(("".join(p).encode(), "".join(t)[:347].encode()))
+    full = "".join(rng.choice("ACGT") for _ in range(321))
+    pairs += [(full.encode(), (full + full[:26]).encode()),
+              (b"ACG", b"ACGT")]
+    return (cfg,) + _token_rows(cfg, pairs, dev)
+
+
+@pytest.mark.parametrize("equality", ["bytes", "wildcard", "classes"])
+@pytest.mark.parametrize("record", [True, False])
+@pytest.mark.parametrize("build,group,W", [
+    ("group", 1, 512), ("group", 4, 512), ("cluster", None, 2176),
+    ("general", None, 2176)])
+def test_chunk_builds_match_plain_and_bits(dev, build, group, W, record,
+                                           equality):
+    """Each build that compares the token rows in place (the group build
+    at G = 1 and G = 4, the cluster build with four CTAs a pair, the
+    general build) gives the plain version's bytes and the words' on the
+    same build, choices included, with and without the record, byte for
+    byte, with a wildcard and under match classes."""
+    cfg, pat, txt, plen, tlen, frees = _chunk_case(dev, equality, W, 400,
+                                                   record)
+    ext = TE.build_extension(dataclasses.replace(cfg, extend_force="chunk"),
+                             pat, txt)
+    assert ext["pat"] is not None and ext["bits"] is None
+    bits = TE.build_eq_bits(cfg, pat, txt)
+    name = fused_loop.variant(cfg, chunk=True)
+    before = (fused_loop.variant_launches[name],
+              fused_loop.build_launches[build])
+    got = fused_loop.align_batch_fused_loop(
+        cfg, None, plen, tlen, frees, 2**31 - 1, pat=ext["pat"],
+        txt=ext["txt"], build=build, group=group)
+    assert (fused_loop.variant_launches[name],
+            fused_loop.build_launches[build]) == (before[0] + 1,
+                                                  before[1] + 1)
+    plain = fused_loop.align_batch_fused_loop_ref(
+        cfg, None, plen, tlen, frees, 2**31 - 1, pat=ext["pat"],
+        txt=ext["txt"])
+    by_bits = fused_loop.align_batch_fused_loop(
+        cfg, bits, plen, tlen, frees, 2**31 - 1, build=build, group=group)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        if k in plain:
+            assert torch.equal(got[k], plain[k]), k
+            assert torch.equal(got[k], by_bits[k]), k
+    assert int((got["status"] == C.ST_END_REACHED).sum()) >= 20
+
+
+@pytest.mark.parametrize("W,seq", [
+    (896, ("group", "general")), (896, ("group:1", "group:4", "group")),
+    (2176, ("cluster", "general"))])
+@pytest.mark.parametrize("equality", ["bytes", "wildcard"])
+@pytest.mark.parametrize("record", [False, True])
+def test_chunk_segments_match_plain_and_bits(dev, W, seq, equality, record):
+    """Segment by segment on the rows, each segment on the builds of `seq`
+    in turn, from WF0 and then from the stored state: the plain version's
+    results, and a state byte-equal to the same segments on the words
+    (a done pair's too)."""
+    cfg, pat, txt, plen, tlen, frees = _chunk_case(dev, equality, W, 100,
+                                                   record)
+    ext = TE.build_extension(dataclasses.replace(cfg, extend_force="chunk"),
+                             pat, txt)
+    bits = TE.build_eq_bits(cfg, pat, txt)
+
+    def run(fn, state, base, rows=True, **kw):
+        src = (dict(pat=ext["pat"], txt=ext["txt"]) if rows else {})
+        return fn(cfg, None if rows else bits, plen, tlen, frees, 2**31 - 1,
+                  state=state, fresh=base == 0, seg_base=base, **src, **kw)
+
+    sx, sb, sp = (fused_loop.new_state(cfg, len(plen), dev)
+                  for _ in range(3))
+    base, n = 0, 0
+    while True:
+        build, _, g = seq[n % len(seq)].partition(":")
+        kw = dict(build=build, group=int(g) if g else None)
+        got = run(fused_loop.align_batch_fused_loop, sx, base, **kw)
+        words = run(fused_loop.align_batch_fused_loop, sb, base, False, **kw)
+        want = run(fused_loop.align_batch_fused_loop_ref, sp, base)
+        torch.cuda.synchronize()
+        for k in KEYS:
+            if k in want:
+                assert torch.equal(got[k], want[k]), (n, build, k)
+                assert torch.equal(got[k], words[k]), (n, build, k)
+        running = want["status"] == C.ST_OVERFLOW_S
+        for k in ("ring", "lohi", "carry"):
+            assert torch.equal(sx[k], sb[k]), (n, build, k)
+            assert torch.equal(sx[k][running], sp[k][running]), (n, k)
+        n += 1
+        base += cfg.S_cap - 1
+        if not bool(running.any()):
+            break
+    assert n >= 2
+
+
+def test_narrow_build_refuses_the_rows(dev):
+    """The narrow build extends by the words alone: a launch on the rows
+    forced onto it raises, the C side refusing it, and nothing falls
+    back; the routing never sends one there."""
+    cfg, pat, txt, plen, tlen, frees = _chunk_case(dev, "bytes", 384, 649,
+                                                   True)
+    ext = TE.build_extension(dataclasses.replace(cfg, extend_force="chunk"),
+                             pat, txt)
+    assert fused_loop.kernel_build(cfg, len(plen)) == "narrow"
+    assert fused_loop.kernel_build(cfg, len(plen), pat=ext["pat"]) == "group"
+    before = dict(fused_loop.build_launches)
+    with pytest.raises(RuntimeError, match="narrow"):
+        fused_loop.align_batch_fused_loop(
+            cfg, None, plen, tlen, frees, 2**31 - 1, pat=ext["pat"],
+            txt=ext["txt"], build="narrow")
+    assert fused_loop.build_launches == before

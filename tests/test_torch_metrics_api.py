@@ -269,12 +269,13 @@ def test_variants_name_every_metric_span_and_scope():
     """5 metrics x 2 spans x 2 scopes, each with and without a heuristic,
     plus the seeded span (ends-free with a match bonus) for the three
     metrics that carry a match weight; the launch counts name each of
-    them twice, by the equality words and (`_table`) by the run-length
-    table."""
+    them three times, by the equality words, (`_table`) by the run-length
+    table and (`_chunk`) by the token rows compared in place."""
     assert len(TFL.VARIANTS) == 52 == len(set(TFL.VARIANTS))
     assert set(TFL.variant_launches) == set(TFL.VARIANTS) | {
-        v + "_table" for v in TFL.VARIANTS}
-    assert len(TFL.variant_launches) == 104
+        v + "_table" for v in TFL.VARIANTS} | {
+        v + "_chunk" for v in TFL.VARIANTS}
+    assert len(TFL.variant_launches) == 156
     seen = set()
     for metric in ALL_METRICS:
         for span in ("end-to-end", "ends-free"):

@@ -100,12 +100,13 @@ def test_table_extension_equals_bits_and_reference(name):
 def test_extend_mode_routes_tables_and_bits():
     ref_cfg, pat, txt, *_ = _inputs("affine_e2e")
     cfg = C.from_reference(ref_cfg)
-    Ltp = txt.shape[1]
-    assert TE.extend_mode(cfg, Ltp) == "table"
-    assert TE.extend_mode(cfg, 2049) == "bits"
+    B, Ltp = txt.shape
+    assert TE.extend_mode(cfg, B, Ltp) == "table"
+    assert TE.extend_mode(cfg, B, 2049) == "bits"
     for off in (dict(use_lcp_table=False), dict(match_classes="iupac"),
                 dict(extend_force="bits")):
-        assert TE.extend_mode(dataclasses.replace(cfg, **off), Ltp) == "bits"
+        assert TE.extend_mode(dataclasses.replace(cfg, **off), B,
+                              Ltp) == "bits"
     tp, tt = torch.from_numpy(pat), torch.from_numpy(txt)
     ext = TE.build_extension(cfg, tp, tt)
     assert ext["bits"] is None and ext["table"].shape[0] == Ltp
