@@ -209,6 +209,27 @@ Phases (any failure raises and exits nonzero; nothing falls back):
    compare); H's first and last pair against the host oracle, which runs
    in a process of its own from the start of the script. Last, batch G
    under PYWFA_EXTEND=chunk, equal to batch G.
+15. The parity fuzz (tools/fuzz_parity_torch.py, FUZZ_PARITY_ITERS
+   random configurations from FUZZ_SEED: metric, penalties, span, frees,
+   heuristics, match bonus, wildcard, step cap, scope, memory mode; each
+   batch on the card against the oracle and, every field of every result,
+   against the same batch on the plain versions on the CPU), the partials
+   fuzz (tools/fuzz_partials_torch.py, FUZZ_PARTIALS_ITERS seeds:
+   composite heuristics and WF-extension against the oracle) and the long
+   share: LONG_FUZZ_CONFIGS random configurations under the high, low or
+   biwfa memory mode, each a batch of LONG_FUZZ_B ONT-like pairs of 3-10
+   kb at 2-10% divergence, against the host oracle (a process a
+   configuration, started with H's); it must launch the general and the
+   cluster build.
+16. The soak (tools/soak_sanitize_torch.py, SOAK_ITERS iterations) in a
+   process of its own under CUDA_LAUNCH_BLOCKING=1: numpy traps, every
+   completed CIGAR self-checked; its last line ends "no traps fired".
+17. bench_torch.py at its defaults (W=128, as bench.py) and at
+   BENCH_W=256 (the first rung production derives): its JSON line
+   (bench.py's four keys) and its '#' line (ms a batch, build, card).
+18. The PYWFA_PROF stage report of a stream of phase 4's eight 4096-pair
+   batches, depth 3: each of the dispatch, pull and finish keys once a
+   batch.
 
 Each main-path phase zeroes the kernels' launch counts (by variant, by
 build and the group build's by G) and the count of pairs sent to the host
@@ -221,7 +242,10 @@ dry run (11) launched the group build and the sharded batch (12) the
 group build at G = 1 and K3, if a timed stream, an API phase or a CLI
 run (13) sent any pair to the oracle, or if any phase did so for an
 inconsistent walk; batch H (14) fails unless its routed run launched only
-the in-place compare and its words run only the words. The line before the last is the kernels' JSON record;
+the in-place compare and its words run only the words. Phases 15-18 fail
+on any mismatch, trap, or pair sent to the oracle for an inconsistent or
+a dropped walk; their launches are logged and stay out of the kernels
+line. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
 import collections
@@ -268,6 +292,22 @@ RESUME_STEPS = 200
 
 # the four metrics beside gap-affine, as WavefrontAligner's `distance`
 METRICS = ("affine2p", "linear", "levenshtein", "indel")
+
+# the fuzz (phase 15): tools/fuzz_parity_torch.py's iterations from its
+# seed, tools/fuzz_partials_torch.py's seeds from it, and the long share:
+# configurations of random_config with the memory mode drawn from high,
+# low and biwfa, each a batch of ONT-like pairs of 3-10 kb at 2-10%
+# divergence, held against the host oracle in a process a configuration
+FUZZ_SEED = 0
+FUZZ_PARITY_ITERS = 200
+FUZZ_PARTIALS_ITERS = 20
+LONG_FUZZ_SEED = 15
+LONG_FUZZ_CONFIGS = 6
+LONG_FUZZ_B = 4
+LONG_FUZZ_LEN = (3000, 10000)
+LONG_FUZZ_DIV = (0.02, 0.10)
+# the soak (phase 16): tools/soak_sanitize_torch.py's iterations
+SOAK_ITERS = 10
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
 # and 32-bit operations outside the tensor cores
@@ -1633,7 +1673,7 @@ class HostOracle:
             "pickle.dump((res, time.perf_counter() - t0), "
             "open(sys.argv[3], 'wb'))")
 
-    def __init__(self, attr, pairs):
+    def __init__(self, attr, pairs, wildcard=None):
         import os
         import pickle
         import tempfile
@@ -1641,7 +1681,7 @@ class HostOracle:
         src = os.path.join(self.dir.name, "pairs.pkl")
         self.out = os.path.join(self.dir.name, "results.pkl")
         with open(src, "wb") as f:
-            pickle.dump([(attr, p, t) for p, t in pairs], f)
+            pickle.dump([(attr, p, t, wildcard) for p, t in pairs], f)
         root = os.path.dirname(os.path.abspath(__file__))
         self.proc = subprocess.Popen(
             [sys.executable, "-c", self.CODE, root, src, self.out])
@@ -3247,17 +3287,272 @@ def phase_cli(dev):
 
 
 
+def _load(*parts):
+    """The script at `parts` under the checkout's root as a module (tools/
+    is no package): ("tools", "fuzz_parity_torch"), ("bench_torch",)."""
+    import importlib.util
+    import os
+    name = parts[-1]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        *parts[:-1], f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def make_long_fuzz():
+    """The fuzz's long share, from LONG_FUZZ_SEED: LONG_FUZZ_CONFIGS
+    configurations of tools/fuzz_parity_torch.random_config with the
+    memory mode drawn from high, low and biwfa, each with a batch of
+    LONG_FUZZ_B ONT-like pairs, every pair of its own length in
+    LONG_FUZZ_LEN and divergence in LONG_FUZZ_DIV (half substitutions,
+    half indels): [(kw, patterns, texts)]."""
+    import random
+    fz = _load("tools", "fuzz_parity_torch")
+    rng = random.Random(LONG_FUZZ_SEED)
+    nrng = np.random.default_rng(LONG_FUZZ_SEED)
+    share = []
+    for _ in range(LONG_FUZZ_CONFIGS):
+        kw = fz.random_config(rng)
+        kw["memory_mode"] = rng.choice(["high", "low", "biwfa"])
+        pats, txts = [], []
+        for _ in range(LONG_FUZZ_B):
+            n = int(nrng.integers(LONG_FUZZ_LEN[0], LONG_FUZZ_LEN[1] + 1))
+            d = float(nrng.uniform(*LONG_FUZZ_DIV))
+            p, t = make_ont_pairs(nrng, 1, n, d / 2, d / 2)
+            pats += p
+            txts += t
+        share.append((kw, pats, txts))
+    return share
+
+
+def _api_attr(kw):
+    """(attributes, wildcard byte or None) of WavefrontAligner(**kw)."""
+    from pywfa_tpu_torch.align import WavefrontAligner
+    api = WavefrontAligner(backend="numpy", **kw)
+    return api._attributes(), (api._bwildcard if api._wildcard else None)
+
+
+def start_long_fuzz_oracles(long_inputs):
+    """Start the host oracle on each configuration of the fuzz's long
+    share, a process a configuration, beside the phases before phase 15;
+    the caller stops them."""
+    long_inputs["long_fuzz"] = make_long_fuzz()
+    oracles = []
+    for kw, pats, txts in long_inputs["long_fuzz"]:
+        attr, wc = _api_attr(kw)
+        oracles.append(HostOracle(attr, list(zip(pats, txts)), wildcard=wc))
+    long_inputs["long_fuzz_oracles"] = oracles
+    return oracles
+
+
+def _fault_fallbacks(phase):
+    """Fail on a pair sent to the host oracle for an inconsistent walk or a
+    dropped walk; print the fallbacks by reason."""
+    from pywfa_tpu_torch import batch as PB
+    fb = dict(PB.oracle_fallbacks)
+    log(f"oracle fallbacks [{phase}]: {fb}")
+    if fb["inconsistent walk"] or fb["dropped"]:
+        raise AssertionError(f"{phase}: a wrong kernel or walk went to the "
+                             f"host oracle: {fb}")
+
+
+def phase_fuzz(dev, long_inputs):
+    """15. The parity fuzz on the card. tools/fuzz_parity_torch.py from
+    FUZZ_SEED: FUZZ_PARITY_ITERS random configurations, each batch on the
+    card held against the oracle and, every field of every result, against
+    the same batch through the plain versions on the CPU;
+    tools/fuzz_partials_torch.py, FUZZ_PARTIALS_ITERS seeds from
+    FUZZ_SEED (composite heuristics, WF-extension) against the oracle;
+    then the long share (make_long_fuzz), each configuration's batch on
+    the card against the host oracle's results, which must launch the
+    general and the cluster build. Any mismatch, or a fallback for an
+    inconsistent or dropped walk, fails. Logs the launches by variant and
+    build; they stay out of the kernels line."""
+    from pywfa_tpu_torch import batch as PB
+    fz = _load("tools", "fuzz_parity_torch")
+    reset_counts()
+    t0 = time.perf_counter()
+    done, bad = fz.run(FUZZ_PARITY_ITERS, FUZZ_SEED, device=dev.type,
+                       emit=log)
+    if bad is not None:
+        raise AssertionError(f"fuzz_parity: mismatch at iteration {done}: "
+                             f"{json.dumps(bad)}")
+    counts = read_counts()
+    log(f"fuzz_parity: {done} iterations from seed {FUZZ_SEED} on {dev.type}, "
+        f"0 mismatches against the oracle and the plain versions, "
+        f"{time.perf_counter() - t0:.1f} s; launches "
+        f"{launched(counts)}")
+    _fault_fallbacks("fuzz_parity")
+
+    fp = _load("tools", "fuzz_partials_torch")
+    reset_counts()
+    t0 = time.perf_counter()
+    n_bad = fp.fuzz(FUZZ_SEED, FUZZ_PARTIALS_ITERS, device=dev.type,
+                    emit=log)
+    if n_bad:
+        raise AssertionError(f"fuzz_partials: {n_bad} mismatches")
+    log(f"fuzz_partials: seeds {FUZZ_SEED}-"
+        f"{FUZZ_SEED + FUZZ_PARTIALS_ITERS - 1} on {dev.type}, 0 mismatches, "
+        f"{time.perf_counter() - t0:.1f} s; launches "
+        f"{launched(read_counts())}")
+    _fault_fallbacks("fuzz_partials")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    fields = ("status", "score", "ops")
+    for i, ((kw, pats, txts), oracle) in enumerate(zip(
+            long_inputs["long_fuzz"], long_inputs["long_fuzz_oracles"])):
+        attr, wc = _api_attr(kw)
+        t1 = time.perf_counter()
+        res = PB.align_pairs(attr, pats, txts, wildcard=wc, device=dev)
+        card_s = time.perf_counter() - t1
+        want, secs, waited = oracle.result(timeout=600)
+        for j, (r, o) in enumerate(zip(res, want)):
+            got = tuple(getattr(r, f) for f in fields)
+            exp = tuple(getattr(o, f) for f in fields)
+            if got != exp:
+                raise AssertionError(
+                    "fuzz long share: mismatch " + json.dumps({
+                        "config": i, "kw": kw, "pair": j,
+                        "lengths": [len(pats[j]), len(txts[j])],
+                        "card": [r.status, r.score, len(r.ops)],
+                        "oracle": [o.status, o.score, len(o.ops)]}))
+        log(f"fuzz long share [{i}]: {json.dumps(kw)}; lengths "
+            f"{[(len(p), len(t)) for p, t in zip(pats, txts)]}; scores "
+            f"{[r.score for r in res]}, status {[r.status for r in res]}; "
+            f"card {card_s:.2f} s, oracle {secs:.1f} s in its process "
+            f"({waited:.1f} s waited); equal")
+        _fault_fallbacks(f"fuzz long share [{i}]")
+    counts = read_counts()
+    builds = {k[6:]: v for k, v in counts.items() if k.startswith("build_")}
+    log(f"fuzz long share: {len(long_inputs['long_fuzz'])} configurations, "
+        f"{time.perf_counter() - t0:.1f} s; segmented "
+        f"{dict(PB.segmented_runs)}; builds {builds}; launches "
+        f"{launched(counts)}")
+    if not builds["general"] or not builds["cluster"]:
+        raise AssertionError("the fuzz's long share must launch the general "
+                             f"and the cluster build: {builds}")
+
+
+def phase_soak(dev, long_inputs):
+    """16. tools/soak_sanitize_torch.py on the card, SOAK_ITERS iterations,
+    in a process of its own under CUDA_LAUNCH_BLOCKING=1 (every CIGAR
+    self-checked, numpy traps raised, no fault fallback)."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING="1")
+    r = subprocess.run([sys.executable,
+                        os.path.join(root, "tools", "soak_sanitize_torch.py"),
+                        "0", str(SOAK_ITERS), "--device", dev.type],
+                       cwd=root,
+                       env=env, capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[-3:]:
+        log(f"soak: {line}")
+    if r.returncode != 0 or not lines or not lines[-1].startswith(
+            f"soak_sanitize OK: {SOAK_ITERS} iters") or not lines[-1].endswith(
+            "no traps fired"):
+        raise AssertionError(f"soak exited {r.returncode}: "
+                             f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+
+
+def phase_bench(dev, long_inputs):
+    """17. bench_torch.py at its defaults (bench.py's W=128) and at
+    BENCH_W=256 (the first rung production derives), in this process;
+    logs each JSON line and its '#' line."""
+    import contextlib
+    import io
+    import os
+    bench = _load("bench_torch")
+    for w in ("128", "256"):
+        old = os.environ.get("BENCH_W")
+        os.environ["BENCH_W"] = w
+        out, err = io.StringIO(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = bench.main(["--device", dev.type])
+        finally:
+            if old is None:
+                del os.environ["BENCH_W"]
+            else:
+                os.environ["BENCH_W"] = old
+        line = out.getvalue().strip()
+        log(f"bench_torch BENCH_W={w}: {line}")
+        log(f"bench_torch BENCH_W={w}: {err.getvalue().strip()}")
+        if rc != 0 or list(json.loads(line)) != ["metric", "value", "unit",
+                                                 "vs_baseline"]:
+            raise AssertionError(f"bench_torch at BENCH_W={w}: {line}")
+
+
+def phase_stage_report(dev, long_inputs):
+    """18. The PYWFA_PROF stage report of one stream of phase 4's eight
+    4096-pair batches (depth 3), batch._PROF on for it alone: every
+    dispatch, pull and finish key once a batch; beside it the garbage
+    collector's pauses in the stream (gc.callbacks)."""
+    import gc
+
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    from pywfa_tpu_torch import batch as PB
+    rng = np.random.default_rng(SEED)
+    batches = [make_pairs(rng, B_MAIN, L, DIV) for _ in range(N_BATCHES)]
+    aligner = BatchWavefrontAligner(distance="affine", span="end-to-end",
+                                    device=dev)
+    # the garbage collector's pauses inside the stream, by generation
+    gc_ms = collections.Counter()
+    gc_t0 = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_ms[info["generation"]] += 1e3 * (time.perf_counter()
+                                                - gc_t0[0])
+
+    PB.PROF.clear()
+    PB.PROF_N.clear()
+    PB._PROF = True
+    gc.callbacks.append(on_gc)
+    try:
+        t0 = time.perf_counter()
+        results = list(aligner.align_stream(iter(batches), depth=3))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(PB.PROF_N)
+        report = PB.prof_report()
+    finally:
+        PB._PROF = False
+        gc.callbacks.remove(on_gc)
+    log(f"stage report (PYWFA_PROF), {N_BATCHES} x {B_MAIN} pairs of {L} bp, "
+        f"depth 3, {wall:.3f} s = {N_BATCHES * B_MAIN / wall:.0f} "
+        "alignments/s:")
+    for line in report.splitlines():
+        log(f"  {line}")
+    log("garbage collection inside the stream, ms by generation: "
+        + (", ".join(f"{g}: {ms:.2f}" for g, ms in sorted(gc_ms.items()))
+           or "none"))
+    keys = ("d.config", "d.encode", "d.push_enqueue", "p.pull_wait",
+            "f.pull", "f.native_fill", "f.assemble")
+    if any(counts.get(k) != N_BATCHES for k in keys) or any(
+            r.status != 0 for rs in results for r in rs):
+        raise AssertionError(f"stage report: {counts}")
+
+
 def main():
     phase_device()
     dev = torch.device("cuda", 0)
     from pywfa_tpu_torch import BatchWavefrontAligner
     attr = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     long_inputs = make_long_inputs()
-    oracle = start_h_oracle(attr, long_inputs)
+    oracles = [start_h_oracle(attr, long_inputs)]
     try:
+        oracles += start_long_fuzz_oracles(long_inputs)
         return run_phases(dev, attr, long_inputs)
     finally:
-        oracle.stop()
+        for oracle in oracles:
+            oracle.stop()
 
 
 def run_phases(dev, attr, long_inputs):
@@ -3284,6 +3579,15 @@ def run_phases(dev, attr, long_inputs):
     records.update(phase_chunk_kernels(dev, long_inputs))
     launches.update(phase_chunk_reads(dev, long_inputs, records))
     log(f"phase_chunk: {time.perf_counter() - t0:.1f} s")
+    # the checking and measuring tools (15-18): their launches are logged
+    # by each phase and kept out of the kernels line, which counts the
+    # main paths
+    t_tools = time.perf_counter()
+    for phase in (phase_fuzz, phase_soak, phase_bench, phase_stage_report):
+        t0 = time.perf_counter()
+        phase(dev, long_inputs)
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    log(f"phases 15-18: {time.perf_counter() - t_tools:.1f} s")
     log(f"profiler sessions: {dict(PROFILER_SESSIONS)} (short: fewer "
         "launches of the timed kernel recorded than made; the kernel's "
         "time is then the mean of the launches recorded)")

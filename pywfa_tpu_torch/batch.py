@@ -42,7 +42,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import os
 import sys
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -113,6 +115,38 @@ LCP_TABLE_BYTES_CAP_REMAT = 8 * 2**30
 # what the segmented executor ran: runs, forward segments, replayed
 # segments. Callers zero it and read it, as oracle_fallbacks.
 segmented_runs = {"runs": 0, "segments": 0, "replays": 0}
+
+# PYWFA_PROF=1 accumulates per-stage wall time of the dispatch/finish
+# pipeline into PROF (print with prof_report()); near-zero cost when off.
+# The reference's nine keys at the same points: d.config, d.encode,
+# d.push_enqueue (align_pairs_dispatch), p.pull_wait (align_pairs_pull),
+# f.pull, f.native_fill, f.assemble, f.escalate, f.oracle
+# (align_pairs_finish and _assemble). The walk runs inside the device
+# pipeline's call on both packages (here ops/engine.walk_segment's host
+# loop, there inside the one compiled program), so it lands in
+# d.push_enqueue, as do decode, eq-bits, the fused loop and the pack. A
+# segmented run's own assembly (_align_pairs_remat -> _assemble) records
+# the f.* keys too, where the reference's records none.
+_PROF = os.environ.get("PYWFA_PROF", "") not in ("", "0")
+PROF = collections.defaultdict(float)
+PROF_N = collections.defaultdict(int)
+
+
+def _prof_add(key: str, t0: float) -> float:
+    t1 = time.perf_counter()
+    PROF[key] += t1 - t0
+    PROF_N[key] += 1
+    return t1
+
+
+def prof_report(reset: bool = True) -> str:
+    lines = [f"{k:28s} {PROF[k]*1e3:9.2f} ms total "
+             f"({PROF[k]/max(PROF_N[k],1)*1e3:7.3f} ms/call x {PROF_N[k]})"
+             for k in sorted(PROF, key=PROF.get, reverse=True)]
+    if reset:
+        PROF.clear()
+        PROF_N.clear()
+    return "\n".join(lines)
 
 
 def _resolve_device(device) -> torch.device:
@@ -526,9 +560,9 @@ def align_pairs_stream(attr: AlignerAttributes, batches, wildcard=None,
         pending.append(align_pairs_dispatch(attr, patterns, texts, wildcard,
                                             device=device, **bkw))
         if len(pending) > depth:
-            yield align_pairs_finish(pending.popleft())
+            yield align_pairs_finish(align_pairs_pull(pending.popleft()))
     while pending:
-        yield align_pairs_finish(pending.popleft())
+        yield align_pairs_finish(align_pairs_pull(pending.popleft()))
 
 
 def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
@@ -548,6 +582,7 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
         raise ValueError(f"{B0} patterns but {len(texts)} texts")
     if B0 == 0:
         return _Inflight(results=[])
+    t0 = time.perf_counter() if _PROF else 0.0
     B = _bucket_B(B0)
     if B != B0:
         patterns = list(patterns) + [b"A"] * (B - B0)
@@ -587,11 +622,15 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
         if _capture is not None and "paused" in _capture:
             _capture["paused"].B0 = B0
         return _Inflight(results=res[:B0])
+    if _PROF:
+        t0 = _prof_add("d.config", t0)
 
     pat_np, pp = _encode_side(patterns, cfg.Lp, cfg.extend_chunk,
                               PATTERN_SENTINEL, plens)
     txt_np, pt = _encode_side(texts, cfg.Lt, cfg.extend_chunk,
                               TEXT_SENTINEL, tlens)
+    if _PROF:
+        t0 = _prof_add("d.encode", t0)
     if pp is not None and pt is not None:
         rows = np.concatenate([pp, pt], axis=1)
         run = E.align_batch_packed_full
@@ -605,6 +644,8 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
     frees = (torch.zeros((B, 4), dtype=torch.int32, device=dev)
              if not frees_np.any() else _to_device(frees_np, dev))
     out_d = run(cfg, rows_d, lens_d[0], lens_d[1], frees, h.max_steps_i)
+    if _PROF:
+        t0 = _prof_add("d.push_enqueue", t0)
 
     h.event = None
     if dev.type == "cuda":
@@ -621,7 +662,17 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
 
 def align_pairs_pull(h: _Inflight) -> _Inflight:
     """Wait for a dispatched batch's output to reach host memory.
-    Idempotent; align_pairs_finish calls it itself."""
+    Idempotent; align_pairs_finish waits itself if this was never called
+    (that wait counts as f.pull, this one as p.pull_wait)."""
+    if h.results is None and h.packed_np is None:
+        t0 = time.perf_counter() if _PROF else 0.0
+        _pull(h)
+        if _PROF:
+            _prof_add("p.pull_wait", t0)
+    return h
+
+
+def _pull(h: _Inflight) -> _Inflight:
     if h.results is None and h.packed_np is None:
         if h.event is not None:
             h.event.synchronize()
@@ -638,7 +689,8 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
     inconsistent walks to the oracle."""
     if h.results is not None:
         return h.results
-    packed = align_pairs_pull(h).packed_np
+    t0 = time.perf_counter() if _PROF else 0.0
+    packed = _pull(h).packed_np
     cfg, B = h.cfg, h.B
     n_ops = k_start = ops_fwd = None
     if not h.scope_full:
@@ -661,16 +713,21 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
         ops_fwd = packed[7 * B * 4:].reshape(B, cfg.S_cap)
         status, final_s, end_k, end_off, n_ops, k_start = meta[:6]
         fb = meta[6] != 0
+    if _PROF:
+        t0 = _prof_add("f.pull", t0)
     return _assemble(h, status, final_s, end_k, end_off, n_ops, k_start, fb,
-                     ops_fwd)
+                     ops_fwd, t0)
 
 
 def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
-              fb, ops_fwd) -> List[BatchResult]:
+              fb, ops_fwd, t0: float = 0.0) -> List[BatchResult]:
     """Results of a batch from the loop's per-pair outputs and, in the
     full scope, the walk's (the zero-sparse forward op stream ops_fwd, its
     count n_ops, the start diagonal k_start, the fallback flags fb), for a
-    one-shot rung and a segmented run alike."""
+    one-shot rung and a segmented run alike. `t0` starts the stage
+    timers under PYWFA_PROF (0: from here)."""
+    if _PROF and not t0:
+        t0 = time.perf_counter()
     cfg, B = h.cfg, h.B
     plens, tlens = h.plens, h.tlens
     pen = h.attr0.penalties
@@ -697,6 +754,8 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
             native_ops.update(_native_fill(
                 cfg, part_idx, h.pat_np, h.txt_np, plens, tlens, end_k,
                 end_off, ops_fwd, k_start, wildcard, capped=True))
+    if _PROF:
+        t0 = _prof_add("f.native_fill", t0)
     ev_a = end_off - end_k
     eh_a = end_off
     if scope_full:
@@ -711,10 +770,13 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
     if (scope_full and not extension and len(native_ops) == B
             and bool(clean_np.all())):
         # the common batch: every pair completed and was filled natively
-        return [BatchResult(STATUS_ALG_COMPLETED, sc, native_ops[b], ev, eh,
-                            s, False)
-                for b, sc, ev, eh, s in
-                zip(range(B), sc_a, ev_l, eh_l, final_s_l)][:h.B0]
+        results = [BatchResult(STATUS_ALG_COMPLETED, sc, native_ops[b], ev,
+                               eh, s, False)
+                   for b, sc, ev, eh, s in
+                   zip(range(B), sc_a, ev_l, eh_l, final_s_l)]
+        if _PROF:
+            _prof_add("f.assemble", t0)
+        return results[:h.B0]
 
     escalate_idx: List[int] = []
     oracle_idx: List[int] = []
@@ -794,6 +856,8 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
             else:
                 oracle_fallbacks["inconsistent walk"] += 1
             oracle_idx.append(b)
+    if _PROF:
+        t0 = _prof_add("f.assemble", t0)
 
     if escalate_idx:
         # geometric escalation: 4x the score cap, band sized to match
@@ -822,9 +886,14 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
                           device=h.device, _escalated=True)
         for b, r in zip(escalate_idx, sub):
             results[b] = r
-    for b in oracle_idx:
-        results[b] = _oracle_one(h.attr, h.patterns[b], h.texts[b],
-                                 wildcard)
+        if _PROF:
+            t0 = _prof_add("f.escalate", t0)
+    if oracle_idx:
+        for b in oracle_idx:
+            results[b] = _oracle_one(h.attr, h.patterns[b], h.texts[b],
+                                     wildcard)
+        if _PROF:
+            _prof_add("f.oracle", t0)
     return results[:h.B0]  # type: ignore[return-value]
 
 

@@ -340,3 +340,41 @@ def test_bucketing_matches():
     assert PB.bucket_pairs(pats, txts) == RB.bucket_pairs(pats, txts)
     assert PB.bucket_pairs(pats, txts, (512,)) == RB.bucket_pairs(
         pats, txts, (512,))
+
+
+@pytest.mark.parametrize("name", ["display", "plot"])
+def test_display_and_plot_are_copies(name):
+    """utils/display.py and utils/plot.py against their originals: the
+    source is the original's but for one line of the docstring, the public
+    names are the same, and the dense score matrix of seeded pairs is the
+    same under every metric (tests/test_torch_utils.py holds the
+    renderings byte for byte)."""
+    import importlib
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pywfa_tpu", "utils", f"{name}.py")) as fh:
+        ref_src = fh.read()
+    with open(os.path.join(root, "pywfa_tpu_torch", "utils",
+                           f"{name}.py")) as fh:
+        port_src = fh.read()
+    note = (f"\n\nA copy of `pywfa_tpu/utils/{name}.py`, which the port does "
+            "not import.\n")
+    assert note in port_src
+    assert port_src.replace(note, "\n", 1) == ref_src
+    ref = importlib.import_module(f"pywfa_tpu.utils.{name}")
+    port = importlib.import_module(f"pywfa_tpu_torch.utils.{name}")
+    assert set(_public(ref)) == set(_public(port))
+    if name == "display":
+        pen_pairs = [(RA.penalties_affine(0, 4, 6, 2),
+                      PA.penalties_affine(0, 4, 6, 2)),
+                     (RA.penalties_affine2p(0, 4, 6, 2, 24, 1),
+                      PA.penalties_affine2p(0, 4, 6, 2, 24, 1)),
+                     (RA.penalties_linear(0, 3, 2),
+                      PA.penalties_linear(0, 3, 2)),
+                     (RA.penalties_edit(), PA.penalties_edit()),
+                     (RA.penalties_indel(), PA.penalties_indel())]
+        for p, t in CORPUS[:6]:
+            for rp, pp in pen_pairs:
+                np.testing.assert_array_equal(
+                    ref.score_matrix(p.decode(), t.decode(), rp),
+                    port.score_matrix(p.decode(), t.decode(), pp))

@@ -107,14 +107,20 @@ IMPORTS_REFERENCE = re.compile(r"^\s*(from|import)\s+pywfa_tpu(\.|\s|$)",
 
 
 def test_sources_that_run_on_the_card_never_import_the_jax_package():
-    """Nothing under pywfa_tpu_torch/, nor the scripts, the worker and the
-    tests that run without jax, imports `pywfa_tpu` or a module of it;
+    """Nothing under pywfa_tpu_torch/, nor the scripts (the smoke run, the
+    profiler, the build timer, the bench), the tools (the worker, the two
+    fuzzers, the soak) and the tests that run without jax, imports
+    `pywfa_tpu` or a module of it;
     nor does any of them but the package (scanned above) import jax."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     paths = [os.path.join(root, "chip_smoke.py"),
              os.path.join(root, "profile_torch.py"),
              os.path.join(root, "time_builds.py"),
+             os.path.join(root, "bench_torch.py"),
              os.path.join(root, "tools", "mp_worker_torch.py"),
+             os.path.join(root, "tools", "fuzz_parity_torch.py"),
+             os.path.join(root, "tools", "fuzz_partials_torch.py"),
+             os.path.join(root, "tools", "soak_sanitize_torch.py"),
              os.path.join(root, "tests", "test_torch_cuda.py")]
     for dirpath, _, files in os.walk(os.path.join(root, "pywfa_tpu_torch")):
         paths += [os.path.join(dirpath, n) for n in files
