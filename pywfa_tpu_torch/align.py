@@ -21,6 +21,7 @@ import sys
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+from . import spans
 from .attributes import (
     AlignerAttributes,
     AlignmentForm,
@@ -863,6 +864,7 @@ class WavefrontAligner:
 
         return pattern_start, pattern_end, text_start, text_end
 
+    @spans.traced("call")
     def __call__(self, text, pattern=None, clip_cigar=False,
                  min_aligned_bases_left=1, min_aligned_bases_right=1,
                  elide_mismatches=False, supress_sequences=False):

@@ -50,7 +50,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import native
+from . import native, spans
 from .align import WavefrontAligner as _ApiAligner
 from .attributes import (
     AlignerAttributes,
@@ -126,14 +126,18 @@ segmented_runs = {"runs": 0, "segments": 0, "replays": 0}
 # loop, there inside the one compiled program), so it lands in
 # d.push_enqueue, as do decode, eq-bits, the fused loop and the pack. A
 # segmented run's own assembly (_align_pairs_remat -> _assemble) records
-# the f.* keys too, where the reference's records none.
+# the f.* keys too, where the reference's records none. The same switch
+# turns on the port's span tree (spans.py), which splits these intervals
+# by layer, down to the walk's syncs, with self times; where a key and a
+# span share an end, the key takes the span's clock reading.
 _PROF = os.environ.get("PYWFA_PROF", "") not in ("", "0")
 PROF = collections.defaultdict(float)
 PROF_N = collections.defaultdict(int)
 
 
-def _prof_add(key: str, t0: float) -> float:
-    t1 = time.perf_counter()
+def _prof_add(key: str, t0: float, t1: Optional[float] = None) -> float:
+    if t1 is None:
+        t1 = time.perf_counter()
     PROF[key] += t1 - t0
     PROF_N[key] += 1
     return t1
@@ -205,6 +209,7 @@ def pack_tokens(mat: np.ndarray, lens: np.ndarray,
             | (c[..., 2] << 4) | (c[..., 3] << 6))
 
 
+@spans.traced("encode")
 def _encode_side(seqs, L, chunk, sentinel, lens):
     """One side of a batch: the sentinel-padded token matrix plus its 2-bit
     rows (None when any in-length byte is not ACGT), in one native pass
@@ -527,6 +532,7 @@ class _Inflight:
         self.segmented = False
 
 
+@spans.traced("push")
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     t = torch.from_numpy(a)
     if dev.type == "cpu":
@@ -565,6 +571,7 @@ def align_pairs_stream(attr: AlignerAttributes, batches, wildcard=None,
         yield align_pairs_finish(align_pairs_pull(pending.popleft()))
 
 
+@spans.traced("dispatch")
 def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
                          texts: Sequence[bytes],
                          wildcard: Optional[int] = None,
@@ -582,7 +589,7 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
         raise ValueError(f"{B0} patterns but {len(texts)} texts")
     if B0 == 0:
         return _Inflight(results=[])
-    t0 = time.perf_counter() if _PROF else 0.0
+    t0 = spans.begin("config") if _PROF else 0.0
     B = _bucket_B(B0)
     if B != B0:
         patterns = list(patterns) + [b"A"] * (B - B0)
@@ -618,12 +625,14 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
         # traceback by running the segments again. Segments lift the score
         # cap; the band stays at this rung's width, and pairs that outgrow
         # it escalate inside _align_pairs_remat.
+        if _PROF:
+            spans.end()
         res = _align_pairs_remat(h, choices_cap, capture=_capture)
         if _capture is not None and "paused" in _capture:
             _capture["paused"].B0 = B0
         return _Inflight(results=res[:B0])
     if _PROF:
-        t0 = _prof_add("d.config", t0)
+        t0 = _prof_add("d.config", t0, spans.end())
 
     pat_np, pp = _encode_side(patterns, cfg.Lp, cfg.extend_chunk,
                               PATTERN_SENTINEL, plens)
@@ -643,9 +652,12 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
     frees_np = _build_frees(attr0, B, plens, tlens)
     frees = (torch.zeros((B, 4), dtype=torch.int32, device=dev)
              if not frees_np.any() else _to_device(frees_np, dev))
+    if _PROF:
+        spans.begin("enqueue")
     out_d = run(cfg, rows_d, lens_d[0], lens_d[1], frees, h.max_steps_i)
     if _PROF:
-        t0 = _prof_add("d.push_enqueue", t0)
+        t0 = _prof_add("d.push_enqueue", t0, spans.end())
+        spans.begin("stage_out")
 
     h.event = None
     if dev.type == "cuda":
@@ -656,6 +668,8 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
         h.event.record(torch.cuda.current_stream(dev))
     else:
         h.out_host = out_d
+    if _PROF:
+        spans.end()
     h.pat_np, h.txt_np = pat_np, txt_np
     return h
 
@@ -665,10 +679,10 @@ def align_pairs_pull(h: _Inflight) -> _Inflight:
     Idempotent; align_pairs_finish waits itself if this was never called
     (that wait counts as f.pull, this one as p.pull_wait)."""
     if h.results is None and h.packed_np is None:
-        t0 = time.perf_counter() if _PROF else 0.0
+        t0 = spans.begin("pull_wait") if _PROF else 0.0
         _pull(h)
         if _PROF:
-            _prof_add("p.pull_wait", t0)
+            _prof_add("p.pull_wait", t0, spans.end())
     return h
 
 
@@ -681,6 +695,7 @@ def _pull(h: _Inflight) -> _Inflight:
     return h
 
 
+@spans.traced("finish")
 def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
     """Phase 2: decode the packed output, assemble CIGARs (native
     match-fill) or, in the score-only scope, translate the scores;
@@ -689,7 +704,7 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
     inconsistent walks to the oracle."""
     if h.results is not None:
         return h.results
-    t0 = time.perf_counter() if _PROF else 0.0
+    t0 = spans.begin("pull") if _PROF else 0.0
     packed = _pull(h).packed_np
     cfg, B = h.cfg, h.B
     n_ops = k_start = ops_fwd = None
@@ -714,7 +729,7 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
         status, final_s, end_k, end_off, n_ops, k_start = meta[:6]
         fb = meta[6] != 0
     if _PROF:
-        t0 = _prof_add("f.pull", t0)
+        t0 = _prof_add("f.pull", t0, spans.end())
     return _assemble(h, status, final_s, end_k, end_off, n_ops, k_start, fb,
                      ops_fwd, t0)
 
@@ -726,8 +741,9 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
     count n_ops, the start diagonal k_start, the fallback flags fb), for a
     one-shot rung and a segmented run alike. `t0` starts the stage
     timers under PYWFA_PROF (0: from here)."""
-    if _PROF and not t0:
-        t0 = time.perf_counter()
+    if _PROF:
+        t = spans.begin("native_fill")
+        t0 = t0 or t
     cfg, B = h.cfg, h.B
     plens, tlens = h.plens, h.tlens
     pen = h.attr0.penalties
@@ -755,7 +771,8 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
                 cfg, part_idx, h.pat_np, h.txt_np, plens, tlens, end_k,
                 end_off, ops_fwd, k_start, wildcard, capped=True))
     if _PROF:
-        t0 = _prof_add("f.native_fill", t0)
+        t0 = _prof_add("f.native_fill", t0, spans.end())
+        spans.begin("assemble")
     ev_a = end_off - end_k
     eh_a = end_off
     if scope_full:
@@ -775,7 +792,7 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
                    for b, sc, ev, eh, s in
                    zip(range(B), sc_a, ev_l, eh_l, final_s_l)]
         if _PROF:
-            _prof_add("f.assemble", t0)
+            _prof_add("f.assemble", t0, spans.end())
         return results[:h.B0]
 
     escalate_idx: List[int] = []
@@ -857,9 +874,11 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
                 oracle_fallbacks["inconsistent walk"] += 1
             oracle_idx.append(b)
     if _PROF:
-        t0 = _prof_add("f.assemble", t0)
+        t0 = _prof_add("f.assemble", t0, spans.end())
 
     if escalate_idx:
+        if _PROF:
+            spans.begin("escalate")
         # geometric escalation: 4x the score cap, band sized to match
         if h.attr0.system.verbose >= 3:
             print(f"[pywfa_tpu_torch::align] escalating "
@@ -887,16 +906,19 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
         for b, r in zip(escalate_idx, sub):
             results[b] = r
         if _PROF:
-            t0 = _prof_add("f.escalate", t0)
+            t0 = _prof_add("f.escalate", t0, spans.end(len(escalate_idx)))
     if oracle_idx:
+        if _PROF:
+            spans.begin("oracle")
         for b in oracle_idx:
             results[b] = _oracle_one(h.attr, h.patterns[b], h.texts[b],
                                      wildcard)
         if _PROF:
-            _prof_add("f.oracle", t0)
+            _prof_add("f.oracle", t0, spans.end())
     return results[:h.B0]  # type: ignore[return-value]
 
 
+@spans.traced("snapshot")
 def _snapshot(state: dict) -> dict:
     """A host copy of a segmented run's state (pinned and copied on the
     current stream when the state is on the card, so that it is taken
@@ -913,6 +935,7 @@ def _snapshot(state: dict) -> dict:
     return snap
 
 
+@spans.traced("restore")
 def _restore(snap: dict, dev: torch.device) -> dict:
     """A state on `dev` from its host copy; the copy stays as it is."""
     state = {"s": snap["s"]}
@@ -956,6 +979,7 @@ def _print_progress(cfg, B: int, s_now: int, state: dict,
           file=sys.stderr, flush=True)
 
 
+@spans.traced("segmented")
 def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
                        resume_state=None, resume_cfg=None, capture=None
                        ) -> List[BatchResult]:
@@ -1020,7 +1044,10 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
     next_probe = probe
     # host copies of the state at the starts of segments 1 .. n-1
     snaps = list(resume_snaps) if resume_snaps else []
+    prof = _PROF
     if resume_state is None:
+        if prof:
+            spans.begin("forward")
         out, state = E.align_batch_start(cfg, ext, plen, tlen, frees,
                                          max_steps)
     else:
@@ -1028,13 +1055,19 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
         # snapshot the boundary, so that the walk covers the new levels
         state = fused_loop.unpause_max_steps(_restore(resume_state, dev))
         snaps.append(_snapshot(state))
+        if prof:
+            spans.begin("forward")
         out, state = E.align_batch_resume(cfg, ext, plen, tlen, frees,
                                           max_steps, state)
     max_segments = (S_total + K - 2) // (K - 1) + 1
     snaps_bytes = 0
+    # a span "forward" a segment: its loop and the wait for its end
     for _ in range(max_segments):
         segmented_runs["segments"] += 1
-        if not _segments_pending(out):
+        pending = _segments_pending(out)
+        if prof:
+            spans.end()
+        if not pending:
             break
         snap = _snapshot(state)
         snaps.append(snap)
@@ -1045,8 +1078,13 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
             if verbose >= 4 or s_now >= next_probe:
                 next_probe = (s_now // probe + 1) * probe
                 _print_progress(cfg, B, s_now, state, snaps_bytes)
+        if prof:
+            spans.begin("forward")
         out, state = E.align_batch_resume(cfg, ext, plen, tlen, frees,
                                           max_steps, state)
+    else:
+        if prof:
+            spans.end()
     n_segments = len(snaps) + 1
 
     meta = torch.stack([out["status"], out["final_s"], out["end_k"],
@@ -1077,6 +1115,8 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
                                         device=dev)
                 continue
             segmented_runs["replays"] += 1
+            if prof:
+                spans.begin("replay")
             if i == 0:
                 blocks[i], carry = E.align_batch_start_walk(
                     cfg_rec, ext, plen, tlen, frees, max_steps, carry)
@@ -1084,10 +1124,16 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
                 blocks[i], carry = E.align_batch_replay_walk(
                     cfg_rec, ext, plen, tlen, frees, max_steps,
                     _restore(snaps[i - 1], dev), carry)
+            if prof:
+                spans.end()
+        if prof:
+            spans.begin("gather")
         # forward (ascending level) order
         ops_all = torch.cat(blocks, dim=1).cpu().numpy()
         k_start = carry[1].cpu().numpy()
         fb = (carry[4] | carry[3]).cpu().numpy()
+        if prof:
+            spans.end()
         n_ops = (ops_all != 0).sum(axis=1).astype(np.int32)
     return _assemble(h, status, final_s, end_k, end_off, n_ops, k_start, fb,
                      ops_all)

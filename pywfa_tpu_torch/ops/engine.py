@@ -34,6 +34,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..attributes import match_class_table
 from ..constants import DistanceMetric
 from . import fused_loop, lcp_table
@@ -57,6 +58,7 @@ def _byte_weights(device: torch.device) -> torch.Tensor:
                         device=device)
 
 
+@spans.traced("decode")
 def decode_fused(cfg: EngineConfig, fused: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split one [B, Wp+Wt] fused token array into (pat, txt) rows."""
@@ -64,6 +66,7 @@ def decode_fused(cfg: EngineConfig, fused: torch.Tensor
     return fused[:, :wp], fused[:, wp:]
 
 
+@spans.traced("decode")
 def decode_packed(cfg: EngineConfig, packed: torch.Tensor,
                   plen: torch.Tensor, tlen: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -266,7 +269,9 @@ def walk_segment(cfg: EngineConfig, choices: torch.Tensor, seg_base: int,
     stops at score 0 on the diagonal it reached, which is a WF0 seed
     (k != 0 on the ends-free span) and becomes its k_start, or at a seed
     of a later score. Returns (ops_fwd [B, K] uint8, carry); after the
-    bottom segment a pair still active has an inconsistent chain.
+    bottom segment a pair still active has an inconsistent chain. Under
+    the switch it is the span "walk", which carries its steps, and each
+    sync a span "sync" in it.
     """
     K, B, W = choices.shape
     dev = choices.device
@@ -279,11 +284,16 @@ def walk_segment(cfg: EngineConfig, choices: torch.Tensor, seg_base: int,
     row = torch.arange(B, dtype=torch.int64, device=dev)
     s, k, comp, act, fallback = carry
     ops = torch.zeros((B, K + 1), dtype=torch.uint8, device=dev)
+    prof = spans.on()
+    if prof:
+        spans.begin("walk")
+    # the sync: bool itself, or timed as a span under the switch
+    sync = spans.waited if prof else bool
     for it in range(n_iter):
         here = act & (s >= lowest) & (s < seg_base + K)
         # every 4 steps, stop once no pair walks here (one host sync); the
         # remaining steps would change nothing
-        if it and it % 4 == 0 and not bool(here.any()):
+        if it and it % 4 == 0 and not sync(here.any()):
             break
         kk = (k - cfg.kmin).long()
         lvl = (s.long() - seg_base).clamp(0, K - 1)
@@ -305,6 +315,10 @@ def walk_segment(cfg: EngineConfig, choices: torch.Tensor, seg_base: int,
         bad2 = move & (s < 0)
         fallback = fallback | bad | bad2
         act = act & ~stop & ~bad & ~bad2
+    else:
+        it = n_iter  # every step taken, no sync found the segment empty
+    if prof:
+        spans.end(it)
     return ops[:, :K], (s, k, comp, act, fallback)
 
 
@@ -339,6 +353,7 @@ def pack_full(cfg: EngineConfig, out: dict) -> torch.Tensor:
     return pack_walked(cfg, out, ok, walk)
 
 
+@spans.traced("pack")
 def pack_walked(cfg: EngineConfig, out: dict, ok: torch.Tensor,
                 walk: tuple) -> torch.Tensor:
     """Pack the loop's outputs and their walk (traceback_walk's tuple) into
@@ -409,6 +424,7 @@ def align_batch_fused_full(cfg: EngineConfig, fused, plen, tlen, frees,
                             plen, tlen, frees, max_steps))
 
 
+@spans.traced("pack")
 def pack_meta(out: dict) -> torch.Tensor:
     """Score-only scope: the [4, B] int32 meta block (status, final_s,
     end_k, end_off), decoded by batch.align_pairs_finish."""
@@ -466,6 +482,7 @@ def _extension_bytes(cfg: EngineConfig, B: int, Ltp: int, mode: str) -> int:
     return 0
 
 
+@spans.traced("extension")
 def build_extension(cfg: EngineConfig, pat: torch.Tensor, txt: torch.Tensor,
                     table: bool = True) -> dict:
     """The extension's input for a batch, by extend_mode (`table` as
@@ -512,6 +529,7 @@ def memory_estimate(cfg: EngineConfig, B: int, table: bool = True) -> dict:
                 sequences=seqs, total=ring + lohi + choices + ext + seqs)
 
 
+@spans.traced("loop")
 def _loop(cfg: EngineConfig, ext: dict, plen, tlen, frees, max_steps,
           **kw) -> dict:
     """The fused loop on the extension's input `ext` (build_extension)."""
