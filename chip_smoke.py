@@ -7,8 +7,9 @@ Phases (any failure raises and exits nonzero; nothing falls back):
 
 1. Device: the card's name and power limit from nvidia-smi, whether the
    native host library built and loaded; exits nonzero without CUDA.
-2. Build: compiles both CUDA sources side by side, the run-length table
-   (K3) and the fused-loop kernel (52 variants: 5 distance
+2. Build: compiles the three CUDA sources side by side, the walk's
+   kernel, the run-length table (K3) and the fused-loop kernel (52
+   variants: 5 distance
    metrics x 2 spans x 2 scopes, each with and without the heuristic
    cascade, plus the seeded ends-free span of the 3 metrics with a match
    weight, each built four ways: group, narrow, cluster and general) from
@@ -230,6 +231,16 @@ Phases (any failure raises and exits nonzero; nothing falls back):
 18. The PYWFA_PROF stage report of a stream of phase 4's eight 4096-pair
    batches, depth 3: each of the dispatch, pull and finish keys once a
    batch.
+19. The walk's kernel (csrc/walk.cu) against its plain twin on streams of
+   its own: every walk of three 4096-pair batches and a probe batch, a
+   WavefrontAligner call a metric on each span, a 1 kb batch run
+   segmented and a batch of the benchmark's ont10k cell (512 pairs of
+   10 kb from its generator, its aligner arguments: a one-shot rung, then
+   segmented replays) is walked by both and held to the byte; then the
+   kernel's time (a call by CUDA events, alone by torch.profiler, the
+   launch's host time, the plain loop's) at a 4096-pair walk, a call's and
+   the widest upper segment of each segmented batch; `engine.walk_runs`
+   printed, no walk of the plain loop.
 
 Each main-path phase zeroes the kernels' launch counts (by variant, by
 build and the group build's by G) and the count of pairs sent to the host
@@ -242,11 +253,12 @@ dry run (11) launched the group build and the sharded batch (12) the
 group build at G = 1 and K3, if a timed stream, an API phase or a CLI
 run (13) sent any pair to the oracle, or if any phase did so for an
 inconsistent walk; batch H (14) fails unless its routed run launched only
-the in-place compare and its words run only the words. Phases 15-18 fail
+the in-place compare and its words run only the words. Phases 15-19 fail
 on any mismatch, trap, or pair sent to the oracle for an inconsistent or
 a dropped walk; their launches are logged and stay out of the kernels
-line. The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.
+line, which fails unless the main paths walked with the kernel alone. The
+line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.
 """
 import collections
 import dataclasses
@@ -436,10 +448,11 @@ def reset_counts():
     of pairs sent to the host oracle, by reason, and the segmented
     executor's counts."""
     from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.ops import engine as TE
     from pywfa_tpu_torch.ops import fused_loop, lcp_table
     for counts in (fused_loop.variant_launches, fused_loop.build_launches,
                    fused_loop.group_launches, lcp_table.launches,
-                   PB.oracle_fallbacks, PB.segmented_runs):
+                   PB.oracle_fallbacks, PB.segmented_runs, TE.walk_runs):
         for k in counts:
             counts[k] = 0
 
@@ -447,13 +460,16 @@ def reset_counts():
 def read_counts():
     """The launch counts: the fused loop's by variant, under
     "build_<name>" by build and under "group_G<n>" the group build's by
-    G; the run-length table's."""
+    G; the run-length table's; the walk's kernel ("walk") and the walks
+    the plain loop ran ("walk_plain", 0 on the card)."""
+    from pywfa_tpu_torch.ops import engine as TE
     from pywfa_tpu_torch.ops import fused_loop, lcp_table
     builds = {"build_" + k: v for k, v in fused_loop.build_launches.items()}
     groups = {f"group_G{g}": v
               for g, v in sorted(fused_loop.group_launches.items()) if v}
     return dict(fused_loop.variant_launches, **lcp_table.launches, **builds,
-                **groups)
+                **groups, walk=TE.walk_runs["kernel"],
+                walk_plain=TE.walk_runs["plain"])
 
 
 def group_counts(counts):
@@ -699,7 +715,9 @@ def ptxas_lines(lib, output):
         m = re.search(r"fused_loop(_[a-z]+)?ILi(\d)ELi(\d)ELb([01])ELb([01])E",
                       line)
         t = re.search(r"lcp_tableI(\w)Li(\d)ELb([01])ELb([01])E", line)
-        if m and "Compiling" in line:
+        if lib == "walk" and "Compiling" in line:
+            name = ""
+        elif m and "Compiling" in line:
             name = "{}<{}, {}, {}, {}>".format(m.group(1) or "",
                                                *m.groups()[1:])
         elif t and "Compiling" in line:
@@ -720,7 +738,7 @@ def phase_build():
     paths = cuda_build.build()
     for name in paths:
         cuda_build.load(name)
-    log(f"build: {time.perf_counter() - t0:.2f} s, both sources side by "
+    log(f"build: {time.perf_counter() - t0:.2f} s, every source side by "
         f"side ({', '.join(sorted(paths.values()))})")
     for lib, (seconds, output) in sorted(cuda_build.last_build.items()):
         log(f"  nvcc {lib}.cu: done after {seconds:.2f} s")
@@ -3540,6 +3558,174 @@ def phase_stage_report(dev, long_inputs):
         raise AssertionError(f"stage report: {counts}")
 
 
+def walk_times(label, cfg, choices, seg_base, carry):
+    """The walk's kernel at one segment's inputs: the call by CUDA events,
+    the kernel alone by torch.profiler, the launch's host time, the most
+    steps a pair took (the traced walk's count), and the plain loop's call
+    by CUDA events; logs one line and returns the record."""
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch import spans
+    from pywfa_tpu_torch.ops import engine as TE
+
+    def kernel():
+        return TE.walk_segment(cfg, choices, seg_base, carry)
+
+    K, B, W = choices.shape
+    rec = {"label": label, "K": K, "B": B, "W": W, "seg_base": seg_base,
+           "n_comp": cfg.n_comp, "call_ms": cuda_ms(kernel, 50),
+           "ms": kernel_only_ms(kernel, reps=5, name="walk"),
+           "host_ms": host_ms(kernel, 50),
+           "plain_ms": cuda_ms(lambda: TE.walk_segment_ref(
+               cfg, choices, seg_base, carry), 3)}
+    prof = PB._PROF
+    PB._PROF = True
+    try:
+        kernel()
+    finally:
+        PB._PROF = prof
+    rec["steps"] = next(e[5] for e in reversed(spans.log) if e[1] == "walk")
+    log(f"walk kernel [{label}]: K={K} B={B} W={W} seg_base={seg_base}, "
+        f"{rec['steps']} steps at most: call {rec['call_ms']:.4f} ms, alone "
+        f"{_fmt(rec['ms'])} ms, launch on the host {rec['host_ms']:.4f} ms; "
+        f"plain loop {rec['plain_ms']:.3f} ms")
+    return rec
+
+
+def phase_walk(dev):
+    """19. The walk's kernel (csrc/walk.cu) against its plain twin,
+    ops/engine.walk_segment_ref, on the smoke's streams: while the phase
+    runs, every walk_segment call launches the kernel and runs the plain
+    loop on the same inputs, and the two must agree to the byte (the ops
+    and the five carry fields). The streams: three 4096-pair batches of
+    the main stream and the probe batch (one-shot walks at every rung), a
+    WavefrontAligner call a metric on each span, a batch of 1 kb pairs run
+    segmented (upper segments, their level 0 an alias of the segment
+    below), and a batch of the benchmark's ont10k cell: 512 pairs of 10 kb
+    from wfabench's generator under the cell's aligner arguments, which
+    escalate from a one-shot rung to segmented replays (the cell's upper
+    segments, B = 512 and W = 6784 on the card). Then the
+    kernel's times (walk_times) at the first 4096-pair walk, at the first
+    call's and at the widest upper segment of each segmented batch. Fails
+    on a mismatch, on a walk of the plain loop (engine.walk_runs["plain"])
+    or on a fault fallback. Returns the records by label: "150 bp batch",
+    "a call", "1 kb replay", "10 kb replay"."""
+    import os
+
+    import pywfa_tpu_torch
+    from pywfa_tpu_torch import BatchWavefrontAligner
+    from pywfa_tpu_torch import batch as PB
+    from pywfa_tpu_torch.ops import engine as TE
+    from wfabench import program as bench_program
+    from wfabench import reads as bench_reads
+    kernel = TE.walk_segment
+    held = collections.Counter()
+    shapes = collections.Counter()
+    keep = {}
+
+    def checked(cfg, choices, seg_base, carry):
+        ops, out = kernel(cfg, choices, seg_base, carry)
+        wops, want = TE.walk_segment_ref(cfg, choices, seg_base, carry)
+        if not (torch.equal(ops, wops)
+                and all(torch.equal(a, b) for a, b in zip(out, want))):
+            raise AssertionError(
+                f"walk kernel against plain: K, B, W = "
+                f"{tuple(choices.shape)}, seg_base {seg_base}, "
+                f"{cfg.n_comp} components: differ")
+        held["upper" if seg_base else "bottom"] += 1
+        shapes[(stage[0], "upper" if seg_base else "bottom")
+               + tuple(choices.shape)] += 1
+        # the inputs timed: the first walk of a 4096-pair batch and of a
+        # call, the widest upper segment of each segmented batch
+        label = {"stream": "150 bp batch" if choices.shape[1] == B_MAIN
+                 else None, "call": "a call"}.get(stage[0], stage[0])
+        if seg_base:
+            size = choices.shape[1] * choices.shape[2]
+            if label in keep and size < keep[label][0]:
+                label = None
+        elif label in keep or stage[0] in ("1 kb replay", "10 kb replay"):
+            label = None
+        if label:
+            keep[label] = (choices.shape[1] * choices.shape[2],
+                           (cfg, choices, seg_base, carry))
+        return ops, out
+
+    stage = ["stream"]
+    reset_counts()
+    TE.walk_segment = checked
+    t0 = time.perf_counter()
+    try:
+        rng = np.random.default_rng(SEED + 19)
+        batches = [make_pairs(rng, B_MAIN, L, DIV) for _ in range(3)]
+        aligner = BatchWavefrontAligner(distance="affine", span="end-to-end",
+                                        device=dev)
+        n = sum(len(r) for r in aligner.align_stream(
+            iter(batches + [make_probe(rng)]), depth=3))
+        p, q = make_pairs(rng, 1, L, 0.05)
+        p, q = p[0].decode(), mutate(rng, q[0], 0.0, 0.04).decode()
+        stage[0] = "call"
+        for metric in ("affine", "affine2p", "linear", "levenshtein",
+                       "indel"):
+            for kw in ({"span": "end-to-end"},
+                       {"span": "ends-free", "pattern_begin_free": 8,
+                        "pattern_end_free": 8, "text_begin_free": 20,
+                        "text_end_free": 20}):
+                pywfa_tpu_torch.WavefrontAligner(
+                    distance=metric, device=dev, **kw)(q, p)
+                n += 1
+        cap = PB.CHOICES_BYTES_CAP
+        PB.CHOICES_BYTES_CAP = 2**21
+        try:
+            pats = [bytes(np.frombuffer(b"ACGT", np.uint8)[
+                rng.integers(0, 4, 1000)]) for _ in range(24)]
+            txts = [mutate(rng, x, 0.03, 0.03) for x in pats]
+            runs = PB.segmented_runs["runs"]
+            stage[0] = "1 kb replay"
+            n += len(BatchWavefrontAligner(span="end-to-end", device=dev)
+                     .align(pats, txts))
+            if PB.segmented_runs["runs"] == runs:
+                raise AssertionError("the 1 kb batch did not run segmented")
+        finally:
+            PB.CHOICES_BYTES_CAP = cap
+        # a batch of the ont10k cell, made and aligned as the benchmark's
+        # ont10k-full-stream cell does
+        bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "wfabench")
+        with open(os.path.join(bench, "configs", "ont10k.json")) as f:
+            config = json.load(f)
+        with open(os.path.join(bench, "traffic", "full-stream.json")) as f:
+            traffic = json.load(f)
+        pats, txts = bench_reads.make_pairs(config["reads"],
+                                            config["batch_pairs"], rng)
+        runs = PB.segmented_runs["runs"]
+        stage[0] = "10 kb replay"
+        res = BatchWavefrontAligner(
+            device=dev, **bench_program.aligner_kwargs(config, traffic)
+        ).align(pats, txts)
+        n += len(res)
+        if PB.segmented_runs["runs"] == runs or any(r.status for r in res):
+            raise AssertionError("the ont10k batch must run segmented and "
+                                 "reach every end")
+        torch.cuda.synchronize()
+    finally:
+        TE.walk_segment = kernel
+    log(f"walk kernel against plain: {n} pairs, {dict(held)} walks held "
+        f"equal to the byte, {time.perf_counter() - t0:.1f} s; walk_runs "
+        f"{dict(TE.walk_runs)}; segmented {dict(PB.segmented_runs)}")
+    log("walks held by (stage, segment, K, B, W): "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(shapes.items())))
+    _fault_fallbacks("walk")
+    if TE.walk_runs["plain"] or not held["upper"] or not held["bottom"]:
+        raise AssertionError(f"the walk phase must run the kernel alone, "
+                             f"on bottom and upper segments: "
+                             f"{dict(TE.walk_runs)}, {dict(held)}")
+    ont = [k for k in shapes if k[:2] == ("10 kb replay", "upper")]
+    if not ont or max(k[3] for k in ont) != config["batch_pairs"]:
+        raise AssertionError(f"no upper segment of the ont10k batch held: "
+                             f"{sorted(shapes)}")
+    return {label: walk_times(label, *args)
+            for label, (_, args) in sorted(keep.items())}
+
+
 def main():
     phase_device()
     dev = torch.device("cuda", 0)
@@ -3588,6 +3774,9 @@ def run_phases(dev, attr, long_inputs):
         phase(dev, long_inputs)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     log(f"phases 15-18: {time.perf_counter() - t_tools:.1f} s")
+    t0 = time.perf_counter()
+    walk_records = phase_walk(dev)
+    log(f"phase_walk: {time.perf_counter() - t0:.1f} s")
     log(f"profiler sessions: {dict(PROFILER_SESSIONS)} (short: fewer "
         "launches of the timed kernel recorded than made; the kernel's "
         "time is then the mean of the launches recorded)")
@@ -3596,14 +3785,15 @@ def run_phases(dev, attr, long_inputs):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(nvidia_smi)
-    log(json.dumps({"kernels": kernel_records(records, launches)}))
+    log(json.dumps({"kernels": kernel_records(records, launches,
+                                               walk_records)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
-def kernel_records(records, launches):
+def kernel_records(records, launches, walk_records):
     """One entry a kernel variant for the JSON line: its launches on the
     main paths, and the error, times and bound of the largest shape it was
     held at against its plain version (for the in-place compare, the
@@ -3690,6 +3880,25 @@ def kernel_records(records, launches):
             "library_ms": None, "call_ms": timed["ms"],
             "ms_is": "call" if alone is None else "kernel",
             "build": timed.get("build", "general"), "G": timed.get("G")})
+    # the walk replaces no TPU kernel (the reference walks with XLA ops);
+    # it is bound by latency, a step a dependent load, so its bound is
+    # given as the steps of its longest pair; timed at the widest upper
+    # segment of the ont10k cell's batch
+    if launches["walk"] == 0 or launches["walk_plain"]:
+        raise AssertionError("the main paths must walk with the kernel "
+                             f"alone: {launches['walk']} launches, "
+                             f"{launches['walk_plain']} plain walks")
+    timed = walk_records["10 kb replay"]
+    kernels.append({
+        "name": "walk", "route": "cuda",
+        "source": "pywfa_tpu_torch/csrc/walk.cu",
+        "replaces": "pywfa_tpu/ops/engine.py:traceback_walk (XLA ops)",
+        "launches": launches["walk"], "max_abs_err": 0,
+        "ms": timed["call_ms"] if timed["ms"] is None else timed["ms"],
+        "plain_ms": timed["plain_ms"], "bound_ms": None,
+        "bound_by": f"latency: {timed['steps']} dependent loads a pair",
+        "library_ms": None, "call_ms": timed["call_ms"],
+        "ms_is": "call" if timed["ms"] is None else "kernel"})
     return kernels
 
 

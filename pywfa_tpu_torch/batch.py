@@ -122,14 +122,14 @@ segmented_runs = {"runs": 0, "segments": 0, "replays": 0}
 # d.push_enqueue (align_pairs_dispatch), p.pull_wait (align_pairs_pull),
 # f.pull, f.native_fill, f.assemble, f.escalate, f.oracle
 # (align_pairs_finish and _assemble). The walk runs inside the device
-# pipeline's call on both packages (here ops/engine.walk_segment's host
-# loop, there inside the one compiled program), so it lands in
-# d.push_enqueue, as do decode, eq-bits, the fused loop and the pack. A
-# segmented run's own assembly (_align_pairs_remat -> _assemble) records
-# the f.* keys too, where the reference's records none. The same switch
-# turns on the port's span tree (spans.py), which splits these intervals
-# by layer, down to the walk's syncs, with self times; where a key and a
-# span share an end, the key takes the span's clock reading.
+# pipeline's call on both packages (here ops/engine.walk_segment, one
+# kernel launch on the card, there inside the one compiled program), so it
+# lands in d.push_enqueue, as do decode, eq-bits, the fused loop and the
+# pack. A segmented run's own assembly (_align_pairs_remat -> _assemble)
+# records the f.* keys too, where the reference's records none. The same
+# switch turns on the port's span tree (spans.py), which splits these
+# intervals by layer, down to the walk's syncs, with self times; where a
+# key and a span share an end, the key takes the span's clock reading.
 _PROF = os.environ.get("PYWFA_PROF", "") not in ("", "0")
 PROF = collections.defaultdict(float)
 PROF_N = collections.defaultdict(int)

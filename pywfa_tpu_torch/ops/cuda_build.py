@@ -1,13 +1,13 @@
 """Build and bind the hand-written CUDA kernels.
 
-`nvcc` compiles each source of `csrc/` (`fused_loop.cu`, `lcp_table.cu`)
-into a shared library of its own with a plain C interface, loaded with
-ctypes. The libraries land in `build/pywfa_tpu_torch/` at the repository
-root, each named by the hash of its source and flags, so they are built at
-first use and again whenever a source changes; deleting that directory
-forces a rebuild. The first use of any kernel builds every source that is
-not built yet, one `nvcc` a source, all started together. Nothing here
-runs at import.
+`nvcc` compiles each source of `csrc/` (`fused_loop.cu`, `lcp_table.cu`,
+`walk.cu`) into a shared library of its own with a plain C interface,
+loaded with ctypes. The libraries land in `build/pywfa_tpu_torch/` at the
+repository root, each named by the hash of its source and flags, so they
+are built at first use and again whenever a source changes; deleting that
+directory forces a rebuild. The first use of any kernel builds every
+source that is not built yet, one `nvcc` a source, all started together.
+Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
-           for name in ("fused_loop", "lcp_table")}
+           for name in ("fused_loop", "lcp_table", "walk")}
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pywfa_tpu_torch")
 # --split-compile=0: the fused loop's instantiations are optimised on every
 # host core at once instead of one after another
@@ -106,9 +106,13 @@ def load(name: str = "fused_loop") -> ctypes.CDLL:
             lib.wfa_fused_loop.restype = ci
             lib.wfa_fused_loop_active_clusters.argtypes = []
             lib.wfa_fused_loop_active_clusters.restype = ci
-        else:
+        elif name == "lcp_table":
             lib.wfa_lcp_table.argtypes = [vp] * 3 + [ci] * 11 + [vp]
             lib.wfa_lcp_table.restype = ci
+        else:
+            lib.wfa_walk.argtypes = ([vp] * 3 + [ci] + [vp] * 12 + [ci] * 6
+                                     + [vp])
+            lib.wfa_walk.restype = ci
         lib.wfa_cuda_error_string.argtypes = [ci]
         lib.wfa_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

@@ -10,7 +10,9 @@ names under the reference's score-only spelling), and `align_batch`, the
 loop alone from token rows, unpacked (what the mesh runs on each shard,
 `parallel/mesh.py`). Every function
 is device-agnostic: it runs where its input tensors live, CPU or CUDA.
-Only the walk synchronises with the device, to end early.
+On CUDA tensors the traceback walk is one launch of a hand-written kernel
+a segment (`csrc/walk.cu`); elsewhere it is the plain loop, which alone
+synchronises with the device, to end early.
 
 The segmented (rematerialized) run of the long-read path is here too, the
 twin of the reference's `align_batch_start` / `align_batch_resume` /
@@ -181,6 +183,10 @@ def _walk_tables(cfg: EngineConfig, device: torch.device) -> dict:
     2-piece metric, whose M block follows the I2/D2 sources and whose
     bytes carry their extend bits 5-6. Sources a metric never writes take
     the last branch of the reference's where-chain.
+
+    "word" packs each entry but its ds into one int32 for the walk's
+    kernel (`csrc/walk.cu`), which reads ds beside it: emit in bits 0-7,
+    kind in 8-9, next in 10-12 and dk + 1 in 13-14.
     """
     ch = np.arange(256, dtype=np.int64)
     msrc = ch & 7
@@ -229,15 +235,16 @@ def _walk_tables(cfg: EngineConfig, device: torch.device) -> dict:
             rows.append((np.full(256, op), np.where(ext, e, oe),
                          np.full(256, dk), np.where(ext, comp, M),
                          np.zeros(256, np.int64)))
-    cols = list(zip(*rows))
+    emit, ds, dk, nxt, kind = (np.concatenate(c).astype(np.int64)
+                               for c in zip(*rows))
+    word = emit | kind << 8 | nxt << 10 | (dk + 1) << 13
 
-    def t(i, dtype):
-        return torch.tensor(np.concatenate(cols[i]), dtype=dtype,
-                            device=device)
+    def t(col, dtype):
+        return torch.tensor(col, dtype=dtype, device=device)
 
-    return dict(emit=t(0, torch.uint8), ds=t(1, torch.int32),
-                dk=t(2, torch.int32), next=t(3, torch.int32),
-                kind=t(4, torch.int32))
+    return dict(emit=t(emit, torch.uint8), ds=t(ds, torch.int32),
+                dk=t(dk, torch.int32), next=t(nxt, torch.int32),
+                kind=t(kind, torch.int32), word=t(word, torch.int32))
 
 
 def walk_carry_init(final_s: torch.Tensor, end_k: torch.Tensor,
@@ -251,10 +258,73 @@ def walk_carry_init(final_s: torch.Tensor, end_k: torch.Tensor,
             torch.zeros(B, dtype=torch.bool, device=dev))
 
 
+# the walks walk_segment ran, by path: one launch of the kernel on CUDA
+# tensors, the plain loop (walk_segment_ref) elsewhere
+walk_runs = {"kernel": 0, "plain": 0}
+
+
+def _walk_iters(cfg: EngineConfig, K: int) -> int:
+    """The most steps a pair takes in a segment of K levels: every step
+    lowers s by at least the metric's smallest score distance."""
+    min_step = min(d for d in fused_loop.score_distances(cfg) if d > 0)
+    return (K - 1) // min_step + 2
+
+
 def walk_segment(cfg: EngineConfig, choices: torch.Tensor, seg_base: int,
                  carry: tuple):
     """Walk one segment's choice block backwards, from where the segment
-    above left each pair.
+    above left each pair: on CUDA tensors one launch of the kernel in
+    `csrc/walk.cu`, elsewhere walk_segment_ref, the plain loop; both give
+    the same bytes (the step is described there). Returns (ops_fwd [B, K]
+    uint8, carry), a new carry. Under the switch it is the span "walk",
+    which carries its steps; on the kernel path those are the most steps a
+    pair took, read by one sync at its end (a span "sync"), and without
+    the switch nothing waits for the device."""
+    if choices.device.type != "cuda":
+        walk_runs["plain"] += 1
+        return walk_segment_ref(cfg, choices, seg_base, carry)
+    K, B, W = choices.shape
+    dev = choices.device
+    carry = tuple(x.contiguous() for x in carry)
+    if (choices.dtype != torch.uint8 or not choices.is_contiguous()
+            or [x.dtype for x in carry] != [torch.int32] * 3
+            + [torch.bool] * 2):
+        raise ValueError("the kernel walks contiguous uint8 choices from "
+                         "an (s, k, comp) int32, (act, fallback) bool carry")
+    tb = _walk_tables(cfg, dev)
+    from . import cuda_build
+    lib = cuda_build.load("walk")
+    ops = torch.empty((B, K), dtype=torch.uint8, device=dev)
+    out = tuple(torch.empty_like(x) for x in carry)
+    prof = spans.on()
+    if prof:
+        spans.begin("walk")
+        steps = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wfa_walk(
+            choices.data_ptr(), tb["word"].data_ptr(), tb["ds"].data_ptr(),
+            tb["word"].numel(), *(x.data_ptr() for x in carry),
+            *(x.data_ptr() for x in out), ops.data_ptr(),
+            steps.data_ptr() if prof else None, K, B, W, cfg.kmin, seg_base,
+            _walk_iters(cfg, K), stream)
+    if rc != 0:
+        raise RuntimeError("walk kernel launch failed: "
+                           + cuda_build.error_string(rc, "walk"))
+    walk_runs["kernel"] += 1
+    if prof:
+        spans.begin("sync")
+        most = int(steps)
+        spans.end()
+        spans.end(most)
+    return ops, out
+
+
+def walk_segment_ref(cfg: EngineConfig, choices: torch.Tensor,
+                     seg_base: int, carry: tuple):
+    """Walk one segment's choice block backwards, from where the segment
+    above left each pair: the plain version of walk_segment, a host loop
+    of torch ops, and its CPU path.
 
     choices [K, B, W] holds the levels of the scores
     [seg_base, seg_base + K); level 0 of a segment that is not the bottom
@@ -276,9 +346,7 @@ def walk_segment(cfg: EngineConfig, choices: torch.Tensor, seg_base: int,
     K, B, W = choices.shape
     dev = choices.device
     tb = _walk_tables(cfg, dev)
-    # the least score a step goes back: the metric's smallest distance
-    min_step = min(d for d in fused_loop.score_distances(cfg) if d > 0)
-    n_iter = (K - 1) // min_step + 2
+    n_iter = _walk_iters(cfg, K)
     lowest = seg_base + 1 if seg_base > 0 else 0
     flat = choices.reshape(-1)
     row = torch.arange(B, dtype=torch.int64, device=dev)
