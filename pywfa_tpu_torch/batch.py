@@ -918,37 +918,80 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
     return results[:h.B0]  # type: ignore[return-value]
 
 
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of `t`: pinned and copied on the current stream when
+    `t` is on the card, so that it is taken before the next segment
+    changes the state in place."""
+    if t.device.type != "cuda":
+        return t.clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 @spans.traced("snapshot")
-def _snapshot(state: dict) -> dict:
-    """A host copy of a segmented run's state (pinned and copied on the
-    current stream when the state is on the card, so that it is taken
-    before the next segment changes the state in place)."""
-    snap = {"s": state["s"]}
-    for key in ("ring", "lohi", "carry"):
-        t = state[key]
-        if t.device.type == "cuda":
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            snap[key] = host
-        else:
-            snap[key] = t.clone()
-    return snap
+def _snapshot(state: dict, rows: Optional[np.ndarray] = None) -> dict:
+    """A host copy of a segmented run's state.
+
+    `rows`: the pairs still running (sorted indices), the only pairs whose
+    ring rows are kept: every later segment returns for a done pair before
+    it loads its ring, and so does every replay from this boundary. The
+    snapshot's "rows" holds them (None: the ring is whole, as when every
+    pair runs or `rows` is not given). `lohi` and `carry` stay whole."""
+    ring, kept = state["ring"], None
+    if _PROF:
+        spans.begin("compact")
+    if rows is not None and len(rows) < ring.shape[0]:
+        # pinned, so that no copy of it waits for the stream
+        kept = torch.from_numpy(rows)
+        if ring.device.type == "cuda":
+            kept = kept.pin_memory()
+        ring = ring.index_select(0, kept.to(ring.device, non_blocking=True))
+    if _PROF:
+        spans.end(ring.shape[0])
+    return {"s": state["s"], "rows": kept, "ring": _to_host(ring),
+            "lohi": _to_host(state["lohi"]),
+            "carry": _to_host(state["carry"])}
 
 
 @spans.traced("restore")
-def _restore(snap: dict, dev: torch.device) -> dict:
-    """A state on `dev` from its host copy; the copy stays as it is."""
-    state = {"s": snap["s"]}
-    for key in ("ring", "lohi", "carry"):
-        state[key] = (snap[key].clone() if dev.type == "cpu"
-                      else snap[key].to(dev, non_blocking=True))
-    return state
+def _restore(snap: dict, dev: torch.device,
+             into: Optional[dict] = None) -> dict:
+    """A state on `dev` from its host copy; the copy stays as it is.
+
+    `into`: a state of the same shapes on `dev` whose buffers take the
+    copy in place (else new ones). A pair the snapshot left out gets a
+    NULL ring, as in a new state; its carry says it is done, so no segment
+    reads it."""
+    rows = snap["rows"]
+    if into is None:
+        B = snap["carry"].shape[0]
+        into = {"ring": torch.empty((B, *snap["ring"].shape[1:]),
+                                    dtype=snap["ring"].dtype, device=dev),
+                "lohi": torch.empty_like(snap["lohi"], device=dev),
+                "carry": torch.empty_like(snap["carry"], device=dev)}
+    ring = into["ring"]
+    if rows is None:
+        ring.copy_(snap["ring"], non_blocking=True)
+    else:
+        kept = snap["ring"].to(dev, non_blocking=True)
+    if _PROF:
+        spans.begin("expand")
+    if rows is not None:
+        ring.fill_(C.NULL)
+        ring.index_copy_(0, rows.to(dev, non_blocking=True), kept)
+    if _PROF:
+        spans.end(ring.shape[0] if rows is None else len(rows))
+    for key in ("lohi", "carry"):
+        into[key].copy_(snap[key], non_blocking=True)
+    return {"s": snap["s"], "ring": ring, "lohi": into["lohi"],
+            "carry": into["carry"]}
 
 
-def _segments_pending(out: dict) -> bool:
-    """Whether any pair is still running at the segment's end; waits for
-    the segment (the one sync of a forward segment)."""
-    return bool((out["status"] == C.ST_OVERFLOW_S).any())
+def _running_pairs(out: dict) -> np.ndarray:
+    """The pairs still running at the segment's end (sorted indices);
+    waits for the segment (the one sync of a forward segment)."""
+    return np.flatnonzero((out["status"] == C.ST_OVERFLOW_S).cpu().numpy())
 
 
 def _print_progress(cfg, B: int, s_now: int, state: dict,
@@ -988,12 +1031,14 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
 
     The forward score loop runs in segments of K scores WITHOUT the choice
     record; only the state at each segment boundary is copied to host
-    memory. The traceback then runs the segments again from the top one
-    down, each from its boundary state with its record on the device, and
-    walks it at once (engine.align_batch_replay_walk): the record never
-    leaves the device. Memory: the device holds the ring and ONE
-    K x B x W block; the host one state a segment. Twice the forward
-    compute buys a record of bounded size.
+    memory, with the ring rows of the pairs still running there alone. The
+    traceback then runs the segments again from the top one down, each
+    from its boundary state (restored into the same device buffers) with
+    its record on the device, and walks it at once
+    (engine.align_batch_replay_walk): the record never leaves the device.
+    Memory: the device holds the ring and ONE K x B x W block; the host
+    one state a segment. Twice the forward compute buys a record of
+    bounded size.
 
     The band stays at this rung's width: pairs that outgrow it report
     ST_OVERFLOW_W and run again with a 4x wider band.
@@ -1054,7 +1099,8 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
         # the continuation of a pause: un-pause the retained state and
         # snapshot the boundary, so that the walk covers the new levels
         state = fused_loop.unpause_max_steps(_restore(resume_state, dev))
-        snaps.append(_snapshot(state))
+        done = state["carry"][:, fused_loop.CARRY.index("done")]
+        snaps.append(_snapshot(state, np.flatnonzero(done.cpu().numpy() == 0)))
         if prof:
             spans.begin("forward")
         out, state = E.align_batch_resume(cfg, ext, plen, tlen, frees,
@@ -1064,15 +1110,15 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
     # a span "forward" a segment: its loop and the wait for its end
     for _ in range(max_segments):
         segmented_runs["segments"] += 1
-        pending = _segments_pending(out)
+        running = _running_pairs(out)
         if prof:
             spans.end()
-        if not pending:
+        if not running.size:
             break
-        snap = _snapshot(state)
+        snap = _snapshot(state, running)
         snaps.append(snap)
-        snaps_bytes += sum(snap[k].numel() * 4
-                           for k in ("ring", "lohi", "carry"))
+        snaps_bytes += sum(t.nbytes for t in snap.values()
+                           if isinstance(t, torch.Tensor))
         if verbose >= 3:
             s_now = snap["s"]
             if verbose >= 4 or s_now >= next_probe:
@@ -1118,12 +1164,17 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
             if prof:
                 spans.begin("replay")
             if i == 0:
+                # a new state: the forward pass's goes back to the
+                # allocator first
+                state = None
                 blocks[i], carry = E.align_batch_start_walk(
                     cfg_rec, ext, plen, tlen, frees, max_steps, carry)
             else:
+                # into the forward pass's buffers: the replays hold one
+                # state on the device
                 blocks[i], carry = E.align_batch_replay_walk(
                     cfg_rec, ext, plen, tlen, frees, max_steps,
-                    _restore(snaps[i - 1], dev), carry)
+                    _restore(snaps[i - 1], dev, into=state), carry)
             if prof:
                 spans.end()
         if prof:

@@ -17,6 +17,7 @@ without the suite's conftest:
 Every comparison is of integers and byte-exact (tolerance zero).
 """
 import dataclasses
+import gc
 import random
 
 import numpy as np
@@ -1207,6 +1208,56 @@ def test_resume_on_cuda_equals_fresh(dev):
     assert [(r.status, r.score, r.ops) for r in res] == [
         (r.status, r.score, r.ops) for r in fresh]
 
+
+
+def test_compact_snapshots_on_cuda_match_the_cpu(dev, monkeypatch):
+    """16 pairs of 100-600 bp in segments of 64 scores: the boundaries'
+    snapshots keep the ring rows of the pairs still running (some fewer
+    than all), the results are byte-equal to the same run on the CPU, and
+    the peak of device memory is no higher than with every ring row
+    copied, nor than with every restore into new buffers."""
+    monkeypatch.setattr(PB, "CHOICES_BYTES_CAP", 1)
+    monkeypatch.setattr(PB, "REPLAY_CHOICES_BYTES", 1)
+    pairs = random_pairs(78, 16, 100, 600, 0.04, 0.03, as_bytes=True)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    attr = RefAligner(backend="numpy", span="end-to-end")._attributes()
+    snapshot, restore = PB._snapshot, PB._restore
+    snaps = []
+
+    def spy(state, rows=None):
+        snaps.append(snapshot(state, rows))
+        return snaps[-1]
+
+    def run():
+        # the run's own rise over what the earlier tests left allocated
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        res = PB.align_pairs(attr, pats, txts, device=dev)
+        torch.cuda.synchronize(dev)
+        return res, torch.cuda.max_memory_allocated(dev) - base
+
+    monkeypatch.setattr(PB, "_snapshot", spy)
+    run()  # the first run's lazily built tables stay out of the peaks
+    del snaps[:]
+    got, peak = run()
+    assert snaps and any(sn["ring"].shape[0] < sn["carry"].shape[0]
+                         for sn in snaps)
+    monkeypatch.setattr(PB, "_snapshot",
+                        lambda state, rows=None: snapshot(state))
+    whole, peak_whole = run()
+    monkeypatch.setattr(PB, "_restore",
+                        lambda snap, d, into=None: restore(snap, d))
+    _, peak_new_buffers = run()
+    monkeypatch.setattr(PB, "_snapshot", spy)
+    monkeypatch.setattr(PB, "_restore", restore)
+    cpu = PB.align_pairs(attr, pats, txts, device="cpu")
+    key = lambda r: (r.status, r.score, r.ops, r.end_v, r.end_h)
+    assert list(map(key, got)) == list(map(key, cpu))
+    assert list(map(key, whole)) == list(map(key, cpu))
+    assert peak <= peak_whole and peak <= peak_new_buffers
 
 @pytest.mark.parametrize("n", [1000, 5000])
 @pytest.mark.parametrize("scope", ["full", "score"])

@@ -109,3 +109,34 @@ def test_aligner_resume_stays_on_the_oracle():
     b = WavefrontAligner(ps[0].decode(), span="end-to-end", backend="numpy")
     assert score == b.wavefront_align(ts[0].decode())
     assert a.cigarstring == b.cigarstring
+
+
+def test_resume_after_pairs_finished_before_the_pause(monkeypatch):
+    """Segments of 64 scores; two pairs finish in the first segment and
+    four pause at 150, past two boundaries: the boundaries' snapshots keep
+    the running pairs alone, the pause keeps every pair, and the batch
+    resumes, through a second pause, to the results of a fresh run."""
+    monkeypatch.setattr(PB, "CHOICES_BYTES_CAP", 1)
+    monkeypatch.setattr(PB, "REPLAY_CHOICES_BYTES", 1)
+    ps, ts = _mk_pairs(4, 200, 70, seed=12)
+    easy_p, easy_t = _mk_pairs(2, 200, 3, seed=13)
+    ps, ts = easy_p + ps, easy_t + ts
+    _, small = _attr(max_steps=150)
+    res, paused = PB.align_pairs_resumable(small, ps, ts, device="cpu")
+    assert paused is not None
+    assert [r.status for r in res[:2]] == [0, 0]
+    assert all(r.status == STATUS_MAX_STEPS_REACHED for r in res[2:])
+    B = paused.state["carry"].shape[0]
+    assert paused.state["rows"] is None
+    assert paused.state["ring"].shape[0] == B
+    assert len(paused.snaps) >= 2
+    assert all(sn["rows"] is not None and sn["rows"].tolist() == [2, 3, 4, 5]
+               for sn in paused.snaps)
+    res, paused = PB.align_pairs_resume(paused, 200)
+    assert paused is not None
+    assert paused.snaps[-1]["rows"] is not None
+    res, paused = PB.align_pairs_resume(paused, 100_000)
+    assert paused is None
+    _, full = _attr()
+    fresh = PB.align_pairs(full, ps, ts, device="cpu")
+    assert list(map(_key, res)) == list(map(_key, fresh))

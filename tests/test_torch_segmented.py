@@ -9,8 +9,10 @@ Status, score and CIGAR (and where it says so every field) are equal.
 The two calibration tests of `tests/test_segmented.py` have no twin: see
 `tests/test_torch_long_reads.py`.
 """
+import collections
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -181,3 +183,90 @@ def test_progress_lines_at_segment_boundaries(monkeypatch, capsys):
     err = capsys.readouterr().err
     assert "[pywfa_tpu_torch::align] Score 63 " in err
     assert "running" in err and "host-snapshots" in err
+
+
+@pytest.mark.parametrize("mode", ["high", "medium", "low", "biwfa"])
+def test_snapshots_keep_the_running_pairs_alone(monkeypatch, mode):
+    """Caps forced to one byte under each memory mode: each boundary's
+    snapshot keeps the ring rows of the pairs still running there and no
+    others (the padded batch's pairs are done at once), its `compact`
+    span counts them, each replay's `expand` span puts as many back, and
+    the results are those of one shot and of the reference."""
+    from pywfa_tpu_torch import spans
+    bp, bt = _segmented_case()
+    ref, _ = _attr(span="end-to-end")
+    attr = pywfa_tpu_torch.WavefrontAligner(
+        backend="numpy", span="end-to-end", memory_mode=mode)._attributes()
+    one = PB.align_pairs(attr, bp, bt, device="cpu")
+    monkeypatch.setattr(PB, "CHOICES_BYTES_CAP", 1)
+    monkeypatch.setattr(PB, "REPLAY_CHOICES_BYTES", 1)
+    monkeypatch.setattr(PB, "_PROF", True)
+    running, snaps = [], []
+
+    def forward(fn):
+        def run(*args):
+            out, state = fn(*args)
+            running.append(torch.nonzero(
+                out["status"] == C.ST_OVERFLOW_S).flatten().tolist())
+            return out, state
+        return run
+
+    def snapshot(fn):
+        def run(state, rows=None):
+            snaps.append(fn(state, rows))
+            return snaps[-1]
+        return run
+
+    for name in ("align_batch_start", "align_batch_resume"):
+        monkeypatch.setattr(PB.E, name, forward(getattr(PB.E, name)))
+    monkeypatch.setattr(PB, "_snapshot", snapshot(PB._snapshot))
+    spans.reset()
+    seg = PB.align_pairs(attr, bp, bt, device="cpu")
+    counts = collections.defaultdict(list)
+    for _, name, _, _, _, count in spans.log:
+        counts[name].append(count)
+    spans.reset()
+    boundaries = [r for r in running if r]
+    assert boundaries and len(snaps) == len(boundaries)
+    for snap, r in zip(snaps, boundaries):
+        B = snap["carry"].shape[0]
+        kept = (list(range(B)) if snap["rows"] is None
+                else snap["rows"].tolist())
+        assert kept == r and snap["ring"].shape[0] == len(r)
+    assert any(snap["ring"].shape[0] < snap["carry"].shape[0]
+               for snap in snaps)
+    assert counts["compact"] == [len(r) for r in boundaries]
+    assert counts["expand"] and not (collections.Counter(counts["expand"])
+                                     - collections.Counter(counts["compact"]))
+    assert list(map(_key, seg)) == list(map(_key, one))
+    assert list(map(_key, seg)) == list(map(_key,
+                                            ref_align_pairs(ref, bp, bt)))
+
+
+def test_restore_gives_a_left_out_pair_a_null_ring():
+    """A compact snapshot restored into a used state: the kept pairs' ring
+    rows come back, every other pair's ring is NULL, lohi and carry are
+    whole, and the snapshot is left as it was."""
+    g = torch.Generator().manual_seed(3)
+    state = {k: torch.randint(-9, 9, shape, dtype=torch.int32, generator=g)
+             for k, shape in (("ring", (6, 5, 32)), ("lohi", (6, 5, 2)),
+                              ("carry", (6, 12)))}
+    state["s"] = 63
+    snap = PB._snapshot(state, np.array([1, 4]))
+    assert snap["rows"].tolist() == [1, 4] and snap["ring"].shape[0] == 2
+    held = {k: v.clone() for k, v in snap.items() if k != "s"}
+    used = {k: torch.zeros_like(state[k]) for k in ("ring", "lohi", "carry")}
+    for into in (None, used):
+        got = PB._restore(snap, torch.device("cpu"), into=into)
+        assert got["s"] == 63
+        assert torch.equal(got["ring"][[1, 4]], state["ring"][[1, 4]])
+        assert (got["ring"][[0, 2, 3, 5]] == C.NULL).all()
+        assert torch.equal(got["lohi"], state["lohi"])
+        assert torch.equal(got["carry"], state["carry"])
+        if into is not None:
+            assert got["ring"] is used["ring"]
+    assert all(torch.equal(snap[k], v) for k, v in held.items())
+    whole = PB._snapshot(state, np.arange(6))
+    assert whole["rows"] is None
+    assert torch.equal(PB._restore(whole, torch.device("cpu"))["ring"],
+                       state["ring"])

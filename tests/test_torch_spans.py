@@ -38,8 +38,10 @@ PARENTS = {
     "segmented": {"dispatch", ""},
     "forward": {"segmented"},
     "snapshot": {"segmented"},
+    "compact": {"snapshot"},
     "replay": {"segmented"},
     "restore": {"segmented", "replay"},
+    "expand": {"restore"},
     "gather": {"segmented"},
     "pull_wait": {""},
     "finish": {"", "call", "escalate"},
@@ -113,6 +115,9 @@ def _check_counts(log):
     assert all(e[5] > 0 for e in log if e[1] == "escalate")
     assert spans.n["forward"] == PB.segmented_runs["segments"]
     assert spans.n["replay"] == PB.segmented_runs["replays"]
+    # one count a snapshot and a restore: the pairs whose rows they moved
+    assert spans.n["compact"] == spans.n["snapshot"]
+    assert spans.n["expand"] == spans.n["restore"]
 
 
 def test_an_escalating_stream_is_one_tree(traced):
@@ -148,6 +153,7 @@ def test_a_segmented_batch_is_one_tree(traced, monkeypatch):
     assert {("segmented", "dispatch"), ("forward", "segmented"),
             ("loop", "forward"), ("replay", "segmented"),
             ("restore", "replay"), ("walk", "replay"),
+            ("compact", "snapshot"), ("expand", "restore"),
             ("gather", "segmented"), ("native_fill", "segmented")} <= under
 
 
