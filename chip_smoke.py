@@ -839,38 +839,38 @@ def _device_inputs(cfg, pats, txts, dev, frees_row=(0, 0, 0, 0)):
     return bits, lens[0], lens[1], PB._to_device(frees, dev)
 
 
+def rung_plan(attr, pats, txts, second=False, wildcard=None, Lp=None,
+              Lt=None):
+    """The batch path's plan (batch._plan_rung) of the first rung of these
+    pairs, or of the second (batch._next_caps), which they escalate to when
+    they pass the first; and the handle the dispatch makes."""
+    import torch
+    from pywfa_tpu_torch import batch as PB
+    h = PB._prepare(attr, pats, txts, wildcard, torch.device("cpu"), Lp=Lp,
+                    Lt=Lt)
+    if not second:
+        return h.rung, h
+    W, S_cap = PB._next_caps(h.rung, h.attr0, h.maxLp, h.maxLt)
+    return PB._plan_rung(h.attr0, h.Lp, h.Lt, min(h.maxLp, h.maxLt), h.B,
+                         wildcard, W, S_cap, True), h
+
+
 def rung1_config(attr, pats, txts, wildcard=None):
     """The first rung the batch path picks for these pairs."""
-    from pywfa_tpu_torch import batch as PB
-    from pywfa_tpu_torch.attributes import validate_alignment
-    maxLp = max(map(len, pats))
-    maxLt = max(map(len, txts))
-    attr0 = validate_alignment(attr, maxLp, maxLt)
-    _, cfg, _ = PB._derive_config(attr0, PB._bucket_len(maxLp),
-                                  PB._bucket_len(maxLt), min(maxLp, maxLt),
-                                  None, None, False, wildcard)
-    return cfg
+    return rung_plan(attr, pats, txts, wildcard=wildcard)[0].cfg
 
 
 def api_single_inputs(attr, pat, txt):
     """The 16-pair batch and the first-rung config of one WavefrontAligner
     call, as engine_adapter.align_single and batch.align_pairs_dispatch
     build them: power-of-two length buckets, "A"/"A" pad pairs."""
-    from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch import engine_adapter as EA
     from pywfa_tpu_torch.attributes import validate_alignment
-    Lp = EA._bucket_len(len(pat), EA.DEFAULT_SCHEDULE)
-    Lt = EA._bucket_len(len(txt), EA.DEFAULT_SCHEDULE)
-    attr0 = validate_alignment(attr, len(pat), len(txt))
-    pad = PB._bucket_B(1) - 1
-    pats, txts = [pat] + [b"A"] * pad, [txt] + [b"A"] * pad
-    maxLp, maxLt = max(map(len, pats)), max(map(len, txts))
-    attr0 = validate_alignment(PB._clamp_frees(attr0, maxLp, maxLt), maxLp,
-                               maxLt)
-    _, cfg, _ = PB._derive_config(attr0, max(Lp, PB._bucket_len(maxLp)),
-                                  max(Lt, PB._bucket_len(maxLt)),
-                                  min(maxLp, maxLt), None, None, False)
-    return (pats, txts), cfg
+    rung, h = rung_plan(
+        validate_alignment(attr, len(pat), len(txt)), [pat], [txt],
+        Lp=EA._bucket_len(len(pat), EA.DEFAULT_SCHEDULE),
+        Lt=EA._bucket_len(len(txt), EA.DEFAULT_SCHEDULE))
+    return (h.patterns, h.texts), rung.cfg
 
 
 def kernel_bound(cfg, args, out, cells, seg_base=0, state_bytes=0,
@@ -967,7 +967,7 @@ def phase_kernel_vs_plain(attr, dev, long_inputs):
     # diagonals on 256 pairs
     pats1k, txts1k = long_inputs["ef"][0]
     shapes.append(("e_rung2", (pats1k, txts1k),
-                   rung2_config(attr, pats1k, txts1k, B_LONG), zero))
+                   rung2_config(attr, pats1k, txts1k), zero))
     records = {}
     # the builds a short-read shape can take (the cluster build is for
     # bands past 1024 diagonals: phase 10)
@@ -1196,7 +1196,7 @@ def phase_stream(dev):
     # per-stage ms/batch on one 4096-pair batch, each stage on its own
     pats1, txts1 = batches[1]
     h = PB.align_pairs_dispatch(attr, pats1, txts1, device=dev)
-    cfg = h.cfg
+    cfg = h.rung.cfg
     PB.align_pairs_finish(h)
     log(f"first rung: W={cfg.W} S_cap={cfg.S_cap} ops_out={cfg.ops_out} "
         f"Lp={cfg.Lp} Lt={cfg.Lt} layout={C.packed_layout(cfg)}")
@@ -1732,24 +1732,11 @@ def start_h_oracle(attr, long_inputs):
     return oracle
 
 
-def rung2_config(attr, pats, txts, B):
+def rung2_config(attr, pats, txts):
     """The second rung the batch path picks for the pairs that pass the
     first (batch.align_pairs_finish's escalation): 4x the score cap, the
-    band sized to match, for a batch of B pairs."""
-    from pywfa_tpu_torch import batch as PB
-    from pywfa_tpu_torch.attributes import validate_alignment
-    from pywfa_tpu_torch.ops import config as C
-    maxLp, maxLt = max(map(len, pats)), max(map(len, txts))
-    attr0 = validate_alignment(attr, maxLp, maxLt)
-    Lp, Lt = PB._bucket_len(maxLp), PB._bucket_len(maxLt)
-    full, cfg, _ = PB._derive_config(attr0, Lp, Lt, min(maxLp, maxLt), None,
-                                     None, False, None)
-    next_S = min(cfg.S_cap * 4, full.S_cap)
-    next_W = min(full.W, C._round_up(
-        max(PB._band_for_score(attr0, next_S, maxLp, maxLt), cfg.W * 2),
-        128))
-    return PB._derive_config(attr0, Lp, Lt, min(maxLp, maxLt), next_W,
-                             next_S, True, None)[1]
+    band sized to match."""
+    return rung_plan(attr, pats, txts, second=True)[0].cfg
 
 
 def _token_rows(cfg, pats, txts, dev):
@@ -1862,23 +1849,19 @@ def f_segment_config(attr, pats1k, txts1k):
     """Stream F's segment: its second rung (256 x W=896) cut to the
     segment length that memory_mode="biwfa" gives it, without the
     record."""
-    from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch.constants import MemoryMode
-    cfg_f = rung2_config(attr, pats1k, txts1k, B_LONG)
-    budget = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
-                 // PB.MEMORY_MODE_DIVISOR[MemoryMode.ULTRALOW])
-    K = max(64, budget // (B_LONG * cfg_f.W))
-    if cfg_f.S_cap * B_LONG * cfg_f.W <= budget or K >= cfg_f.S_cap:
-        raise AssertionError(f"stream F's second rung {cfg_f.S_cap}x{B_LONG}x"
-                             f"{cfg_f.W} would not run in segments")
-    return dataclasses.replace(cfg_f, S_cap=K, record_choices=False)
+    biwfa = dataclasses.replace(attr, memory_mode=MemoryMode.ULTRALOW)
+    rung = rung_plan(biwfa, pats1k, txts1k, second=True)[0]
+    if not rung.segmented:
+        raise AssertionError(f"stream F's second rung {rung.cfg.W} wide "
+                             "would not run in segments")
+    return rung.cfg
 
 
 def phase_long_kernels(dev, long_inputs):
     """K3, the table variants and the wide-band layouts against their
     plain versions (see the module docstring, phase 10)."""
     from pywfa_tpu_torch import BatchWavefrontAligner
-    from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch.constants import MemoryMode
     from pywfa_tpu_torch.ops import config as C
     from pywfa_tpu_torch.ops import engine as TE
@@ -2025,12 +2008,11 @@ def phase_long_kernels(dev, long_inputs):
     # the general build ---
     low = BatchWavefrontAligner(span="end-to-end", device=dev)._attr
     pats_g, txts_g = long_inputs["g"]
-    cfg_g = dataclasses.replace(rung2_config(low, pats_g, txts_g, B_G),
+    cfg_g = dataclasses.replace(rung2_config(low, pats_g, txts_g),
                                 record_choices=False)
     # batch G's own segment length under memory_mode="low"
-    budget = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
-                 // PB.MEMORY_MODE_DIVISOR[MemoryMode.LOW])
-    K_g = max(64, budget // (B_G * cfg_g.W))
+    K_g = rung_plan(dataclasses.replace(low, memory_mode=MemoryMode.LOW),
+                    pats_g, txts_g, second=True)[0].cfg.S_cap
     pats_5k, txts_5k = [p[:5000] for p in pats_g], [t[:5000] for t in txts_g]
     cfg_5k = dataclasses.replace(C.full_config(attr, 5120, 5376, W=3584),
                                  S_cap=96, record_choices=False)
@@ -2622,7 +2604,7 @@ def phase_chunk_kernels(dev, long_inputs):
     # --- G's later segment of 96 scores at W=6912, on the cluster and the
     # general build, from the state 8 segments in ---
     pats_g, txts_g = long_inputs["g"]
-    cfg = dataclasses.replace(rung2_config(attr, pats_g, txts_g, B_G),
+    cfg = dataclasses.replace(rung2_config(attr, pats_g, txts_g),
                               S_cap=96, record_choices=True)
     fwd = dataclasses.replace(cfg, record_choices=False)
     pat, txt, plen, tlen, frees = _token_rows(cfg, pats_g, txts_g, dev)

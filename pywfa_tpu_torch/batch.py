@@ -5,7 +5,8 @@ pack on the host (native C++), push one input array, run the whole device
 pipeline (decode, eq-bits, the fused loop, the walk, the packing) on one
 device, pull one packed output array, then assemble CIGARs with the native
 match-fill (or translate scores, in the score-only scope) and escalate the
-pairs that overflowed the rung.
+pairs that overflowed the rung (`_plan_rung` plans each rung, `_next_caps`
+the next one's caps; `_assemble` and `_settle` finish every rung).
 
 Covered: all five distance metrics, end-to-end or ends-free span with or
 without a match bonus, WF-extension mode, full-CIGAR or score-only scope,
@@ -16,7 +17,7 @@ walk), every memory mode, long reads. Pairs the device does not answer
 scalar oracle on the host and are counted in `oracle_fallbacks`.
 
 Long reads: a rung whose choice record [S_cap, B, W] passes the memory
-mode's share of CHOICES_BYTES_CAP runs segmented (`_align_pairs_remat`,
+mode's share of CHOICES_BYTES_CAP runs segmented (`_execute_segmented`,
 the twin of the reference's): the forward score loop runs in segments of K
 scores without a record, only the state at each segment boundary goes to
 (pinned) host memory, and the traceback runs the segments again from the
@@ -40,6 +41,7 @@ pipeline through the kernels' plain torch versions.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import functools
 import os
@@ -121,11 +123,11 @@ segmented_runs = {"runs": 0, "segments": 0, "replays": 0}
 # The reference's nine keys at the same points: d.config, d.encode,
 # d.push_enqueue (align_pairs_dispatch), p.pull_wait (align_pairs_pull),
 # f.pull, f.native_fill, f.assemble, f.escalate, f.oracle
-# (align_pairs_finish and _assemble). The walk runs inside the device
-# pipeline's call on both packages (here ops/engine.walk_segment, one
+# (align_pairs_finish, _assemble and _settle). The walk runs inside the
+# device pipeline's call on both packages (here ops/engine.walk_segment, one
 # kernel launch on the card, there inside the one compiled program), so it
 # lands in d.push_enqueue, as do decode, eq-bits, the fused loop and the
-# pack. A segmented run's own assembly (_align_pairs_remat -> _assemble)
+# pack. A segmented rung's own assembly (_segmented_rung -> _settle)
 # records the f.* keys too, where the reference's records none. The same
 # switch turns on the port's span tree (spans.py), which splits these
 # intervals by layer, down to the walk's syncs, with self times; where a
@@ -479,22 +481,37 @@ def _bucket_B(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def _derive_config(attr0, Lp: int, Lt: int, min_len: int, W, S_cap,
-                   escalated: bool, wildcard: Optional[int] = None):
-    """(full_probe, cfg, at_full_caps) of one rung: the optimistic first
-    rung scaled to the read length, or the caps the escalation asked for,
-    with the compacted op output below the terminal rung in the full-CIGAR
-    scope. The score-only scope records no choices. Cached, keyed by
-    PYWFA_EXTEND too, which the config captures as it is built."""
-    return _derive_config_cached(
-        attr0, Lp, Lt, min_len, W, S_cap, escalated, wildcard,
-        C.extend_force_env())
+@dataclasses.dataclass(frozen=True)
+class _Rung:
+    """One attempt at a batch. A segmented rung's cfg is its segment's:
+    S_cap = K, no record, use_lcp_table set. full_probe: the worst case."""
+
+    cfg: C.EngineConfig
+    full_probe: C.EngineConfig
+    segmented: bool
+    at_full_caps: bool
+    choices_cap: int
+
+
+def _plan_rung(attr0, Lp: int, Lt: int, min_len: int, B: int, wildcard,
+               W, S_cap, escalated: bool, resumable: bool = False) -> _Rung:
+    """The rung a batch of B pairs runs: the optimistic first rung scaled
+    to the read length, or the caps the escalation asked for, with the
+    compacted op output below the terminal rung in the full-CIGAR scope;
+    segmented where its record [S_cap, B, W] passes the memory mode's share
+    of CHOICES_BYTES_CAP, or when `resumable`. Cached, keyed by the byte
+    caps and PYWFA_EXTEND too (the config captures it as it is built)."""
+    return _plan_rung_cached(
+        attr0, Lp, Lt, min_len, B, wildcard, W, S_cap, escalated, resumable,
+        C.extend_force_env(), CHOICES_BYTES_CAP, REPLAY_CHOICES_BYTES,
+        LCP_TABLE_BYTES_CAP_REMAT)
 
 
 @functools.lru_cache(maxsize=512)
-def _derive_config_cached(attr0, Lp: int, Lt: int, min_len: int, W, S_cap,
-                          escalated: bool, wildcard: Optional[int],
-                          extend_force: str):
+def _plan_rung_cached(attr0, Lp: int, Lt: int, min_len: int, B: int,
+                      wildcard, W, S_cap, escalated: bool, resumable: bool,
+                      extend_force: str, choices_bytes: int,
+                      replay_bytes: int, table_bytes: int) -> _Rung:
     scope_full = attr0.scope == AlignmentScope.COMPUTE_ALIGNMENT
     full_probe = C.full_config(attr0, Lp, Lt, record_choices=scope_full)
     S0 = max(96, C._round_up(min_len // 6 + 1, 32))
@@ -513,23 +530,60 @@ def _derive_config_cached(attr0, Lp: int, Lt: int, min_len: int, W, S_cap,
         oc = min(cfg.S_cap, max(32, C._round_up(cfg.S_cap // 3, 2)))
         if oc < cfg.S_cap:
             cfg = dataclasses.replace(cfg, ops_out=oc)
-    return full_probe, cfg, at_full_caps
+    # the memory modes scale the record a rung may keep on the device;
+    # medium, low and biwfa segment earlier
+    choices_cap = choices_bytes // MEMORY_MODE_DIVISOR[attr0.memory_mode]
+    segmented = resumable or (scope_full
+                              and cfg.S_cap * B * cfg.W > choices_cap)
+    if segmented:
+        # segments of K scores lift the score cap; the band stays at this
+        # rung's width. K: what one replayed block may take.
+        K = min(max(64, min(replay_bytes, choices_cap) // max(1, B * cfg.W)),
+                full_probe.S_cap)
+        lcp_ok = 2 * B * cfg.W * (cfg.Lt + cfg.extend_chunk) <= table_bytes
+        cfg = dataclasses.replace(cfg, record_choices=False,
+                                  use_lcp_table=lcp_ok, S_cap=K)
+        at_full_caps = cfg.W >= full_probe.W
+    return _Rung(cfg, full_probe, segmented, at_full_caps, choices_cap)
+
+
+def _next_caps(rung: _Rung, attr0, maxLp: int, maxLt: int):
+    """(W, S_cap) of the rung after `rung`: 4x the score cap, the band
+    sized to match; past a segmented rung, a 4x wider band and no score
+    cap; (None, None) for the terminal rung's worst-case caps."""
+    cfg, full = rung.cfg, rung.full_probe
+    if rung.segmented:
+        return min(full.W, C._round_up(cfg.W * 4, 128)), None
+    next_S = min(cfg.S_cap * 4, full.S_cap)
+    if next_S >= full.S_cap:
+        return None, None
+    # at least 2x band growth per rung: a heuristic-capped band does not
+    # grow with the score, and W-overflow pairs must not re-run at an
+    # unchanged width
+    return min(full.W, C._round_up(
+        max(_band_for_score(attr0, next_S, maxLp, maxLt), cfg.W * 2),
+        128)), next_S
 
 
 class _Inflight:
     """A dispatched batch: device work enqueued, host assembly pending."""
 
-    __slots__ = ("results", "attr", "attr0", "cfg", "full_probe",
-                 "patterns", "texts", "wildcard", "plens", "tlens", "pat_np",
-                 "txt_np",
-                 "max_steps_i", "scope_full", "at_full_caps", "Lp", "Lt",
-                 "maxLp", "maxLt", "B", "B0", "device", "out_host", "event",
-                 "packed_np", "segmented")
+    __slots__ = ("results", "attr", "attr0", "rung", "patterns", "texts",
+                 "wildcard", "plens", "tlens", "pat_np", "txt_np",
+                 "max_steps_i", "scope_full", "Lp", "Lt", "maxLp", "maxLt",
+                 "B", "B0", "device", "out_host", "event", "packed_np")
 
     def __init__(self, results=None):
         self.results = results
         self.packed_np = None
-        self.segmented = False
+
+
+# a rung's per-pair outputs: the loop's, in the full scope the walk's (the
+# fallback flags fb, the zero-sparse forward op stream ops), and the token
+# rows the rung ran on
+_Outputs = collections.namedtuple(
+    "_Outputs", "status final_s end_k end_off n_ops k_start fb ops pat_np "
+    "txt_np")
 
 
 @spans.traced("push")
@@ -571,72 +625,68 @@ def align_pairs_stream(attr: AlignerAttributes, batches, wildcard=None,
         yield align_pairs_finish(align_pairs_pull(pending.popleft()))
 
 
-@spans.traced("dispatch")
-def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
-                         texts: Sequence[bytes],
-                         wildcard: Optional[int] = None,
-                         W: Optional[int] = None, S_cap: Optional[int] = None,
-                         Lp: Optional[int] = None, Lt: Optional[int] = None,
-                         device="cuda", _escalated: bool = False,
-                         _force_segmented: bool = False,
-                         _capture: Optional[dict] = None) -> _Inflight:
-    """Phase 1: encode, push, enqueue the device pipeline and the copy of
-    its one packed output into pinned host memory. Does not wait for the
-    device, unless the rung runs segmented: that run is finished here."""
-    dev = _resolve_device(device)
+def _prepare(attr: AlignerAttributes, patterns, texts, wildcard,
+             dev: torch.device, W=None, S_cap=None, Lp=None, Lt=None,
+             escalated: bool = False, resumable: bool = False) -> _Inflight:
+    """The handle of a batch of one pair or more, padded to its size
+    bucket with trivial pairs, with its rung planned."""
     B0 = len(patterns)
     if B0 != len(texts):
         raise ValueError(f"{B0} patterns but {len(texts)} texts")
-    if B0 == 0:
-        return _Inflight(results=[])
-    t0 = spans.begin("config") if _PROF else 0.0
     B = _bucket_B(B0)
     if B != B0:
         patterns = list(patterns) + [b"A"] * (B - B0)
         texts = list(texts) + [b"A"] * (B - B0)
     plens = np.fromiter(map(len, patterns), dtype=np.int32, count=B)
     tlens = np.fromiter(map(len, texts), dtype=np.int32, count=B)
-    maxLp = int(plens.max())
-    maxLt = int(tlens.max())
+    maxLp, maxLt = int(plens.max()), int(tlens.max())
     # clamp the ends-free slack to the batch before validation, so that
     # mixed-length batches pass; _build_frees clamps it per pair
     attr = _clamp_frees(attr, maxLp, maxLt)
     attr0 = validate_alignment(attr, maxLp, maxLt)
-    scope_full = attr0.scope == AlignmentScope.COMPUTE_ALIGNMENT
     Lp = max(Lp or 0, _bucket_len(maxLp))
     Lt = max(Lt or 0, _bucket_len(maxLt))
-    full_probe, cfg, at_full_caps = _derive_config(
-        attr0, Lp, Lt, min(maxLp, maxLt), W, S_cap, _escalated, wildcard)
     h = _Inflight()
-    h.attr, h.attr0, h.cfg, h.full_probe = attr, attr0, cfg, full_probe
+    h.attr, h.attr0 = attr, attr0
+    h.rung = _plan_rung(attr0, Lp, Lt, min(maxLp, maxLt), B, wildcard, W,
+                        S_cap, escalated, resumable)
     h.patterns, h.texts, h.wildcard = patterns, texts, wildcard
     h.plens, h.tlens = plens, tlens
     h.max_steps_i = min(attr0.system.max_alignment_steps, 2**31 - 1)
-    h.scope_full, h.at_full_caps = scope_full, at_full_caps
+    h.scope_full = attr0.scope == AlignmentScope.COMPUTE_ALIGNMENT
     h.Lp, h.Lt, h.maxLp, h.maxLt, h.B, h.B0 = Lp, Lt, maxLp, maxLt, B, B0
     h.device = dev
-    # the memory modes scale the record a rung may keep on the device;
-    # medium, low and biwfa segment earlier
-    choices_cap = (CHOICES_BYTES_CAP
-                   // MEMORY_MODE_DIVISOR[attr0.memory_mode])
-    if ((scope_full and cfg.S_cap * B * cfg.W > choices_cap)
-            or _force_segmented):
-        # the device does not keep the whole record: run segmented, the
-        # traceback by running the segments again. Segments lift the score
-        # cap; the band stays at this rung's width, and pairs that outgrow
-        # it escalate inside _align_pairs_remat.
+    return h
+
+
+@spans.traced("dispatch")
+def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
+                         texts: Sequence[bytes],
+                         wildcard: Optional[int] = None,
+                         W: Optional[int] = None, S_cap: Optional[int] = None,
+                         Lp: Optional[int] = None, Lt: Optional[int] = None,
+                         device="cuda", _escalated: bool = False
+                         ) -> _Inflight:
+    """Phase 1: encode, push, enqueue the device pipeline and the copy of
+    its one packed output into pinned host memory. Does not wait for the
+    device, unless the rung runs segmented: that run is finished here."""
+    dev = _resolve_device(device)
+    if not len(patterns) and not len(texts):
+        return _Inflight(results=[])
+    t0 = spans.begin("config") if _PROF else 0.0
+    h = _prepare(attr, patterns, texts, wildcard, dev, W, S_cap, Lp, Lt,
+                 _escalated)
+    if h.rung.segmented:
         if _PROF:
             spans.end()
-        res = _align_pairs_remat(h, choices_cap, capture=_capture)
-        if _capture is not None and "paused" in _capture:
-            _capture["paused"].B0 = B0
-        return _Inflight(results=res[:B0])
+        return _Inflight(results=_segmented_rung(h)[0])
     if _PROF:
         t0 = _prof_add("d.config", t0, spans.end())
 
-    pat_np, pp = _encode_side(patterns, cfg.Lp, cfg.extend_chunk,
+    cfg, B, plens, tlens = h.rung.cfg, h.B, h.plens, h.tlens
+    pat_np, pp = _encode_side(h.patterns, cfg.Lp, cfg.extend_chunk,
                               PATTERN_SENTINEL, plens)
-    txt_np, pt = _encode_side(texts, cfg.Lt, cfg.extend_chunk,
+    txt_np, pt = _encode_side(h.texts, cfg.Lt, cfg.extend_chunk,
                               TEXT_SENTINEL, tlens)
     if _PROF:
         t0 = _prof_add("d.encode", t0)
@@ -649,7 +699,7 @@ def align_pairs_dispatch(attr: AlignerAttributes, patterns: Sequence[bytes],
         run = E.align_batch_fused_full
     rows_d = _to_device(rows, dev)
     lens_d = _to_device(np.stack([plens, tlens]), dev)
-    frees_np = _build_frees(attr0, B, plens, tlens)
+    frees_np = _build_frees(h.attr0, B, plens, tlens)
     frees = (torch.zeros((B, 4), dtype=torch.int32, device=dev)
              if not frees_np.any() else _to_device(frees_np, dev))
     if _PROF:
@@ -697,16 +747,13 @@ def _pull(h: _Inflight) -> _Inflight:
 
 @spans.traced("finish")
 def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
-    """Phase 2: decode the packed output, assemble CIGARs (native
-    match-fill) or, in the score-only scope, translate the scores;
-    assemble dropped and dead-end pairs as partial alignments from their
-    walk; escalate the pairs that overflowed the rung and send
-    inconsistent walks to the oracle."""
+    """Phase 2: decode the packed output, then settle the rung's pairs
+    (_settle)."""
     if h.results is not None:
         return h.results
     t0 = spans.begin("pull") if _PROF else 0.0
     packed = _pull(h).packed_np
-    cfg, B = h.cfg, h.B
+    cfg, B = h.rung.cfg, h.B
     n_ops = k_start = ops_fwd = None
     if not h.scope_full:
         # the [4, B] int32 meta block of engine.pack_meta
@@ -730,21 +777,19 @@ def align_pairs_finish(h: _Inflight) -> List[BatchResult]:
         fb = meta[6] != 0
     if _PROF:
         t0 = _prof_add("f.pull", t0, spans.end())
-    return _assemble(h, status, final_s, end_k, end_off, n_ops, k_start, fb,
-                     ops_fwd, t0)
+    return _settle(h, _Outputs(status, final_s, end_k, end_off, n_ops,
+                               k_start, fb, ops_fwd, h.pat_np, h.txt_np), t0)
 
 
-def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
-              fb, ops_fwd, t0: float = 0.0) -> List[BatchResult]:
-    """Results of a batch from the loop's per-pair outputs and, in the
-    full scope, the walk's (the zero-sparse forward op stream ops_fwd, its
-    count n_ops, the start diagonal k_start, the fallback flags fb), for a
-    one-shot rung and a segmented run alike. `t0` starts the stage
-    timers under PYWFA_PROF (0: from here)."""
+def _assemble(h: _Inflight, o: _Outputs, t0: float):
+    """(results, the pairs to escalate, the pairs for the oracle, t0): the
+    results of the pairs the rung answered (the others' are None)."""
     if _PROF:
         t = spans.begin("native_fill")
         t0 = t0 or t
-    cfg, B = h.cfg, h.B
+    (status, final_s, end_k, end_off, n_ops, k_start, fb, ops_fwd, pat_np,
+     txt_np) = o
+    rung, cfg, B = h.rung, h.rung.cfg, h.B
     plens, tlens = h.plens, h.tlens
     pen = h.attr0.penalties
     scope_full = h.scope_full
@@ -757,7 +802,7 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
     if scope_full:
         clean_idx = np.flatnonzero(clean_np).tolist()
         if clean_idx:
-            native_ops = _native_fill(cfg, clean_idx, h.pat_np, h.txt_np,
+            native_ops = _native_fill(cfg, clean_idx, pat_np, txt_np,
                                       plens, tlens, end_k, end_off, ops_fwd,
                                       k_start, wildcard)
         # dropped pairs with a walked backtrace: the same batched fill,
@@ -768,7 +813,7 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
             & (end_off > 0)).tolist()
         if part_idx:
             native_ops.update(_native_fill(
-                cfg, part_idx, h.pat_np, h.txt_np, plens, tlens, end_k,
+                cfg, part_idx, pat_np, txt_np, plens, tlens, end_k,
                 end_off, ops_fwd, k_start, wildcard, capped=True))
     if _PROF:
         t0 = _prof_add("f.native_fill", t0, spans.end())
@@ -792,8 +837,8 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
                    for b, sc, ev, eh, s in
                    zip(range(B), sc_a, ev_l, eh_l, final_s_l)]
         if _PROF:
-            _prof_add("f.assemble", t0, spans.end())
-        return results[:h.B0]
+            t0 = _prof_add("f.assemble", t0, spans.end())
+        return results, [], [], t0
 
     escalate_idx: List[int] = []
     oracle_idx: List[int] = []
@@ -801,6 +846,18 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
     fb_l = fb.tolist()
     plens_l = plens.tolist()
     tlens_l = tlens.tolist()
+
+    def fill(b, ev, eh, cap_h=None):
+        """The pair's op string from its walk, with the trailing free ops
+        of the ends-free span, the I block first."""
+        ops = native_ops.get(b)
+        if ops is None:
+            ops = (_match_fill(h.patterns[b], h.texts[b], ops_fwd[b],
+                               int(k_start[b]), plens_l[b], tlens_l[b],
+                               wildcard, cap_h=cap_h, mtbl=mtbl)
+                   + "I" * (tlens_l[b] - eh) + "D" * (plens_l[b] - ev))
+        return ops
+
     for b in range(B):
         st = status_l[b]
         if st == C.ST_END_REACHED and not scope_full:
@@ -809,16 +866,7 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
                                      False)
         elif st == C.ST_END_REACHED and not fb_l[b]:
             ev, eh = ev_l[b], eh_l[b]
-            ops = native_ops.get(b)
-            if ops is None:
-                ops = _match_fill(h.patterns[b], h.texts[b], ops_fwd[b],
-                                  int(k_start[b]), plens_l[b], tlens_l[b],
-                                  wildcard, mtbl=mtbl)
-                # ends-free: the trailing free ops, the I block first
-                if eh < tlens_l[b]:
-                    ops += "I" * (tlens_l[b] - eh)
-                if ev < plens_l[b]:
-                    ops += "D" * (plens_l[b] - ev)
+            ops = fill(b, ev, eh)
             if extension:
                 results[b] = _maxtrim_result(pen, sc_a[b], ops, ev, eh,
                                              final_s_l[b])
@@ -830,8 +878,8 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
                                      -h.max_steps_i, "", 0, 0,
                                      final_s_l[b], False)
         elif (st in (C.ST_OVERFLOW_W, C.ST_OVERFLOW_S)
-              and not h.at_full_caps
-              and (st == C.ST_OVERFLOW_W or not h.segmented)):
+              and not rung.at_full_caps
+              and (st == C.ST_OVERFLOW_W or not rung.segmented)):
             # (a segmented run has no score cap to escalate past)
             escalate_idx.append(b)
         elif st == C.ST_END_UNREACHABLE and (
@@ -851,17 +899,8 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
                     ops = ("I" * (eh - nm) + "D" * (ev - nm) + "M" * nm
                            + "I" * (tlens_l[b] - eh)
                            + "D" * (plens_l[b] - ev))
-                elif b in native_ops:
-                    ops = native_ops[b]
                 else:
-                    ops = _match_fill(h.patterns[b], h.texts[b], ops_fwd[b],
-                                      int(k_start[b]), plens_l[b],
-                                      tlens_l[b], wildcard, cap_h=eh,
-                                      mtbl=mtbl)
-                    if eh < tlens_l[b]:
-                        ops += "I" * (tlens_l[b] - eh)
-                    if ev < plens_l[b]:
-                        ops += "D" * (plens_l[b] - ev)
+                    ops = fill(b, ev, eh, cap_h=eh)
             results[b] = _unreachable_result(pen, scope_full, final_s_l[b],
                                              int(end_k[b]), eoff, ops)
         else:
@@ -875,33 +914,29 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
             oracle_idx.append(b)
     if _PROF:
         t0 = _prof_add("f.assemble", t0, spans.end())
+    return results, escalate_idx, oracle_idx, t0
 
+
+def _settle(h: _Inflight, o: _Outputs, t0: float = 0.0
+            ) -> List[BatchResult]:
+    """The results of a rung, one-shot or segmented, from its outputs:
+    _assemble's, then the overflowed pairs' through align_pairs at the
+    next rung's caps (its spans nested in this rung's), then the oracle's.
+    `t0` starts the stage timers under PYWFA_PROF (0: from here)."""
+    results, escalate_idx, oracle_idx, t0 = _assemble(h, o, t0)
     if escalate_idx:
         if _PROF:
             spans.begin("escalate")
-        # geometric escalation: 4x the score cap, band sized to match
         if h.attr0.system.verbose >= 3:
+            cfg = h.rung.cfg
             print(f"[pywfa_tpu_torch::align] escalating "
-                  f"{len(escalate_idx)}/{B} pairs past bucket "
+                  f"{len(escalate_idx)}/{h.B} pairs past bucket "
                   f"(W={cfg.W}, S_cap={cfg.S_cap})", file=sys.stderr,
                   flush=True)
-        next_S = min(cfg.S_cap * 4, h.full_probe.S_cap)
-        if h.segmented:
-            # a 4x wider band, bounded by the worst case; no score cap
-            next_W = min(h.full_probe.W, C._round_up(cfg.W * 4, 128))
-            next_S = None
-        elif next_S >= h.full_probe.S_cap:
-            next_W, next_S = None, None  # terminal rung: worst-case caps
-        else:
-            # at least 2x band growth per rung: a heuristic-capped band
-            # does not grow with the score, and W-overflow pairs must not
-            # re-run at an unchanged width
-            next_W = min(h.full_probe.W, C._round_up(
-                max(_band_for_score(h.attr0, next_S, h.maxLp, h.maxLt),
-                    cfg.W * 2), 128))
+        W, S_cap = _next_caps(h.rung, h.attr0, h.maxLp, h.maxLt)
         sub = align_pairs(h.attr, [h.patterns[b] for b in escalate_idx],
-                          [h.texts[b] for b in escalate_idx], wildcard,
-                          W=next_W, S_cap=next_S, Lp=h.Lp, Lt=h.Lt,
+                          [h.texts[b] for b in escalate_idx], h.wildcard,
+                          W=W, S_cap=S_cap, Lp=h.Lp, Lt=h.Lt,
                           device=h.device, _escalated=True)
         for b, r in zip(escalate_idx, sub):
             results[b] = r
@@ -912,10 +947,10 @@ def _assemble(h: _Inflight, status, final_s, end_k, end_off, n_ops, k_start,
             spans.begin("oracle")
         for b in oracle_idx:
             results[b] = _oracle_one(h.attr, h.patterns[b], h.texts[b],
-                                     wildcard)
+                                     h.wildcard)
         if _PROF:
             _prof_add("f.oracle", t0, spans.end())
-    return results[:h.B0]  # type: ignore[return-value]
+    return results[:h.B0]
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -988,12 +1023,6 @@ def _restore(snap: dict, dev: torch.device,
             "carry": into["carry"]}
 
 
-def _running_pairs(out: dict) -> np.ndarray:
-    """The pairs still running at the segment's end (sorted indices);
-    waits for the segment (the one sync of a forward segment)."""
-    return np.flatnonzero((out["status"] == C.ST_OVERFLOW_S).cpu().numpy())
-
-
 def _print_progress(cfg, B: int, s_now: int, state: dict,
                     snaps_bytes: int) -> None:
     """One progress line of a segmented run (verbose >= 3), at a segment
@@ -1023,59 +1052,36 @@ def _print_progress(cfg, B: int, s_now: int, state: dict,
 
 
 @spans.traced("segmented")
-def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
-                       resume_state=None, resume_cfg=None, capture=None
-                       ) -> List[BatchResult]:
-    """Bounded-memory execution: segments, and the traceback by running
-    them again.
+def _segmented_rung(h: _Inflight, resume: Optional["PausedBatch"] = None,
+                    pausable: bool = False):
+    """(results, paused): a segmented rung run by the executor, then
+    assembled and settled like any rung."""
+    o, paused = _execute_segmented(h, resume, pausable)
+    return _settle(h, o), paused
+
+
+def _execute_segmented(h: _Inflight, resume: Optional["PausedBatch"],
+                       pausable: bool):
+    """(outputs, paused) of the handle's segmented rung; `paused`, when
+    `pausable` and pairs ended at the step cap, continues them.
 
     The forward score loop runs in segments of K scores WITHOUT the choice
-    record; only the state at each segment boundary is copied to host
-    memory, with the ring rows of the pairs still running there alone. The
-    traceback then runs the segments again from the top one down, each
-    from its boundary state (restored into the same device buffers) with
-    its record on the device, and walks it at once
-    (engine.align_batch_replay_walk): the record never leaves the device.
-    Memory: the device holds the ring and ONE K x B x W block; the host
-    one state a segment. Twice the forward compute buys a record of
-    bounded size.
-
-    The band stays at this rung's width: pairs that outgrow it report
-    ST_OVERFLOW_W and run again with a 4x wider band.
-
-    resume_snaps / resume_state / resume_cfg: the continuation of a run
-    paused at the step cap (align_pairs_resume): the forward loop goes on
-    from the retained state, and the boundary of the pause is one more
-    snapshot, so that the traceback covers the new levels. capture: a
-    dict that receives the retained state under "paused" when pairs end at
-    the step cap.
-    """
+    record; the state at each segment boundary goes to host memory, with
+    the ring rows of the pairs still running there alone. The traceback
+    runs the segments again from the top one down, each from its boundary
+    state (restored into the same device buffers) with its record on the
+    device, and walks it at once (engine.align_batch_replay_walk). The
+    device holds the ring and ONE K x B x W block, the host one state a
+    segment. `resume`: a paused run's checkpoint, whose state the forward
+    loop goes on from; its boundary is one more snapshot."""
     attr0, dev, B = h.attr0, h.device, h.B
-    scope_full = h.scope_full
-    S_total = h.full_probe.S_cap
-    if resume_cfg is not None:
-        cfg = dataclasses.replace(resume_cfg, record_choices=False)
-        K = cfg.S_cap
-    else:
-        big = h.cfg
-        lcp_ok = (2 * B * big.W * (big.Lt + big.extend_chunk)
-                  <= LCP_TABLE_BYTES_CAP_REMAT)
-        # the segment length: what one replayed block may take
-        budget = min(REPLAY_CHOICES_BYTES, choices_cap)
-        K = min(max(64, budget // max(1, B * big.W)), S_total)
-        cfg = dataclasses.replace(big, record_choices=False,
-                                  use_lcp_table=lcp_ok, S_cap=K)
+    cfg, K = h.rung.cfg, h.rung.cfg.S_cap
     cfg_rec = dataclasses.replace(cfg, record_choices=True)
-    h.cfg = cfg
-    h.segmented = True
-    h.at_full_caps = cfg.W >= h.full_probe.W
     pat_np, _ = _encode_side(h.patterns, cfg.Lp, cfg.extend_chunk,
                              PATTERN_SENTINEL, h.plens)
     txt_np, _ = _encode_side(h.texts, cfg.Lt, cfg.extend_chunk,
                              TEXT_SENTINEL, h.tlens)
-    h.pat_np, h.txt_np = pat_np, txt_np
-    lens_d = _to_device(np.stack([h.plens, h.tlens]), dev)
-    plen, tlen = lens_d[0], lens_d[1]
+    plen, tlen = _to_device(np.stack([h.plens, h.tlens]), dev)
     frees = _to_device(_build_frees(attr0, B, h.plens, h.tlens), dev)
     max_steps = h.max_steps_i
     # the extension's input, once for every segment and replay
@@ -1088,29 +1094,30 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
     probe = max(attr0.system.probe_interval_global, 1)
     next_probe = probe
     # host copies of the state at the starts of segments 1 .. n-1
-    snaps = list(resume_snaps) if resume_snaps else []
+    snaps = list(resume.snaps) if resume else []
     prof = _PROF
-    if resume_state is None:
-        if prof:
-            spans.begin("forward")
+    if resume is not None:
+        # the continuation of a pause: un-pause the retained state and
+        # snapshot the boundary, so that the walk covers the new levels
+        state = fused_loop.unpause_max_steps(_restore(resume.state, dev))
+        done = state["carry"][:, fused_loop.CARRY.index("done")]
+        snaps.append(_snapshot(state, np.flatnonzero(done.cpu().numpy() == 0)))
+    if prof:
+        spans.begin("forward")
+    if resume is None:
         out, state = E.align_batch_start(cfg, ext, plen, tlen, frees,
                                          max_steps)
     else:
-        # the continuation of a pause: un-pause the retained state and
-        # snapshot the boundary, so that the walk covers the new levels
-        state = fused_loop.unpause_max_steps(_restore(resume_state, dev))
-        done = state["carry"][:, fused_loop.CARRY.index("done")]
-        snaps.append(_snapshot(state, np.flatnonzero(done.cpu().numpy() == 0)))
-        if prof:
-            spans.begin("forward")
         out, state = E.align_batch_resume(cfg, ext, plen, tlen, frees,
                                           max_steps, state)
-    max_segments = (S_total + K - 2) // (K - 1) + 1
+    max_segments = (h.rung.full_probe.S_cap + K - 2) // (K - 1) + 1
     snaps_bytes = 0
     # a span "forward" a segment: its loop and the wait for its end
     for _ in range(max_segments):
         segmented_runs["segments"] += 1
-        running = _running_pairs(out)
+        # the pairs still running, sorted: the segment's one sync
+        running = np.flatnonzero(
+            (out["status"] == C.ST_OVERFLOW_S).cpu().numpy())
         if prof:
             spans.end()
         if not running.size:
@@ -1133,20 +1140,16 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
             spans.end()
     n_segments = len(snaps) + 1
 
-    meta = torch.stack([out["status"], out["final_s"], out["end_k"],
-                        out["end_off"]]).cpu().numpy()
-    status, final_s, end_k, end_off = meta
-    if capture is not None and (status == C.ST_MAX_STEPS).any():
-        pb = PausedBatch()
-        pb.handle, pb.cfg, pb.snaps = h, cfg, snaps
-        pb.state = _snapshot(state)
-        pb.choices_cap = choices_cap
-        pb.B0 = B  # the dispatch overwrites it with the size before padding
-        capture["paused"] = pb
+    status, final_s, end_k, end_off = torch.stack([
+        out["status"], out["final_s"], out["end_k"],
+        out["end_off"]]).cpu().numpy()
+    paused = None
+    if pausable and (status == C.ST_MAX_STEPS).any():
+        paused = PausedBatch(h, snaps, _snapshot(state))
 
     fb = np.zeros(B, dtype=bool)
     n_ops = k_start = ops_all = None
-    if scope_full:
+    if h.scope_full:
         ok = E.walkable(out)
         # walk the top segment first, each block made again on the device
         carry = E.walk_carry_init(out["final_s"], out["end_k"], ok)
@@ -1186,10 +1189,11 @@ def _align_pairs_remat(h: _Inflight, choices_cap: int, resume_snaps=None,
         if prof:
             spans.end()
         n_ops = (ops_all != 0).sum(axis=1).astype(np.int32)
-    return _assemble(h, status, final_s, end_k, end_off, n_ops, k_start, fb,
-                     ops_all)
+    return _Outputs(status, final_s, end_k, end_off, n_ops, k_start, fb,
+                    ops_all, pat_np, txt_np), paused
 
 
+@dataclasses.dataclass(slots=True)
 class PausedBatch:
     """The retained checkpoint of a segmented batch run that paused at the
     step cap.
@@ -1200,11 +1204,14 @@ class PausedBatch:
     instead of aligning again from score 0.
     """
 
-    __slots__ = ("handle", "cfg", "snaps", "state", "choices_cap", "B0")
+    handle: _Inflight
+    snaps: list
+    state: dict
 
 
 def align_pairs_resumable(attr: AlignerAttributes, patterns, texts,
-                          wildcard: Optional[int] = None, **kw):
+                          wildcard: Optional[int] = None, device="cuda",
+                          **kw):
     """align_pairs through the checkpointed segmented executor.
 
     Returns (results, paused): `paused` is None when every pair resolved,
@@ -1213,11 +1220,11 @@ def align_pairs_resumable(attr: AlignerAttributes, patterns, texts,
     STATUS_MAX_STEPS_REACHED and score -max_steps). Continue with
     align_pairs_resume(paused, new_max_steps).
     """
-    cap: dict = {}
-    res = align_pairs_finish(align_pairs_dispatch(
-        attr, patterns, texts, wildcard, _force_segmented=True,
-        _capture=cap, **kw))
-    return res, cap.get("paused")
+    dev = _resolve_device(device)
+    if not len(patterns) and not len(texts):
+        return [], None
+    h = _prepare(attr, patterns, texts, wildcard, dev, resumable=True, **kw)
+    return _segmented_rung(h, pausable=True)
 
 
 def align_pairs_resume(paused: PausedBatch, max_steps: int):
@@ -1232,22 +1239,10 @@ def align_pairs_resume(paused: PausedBatch, max_steps: int):
         return dataclasses.replace(a, system=dataclasses.replace(
             a.system, max_alignment_steps=max_steps))
 
-    old = paused.handle
-    h = _Inflight()
-    for name in _Inflight.__slots__:
-        if hasattr(old, name):
-            setattr(h, name, getattr(old, name))
-    h.attr, h.attr0 = raised(old.attr), raised(old.attr0)
+    h = copy.copy(paused.handle)
+    h.attr, h.attr0 = raised(h.attr), raised(h.attr0)
     h.max_steps_i = min(max_steps, 2**31 - 1)
-    cap: dict = {}
-    res = _align_pairs_remat(h, paused.choices_cap,
-                             resume_snaps=paused.snaps,
-                             resume_state=paused.state,
-                             resume_cfg=paused.cfg, capture=cap)
-    paused2 = cap.get("paused")
-    if paused2 is not None:
-        paused2.B0 = paused.B0
-    return res[:paused.B0], paused2
+    return _segmented_rung(h, paused, pausable=True)
 
 
 class BatchWavefrontAligner:

@@ -18,7 +18,7 @@ def align_single(attr: AlignerAttributes, pattern: bytes, text: bytes,
                  wildcard: Optional[int], device="cuda") -> OracleResult:
     """Align one pair of any length on `device`; a long pair's rungs run
     with several diagonals a thread and, past the memory mode's record
-    budget, segmented (see batch._align_pairs_remat)."""
+    budget, segmented (see batch._execute_segmented)."""
     plen, tlen = len(pattern), len(text)
     if plen == 0:
         # degenerate; the oracle holds the edge semantics, as in the

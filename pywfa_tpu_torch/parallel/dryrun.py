@@ -98,7 +98,7 @@ def _shard_and_run(mesh, cfg, args, walk=False):
 
 
 def _segmented_under_mesh(mesh, cfg, host) -> dict:
-    """The segmented run with the shards' inputs (batch._align_pairs_remat's
+    """The segmented run with the shards' inputs (batch._execute_segmented's
     engine sequence): the forward loop of `cfg` (no record) in S_cap-sized
     segments with host snapshots of each shard's state, then each shard's
     traceback by running its segments again with the record on its

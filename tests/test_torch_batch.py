@@ -76,7 +76,7 @@ def test_escalation_reaches_wider_rungs(monkeypatch):
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
     h = PB.align_pairs_dispatch(attr, pats, txts, device="cpu")
-    assert h.cfg.ops_out > 0 and not h.at_full_caps
+    assert h.rung.cfg.ops_out > 0 and not h.rung.at_full_caps
     packed = PB.align_pairs_pull(h).packed_np
     status = packed[:h.B]
     assert ((status == 4) | (status == 5)).any()
@@ -85,14 +85,14 @@ def test_escalation_reaches_wider_rungs(monkeypatch):
 
     def record(*args, **kw):
         sub = dispatch(*args, **kw)
-        rungs.append((sub.cfg.W, sub.cfg.S_cap, sub.at_full_caps))
+        rungs.append((sub.rung.cfg.W, sub.rung.cfg.S_cap, sub.rung.at_full_caps))
         return sub
 
     monkeypatch.setattr(PB, "align_pairs_dispatch", record)
     assert _fields(PB.align_pairs_finish(h)) == _fields(
         BT.align_pairs(attr, pats, txts))
     assert len(rungs) == 2 and not rungs[0][2] and rungs[1][2]
-    assert h.cfg.S_cap < rungs[0][1] < rungs[1][1]
+    assert h.rung.cfg.S_cap < rungs[0][1] < rungs[1][1]
 
 
 def test_match_bonus_penalties_match_reference():
@@ -252,7 +252,7 @@ def test_ends_free_escalation_reaches_wider_rungs(monkeypatch):
 
     def record(*args, **kw):
         sub = dispatch(*args, **kw)
-        rungs.append((sub.cfg.W, sub.cfg.S_cap))
+        rungs.append((sub.rung.cfg.W, sub.rung.cfg.S_cap))
         return sub
 
     monkeypatch.setattr(PB, "align_pairs_dispatch", record)

@@ -45,12 +45,11 @@ def _attr(metric="affine", **kw):
                             **kw)._attributes()
 
 
-def _rung1(attr, maxLp, maxLt):
-    """The first rung the batch path derives for these lengths."""
+def _rung1(attr, maxLp, maxLt, B=4096):
+    """The first rung the batch path plans for B pairs of these lengths."""
     attr0 = validate_alignment(attr, maxLp, maxLt)
-    return PB._derive_config(attr0, PB._bucket_len(maxLp),
-                             PB._bucket_len(maxLt), min(maxLp, maxLt), None,
-                             None, False)[1]
+    return PB._plan_rung(attr0, PB._bucket_len(maxLp), PB._bucket_len(maxLt),
+                         min(maxLp, maxLt), B, None, None, None, False).cfg
 
 
 def _short_read_shapes():
@@ -64,7 +63,8 @@ def _short_read_shapes():
             # one WavefrontAligner call: a 150 bp pair padded to 16 pairs
             # at the API's power-of-two buckets
             shapes.append((f"{metric}_api_{scope}",
-                           _rung1(_attr(metric, scope=scope), 256, 256), 16))
+                           _rung1(_attr(metric, scope=scope), 256, 256, 16),
+                           16))
     free = dict(text_begin_free=50, text_end_free=50)
     shapes.append(("windows", _rung1(_attr(**free), 150, 200), 4096))
     shapes.append(("seeded_windows", _rung1(_attr(match=-1, **free), 150,

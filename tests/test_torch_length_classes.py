@@ -102,7 +102,7 @@ def test_a_segmented_mixed_batch(monkeypatch):
     want = PB.align_pairs(attr, pats, txts, device="cpu")
     h = PB.align_pairs_dispatch(attr, pats, txts, device="cpu")
     monkeypatch.setattr(PB, "CHOICES_BYTES_CAP",
-                        h.cfg.S_cap * h.B * h.cfg.W - 1)
+                        h.rung.cfg.S_cap * h.B * h.rung.cfg.W - 1)
     before = dict(PB.segmented_runs)
     res = PB.align_pairs(attr, pats, txts, device="cpu")
     assert PB.segmented_runs["runs"] > before["runs"]

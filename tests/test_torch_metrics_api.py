@@ -128,8 +128,8 @@ def test_escalation_reaches_the_terminal_rung(metric, monkeypatch):
 
     def record(*args, **kw):
         sub = dispatch(*args, **kw)
-        rungs.append((sub.cfg.W, sub.cfg.S_cap, sub.at_full_caps))
-        assert TFL.supported(sub.cfg)
+        rungs.append((sub.rung.cfg.W, sub.rung.cfg.S_cap, sub.rung.at_full_caps))
+        assert TFL.supported(sub.rung.cfg)
         return sub
 
     monkeypatch.setattr(PB, "align_pairs_dispatch", record)
@@ -188,27 +188,18 @@ def test_wavefront_aligner_matches_reference_backends(metric, span, scope):
 
 
 def _ladder(attr, scope):
-    """Every rung `_derive_config` and the escalation derive for 150 bp
-    reads under `attr` (the port's attributes), then the terminal rung of
-    the API's 256 bp bucket."""
+    """Every rung `_plan_rung` and `_next_caps` give a batch of 4096
+    150 bp reads under `attr` (the port's attributes), then the terminal
+    rung of the API's 256 bp bucket."""
     attr = PB.validate_alignment(attr, 150, 150)
     Lp = Lt = PB._bucket_len(150)
-    full_probe, cfg, _ = PB._derive_config(attr, Lp, Lt, 150, None, None,
-                                           False)
-    rungs = [cfg]
-    while not (cfg.S_cap >= full_probe.S_cap and cfg.W >= full_probe.W):
-        next_S = min(cfg.S_cap * 4, full_probe.S_cap)
-        if next_S >= full_probe.S_cap:
-            _, cfg, at_full = PB._derive_config(attr, Lp, Lt, 150, None, None,
-                                                True)
-            assert at_full
-        else:
-            next_W = min(full_probe.W, C._round_up(
-                max(PB._band_for_score(attr, next_S, 150, 150), cfg.W * 2),
-                128))
-            _, cfg, _ = PB._derive_config(attr, Lp, Lt, 150, next_W, next_S,
-                                          True)
-        rungs.append(cfg)
+    rung = PB._plan_rung(attr, Lp, Lt, 150, 4096, None, None, None, False)
+    rungs = [rung.cfg]
+    while not rung.at_full_caps:
+        W, S_cap = PB._next_caps(rung, attr, 150, 150)
+        rung = PB._plan_rung(attr, Lp, Lt, 150, 4096, None, W, S_cap, True)
+        assert not rung.segmented
+        rungs.append(rung.cfg)
     assert len(rungs) >= 2
     rungs.append(C.full_config(attr, 256, 256,
                                record_choices=scope == "full"))
@@ -219,8 +210,8 @@ def _ladder(attr, scope):
 @pytest.mark.parametrize("scope", ["full", "score"])
 @pytest.mark.parametrize("metric", ALL_METRICS)
 def test_supported_at_every_rung_of_the_ladder(metric, scope, span):
-    """Every rung `_derive_config` and the escalation derive for 150 bp
-    reads, and the terminal rung of the API's 256 bp bucket, fits the
+    """Every rung `_plan_rung` and `_next_caps` give 150 bp reads, and
+    the terminal rung of the API's 256 bp bucket, fits the
     kernel: one thread a diagonal and the ring in shared memory (affine2p's
     terminal rung, W 512 with a scope of 26, only with the ring's
     per-component depth)."""

@@ -95,8 +95,10 @@ def test_segmented_configurations_match_oneshot(monkeypatch, kw):
     one = PB.align_pairs(attr, bp, bt, wildcard=wildcard, device="cpu")
     monkeypatch.setattr(PB, "CHOICES_BYTES_CAP", 1)
     monkeypatch.setattr(PB, "REPLAY_CHOICES_BYTES", 1)
-    seg = PB.align_pairs_finish(PB.align_pairs_dispatch(
-        attr, bp, bt, wildcard, device="cpu", _force_segmented=True))
+    # the checkpointed executor runs segmented whatever the scope
+    seg, paused = PB.align_pairs_resumable(attr, bp, bt, wildcard,
+                                           device="cpu")
+    assert paused is None
     for field in ("status", "score", "ops", "end_v", "end_h", "wf_score",
                   "dropped"):
         assert [getattr(r, field) for r in seg] == [getattr(r, field)

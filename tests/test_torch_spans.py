@@ -140,10 +140,11 @@ def test_an_escalating_stream_is_one_tree(traced):
 def test_a_segmented_batch_is_one_tree(traced, monkeypatch):
     # segments of 64 scores, so that the run has several to replay
     monkeypatch.setattr(PB, "REPLAY_CHOICES_BYTES", 1)
+    monkeypatch.setattr(PB, "CHOICES_BYTES_CAP", 1)
     attr = WavefrontAligner(backend="numpy", span="end-to-end")._attributes()
     pats, txts = _escalating_batch()
     res = PB.align_pairs_finish(PB.align_pairs_dispatch(
-        attr, pats, txts, device="cpu", _force_segmented=True))
+        attr, pats, txts, device="cpu"))
     assert len(res) == 4
     log = _check_tree()
     _check_counts(log)
@@ -179,8 +180,9 @@ def test_switch_off_records_nothing(monkeypatch):
     attr = WavefrontAligner(backend="numpy", span="end-to-end")._attributes()
     pats, txts = _escalating_batch()
     list(PB.align_pairs_stream(attr, [(pats, txts)], device="cpu"))
+    monkeypatch.setattr(PB, "CHOICES_BYTES_CAP", 1)
     PB.align_pairs_finish(PB.align_pairs_dispatch(
-        attr, pats, txts, device="cpu", _force_segmented=True))
+        attr, pats, txts, device="cpu"))
     WavefrontAligner(device="cpu")(txts[0].decode(), pats[0].decode())
     assert not opened
     assert not spans.total_s and not spans.self_s and not spans.n

@@ -11,7 +11,7 @@ spans with the match bonus's later seeds, a score delta past 16 bits,
 batches of 1 pair and of sizes
 that are not a multiple of the block, a record past 2**31 bytes, the
 steps the traced walk reads, and a segmented 10 kb batch through
-`batch._align_pairs_remat` against the same batch walked by the plain
+`batch._execute_segmented` against the same batch walked by the plain
 loop.
 
 Runs only where a CUDA device is present (marker `cuda`); imports no jax:
@@ -251,7 +251,7 @@ def test_traced_walk_reads_its_steps(dev, monkeypatch):
 
 
 def test_segmented_10kb_batch_matches_the_plain_walk(dev, monkeypatch):
-    """`batch._align_pairs_remat` on 10 kb pairs, its replays walked by the
+    """`batch._execute_segmented` on 10 kb pairs, its replays walked by the
     kernel, against the same batch with every walk the plain loop's."""
     pairs = random_pairs(81, 24, 9800, 10200, 0.02, 0.03, as_bytes=True)
     pats = [p for p, _ in pairs]

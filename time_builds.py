@@ -217,7 +217,6 @@ def main():
 
     cs = _smoke()
     from pywfa_tpu_torch import BatchWavefrontAligner
-    from pywfa_tpu_torch import batch as PB
     from pywfa_tpu_torch.constants import MemoryMode
     from pywfa_tpu_torch.ops import config as C
     from pywfa_tpu_torch.ops import cuda_build
@@ -273,17 +272,12 @@ def main():
                 cfg, bits, plen, tlen, frees, MAXS, table=table,
                 state=state, fresh=True, build=build)
 
-    cfg_f = cs.rung2_config(attr, pats1k, txts1k, cs.B_LONG)
-    budget = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
-                 // PB.MEMORY_MODE_DIVISOR[MemoryMode.ULTRALOW])
-    cfg_f = dataclasses.replace(
-        cfg_f, S_cap=max(64, budget // (cs.B_LONG * cfg_f.W)),
-        record_choices=False)
-    cfg_g = dataclasses.replace(cs.rung2_config(attr, pats_g, txts_g, cs.B_G),
+    cfg_f = cs.f_segment_config(attr, pats1k, txts1k)
+    cfg_g = dataclasses.replace(cs.rung2_config(attr, pats_g, txts_g),
                                 record_choices=False)
-    budget_g = min(PB.REPLAY_CHOICES_BYTES, PB.CHOICES_BYTES_CAP
-                   // PB.MEMORY_MODE_DIVISOR[MemoryMode.LOW])
-    K_g = max(64, budget_g // (cs.B_G * cfg_g.W))
+    # batch G's own segment length under memory_mode="low"
+    K_g = cs.rung_plan(dataclasses.replace(attr, memory_mode=MemoryMode.LOW),
+                       pats_g, txts_g, second=True)[0].cfg.S_cap
     if opts.lcp:
         lcp(cs, tree, dev, attr, long_inputs, cfg_f)
         return 0
